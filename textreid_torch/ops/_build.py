@@ -1,0 +1,115 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
+with a plain C interface, loaded with ``ctypes``.  No PyTorch header is
+included, so a build takes seconds.  The library lands in
+``build/textreid_torch/`` beside the package and is keyed on a hash of the
+sources and flags, so a fresh checkout builds at first use and an edited
+source rebuilds.  Nothing here runs at import time: the CPU tests import
+every module without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "textreid_torch"
+# -Xptxas -v: registers, shared memory and spills per kernel, kept in the
+# build log that chip_smoke.py prints
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each kernel entry point: (argtypes); every one returns the
+# cudaError_t of its launch as an int
+SIGNATURES = {
+    # xf, xb, w_f, w_b, lengths, out, B, T, H, is_bf16, stream
+    "bigru_pooled_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, g, vals, idx, part_vals, part_idx, Q, G, D, k, valid_gallery,
+    # splits, stream
+    "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P),
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, then ``$CUDA_HOME/bin``, then the toolkit torch
+    itself located."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = [os.environ.get("CUDA_HOME", "")]
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    homes.append(CUDA_HOME or "")
+    for home in homes:
+        cand = os.path.join(home, "bin", "nvcc") if home else ""
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "textreid_torch cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library unless this source hash is already built.
+    Returns ``(path, nvcc output)``; raises with nvcc's stderr on failure."""
+    lib_path = BUILD_DIR / f"libtextreid_kernels_{source_hash()}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        return lib_path, log_path.read_text() if log_path.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    log_path.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half
+    return lib_path, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.textreid_error_string.argtypes = [ctypes.c_int]
+    lib.textreid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        text = library().textreid_error_string(err).decode()
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError_t {err} ({text})")

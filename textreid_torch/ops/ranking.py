@@ -1,0 +1,113 @@
+"""Streaming similarity top-k for retrieval ranking.
+
+Counterpart of ``textreid_tpu/ops/ranking_pallas.py:topk_similarity`` and
+its pad-and-trim wrapper ``topk_similarity_padded``: the CUDA kernel
+``csrc/topk_similarity.cu`` masks ragged query and gallery edges itself, so
+one function takes any Q and G.  On a CUDA tensor :func:`topk_similarity`
+launches the kernel; on a CPU tensor it runs :func:`topk_similarity_plain`,
+the kernel's contract.  Nothing falls back from one to the other.
+
+Order is (score desc, gallery row desc): on an exact tie the larger row
+wins.  Slots past the valid rows hold ``NEG_INF`` and row ``-1``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+NEG_INF = -3.0e38
+K_MAX = 64  # the kernel keeps at most 64 entries per query (2 per lane)
+D_MAX = 768  # queries + one padded gallery tile in 227 KB of shared memory
+
+
+def topk_similarity_plain(queries: torch.Tensor, gallery: torch.Tensor,
+                          k: int, valid_gallery: int = 0):
+    """float32 ``queries @ gallery.T``, then a stable sort of the
+    gallery-reversed scores, so that ties go to the larger row
+    (``torch.topk`` promises no tie order).  Rows ``>= valid_gallery``
+    (0 = all) never rank.  Returns ``([Q, k] f32, [Q, k] int32)``."""
+    n_q = queries.shape[0]
+    n_g = gallery.shape[0]
+    valid = min(valid_gallery or n_g, n_g)
+    scores = queries.float() @ gallery[:valid].float().T  # [Q, valid]
+    order = torch.sort(scores.flip(1), dim=1, descending=True,
+                       stable=True)
+    take = min(k, valid)
+    vals = queries.new_full((n_q, k), NEG_INF, dtype=torch.float32)
+    idx = torch.full((n_q, k), -1, dtype=torch.int32, device=queries.device)
+    vals[:, :take] = order.values[:, :take]
+    idx[:, :take] = (valid - 1 - order.indices[:, :take]).to(torch.int32)
+    return vals, idx
+
+
+def _check_inputs(queries, gallery, k) -> None:
+    if queries.dim() != 2 or gallery.dim() != 2 or (
+            queries.shape[1] != gallery.shape[1]):
+        raise ValueError(f"need queries [Q, D] and gallery [G, D]; got "
+                         f"{tuple(queries.shape)}, {tuple(gallery.shape)}")
+    dim = queries.shape[1]
+    if dim % 4 or dim > D_MAX:
+        raise ValueError(f"topk_similarity_f32 needs D % 4 == 0 and "
+                         f"D <= {D_MAX}; got D={dim}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"topk_similarity_f32 takes 1 <= k <= {K_MAX}; "
+                         f"got {k}")
+    for name, t in (("queries", queries), ("gallery", gallery)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+        if not t.is_cuda or t.device != queries.device:
+            raise ValueError(f"{name} must be on {queries.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def gallery_splits(n_q: int, n_rows: int, sm_count: int) -> int:
+    """How many blocks share one query tile's gallery: enough for about two
+    blocks per SM, and at least 4 tiles of 64 rows per split."""
+    q_tiles = -(-n_q // 8)
+    return max(1, min(2 * sm_count // q_tiles, -(-n_rows // 64) // 4))
+
+
+def _topk_cuda(queries, gallery, k, valid_gallery):
+    _check_inputs(queries, gallery, k)
+    n_q, dim = queries.shape
+    n_g = gallery.shape[0]
+    valid = min(valid_gallery or n_g, n_g)
+    dev = queries.device
+    vals = torch.empty(n_q, k, dtype=torch.float32, device=dev)
+    idx = torch.empty(n_q, k, dtype=torch.int32, device=dev)
+    if n_q == 0:
+        return vals, idx
+    splits = gallery_splits(
+        n_q, valid, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # per-split sorted lists, merged by a second kernel (unused at 1 split)
+    part_vals = torch.empty(n_q, splits, k, dtype=torch.float32, device=dev)
+    part_idx = torch.empty(n_q, splits, k, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.topk_similarity_f32(
+            queries.data_ptr(), gallery.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(), n_q,
+            n_g, dim, k, valid, splits, stream)
+    _build.check(err, "topk_similarity_f32")
+    topk_similarity.launches += 1
+    return vals, idx
+
+
+def topk_similarity(queries: torch.Tensor, gallery: torch.Tensor,
+                    k: int = 10, valid_gallery: int = 0):
+    """Top-k of ``queries @ gallery.T`` without materialising it on CUDA.
+
+    ``valid_gallery`` (0 = all rows) masks trailing gallery rows.  Returns
+    ``([Q, k] f32 scores, [Q, k] int32 rows)``, rows sorted descending.  A
+    CUDA tensor launches ``topk_similarity_f32`` (counted in
+    ``topk_similarity.launches``); a CPU tensor runs the plain version."""
+    if queries.is_cuda:
+        return _topk_cuda(queries, gallery, k, valid_gallery)
+    return topk_similarity_plain(queries, gallery, k, valid_gallery)
+
+
+topk_similarity.launches = 0
