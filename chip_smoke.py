@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -11,8 +11,12 @@ before the result line:
 1. Environment: the card (name, power limit), torch and CUDA versions, and
    the build of the hand-written kernels from ``textreid_torch/csrc``.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving shapes, with the tolerances stated below.
-3. The slice through its entry points at the flagship width
+   shapes its paths give it, with the tolerances stated below: K1 and K2 at
+   the serving shapes; K5 and K6 at the ViT-B/16 shape (B=128, S=193,
+   W=768, 12 heads) in bf16 and f32 and at the causal CLIP-text shape
+   (B=128, S=77, W=512, 8 heads); K1's autograd path (kernel forward,
+   plain recompute backward) against autograd through the plain version.
+3. The serving slice through its entry points at the flagship width
    (``flagship_cfg("")``: CLIP RN50 at 384x128, bi-GRU H=512, T=105,
    seeded weights): ``textreid_torch.tools.build_index`` on a synthetic
    CUHK-PEDES test split, ``textreid_torch.tools.serve`` booted in-process
@@ -21,6 +25,19 @@ before the result line:
    queries through the plain versions on the card must agree.
 4. Timings with CUDA events (kernels) or the host clock around work that
    ends in a synchronize (gallery encode, /search latency).
+5. The training slice through ``textreid_torch.train_net.main`` at full
+   width (``configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_2048.yaml``:
+   ViT-B/16 at 384x128 + bi-GRU H=512, MoCo K=2048, batch 128, bf16
+   towers, seeded weights, random frozen token table) on a synthetic
+   CUHK-PEDES train split, for a few steps.  Launch counters are zeroed
+   just before and read just after: K1 2, K5 24 and K6 12 per step.
+   Losses must be finite, the queue pointer advanced, the checkpoint
+   written.
+6. One f32 step with the kernels against one with their plain versions,
+   from the same state and batch: loss dicts and every parameter's update.
+7. Step time (median, bf16, after warmup) with the kernels and with their
+   plain versions, peak device memory, and the share of K1's plain
+   recompute backward.
 
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -49,6 +66,23 @@ K1_TOL = {"float32": 1e-5,   # same f32 math, another summation order
                              # 2 ulp of bf16 below 1.0 (h is tanh-bounded)
 K2_TOL = 1e-5                # f32 dot products of length 256
 SLICE_TOL = 1e-4             # served scores against the plain path
+# K5/K6, max |kernel - plain| over max |plain| (the values are O(1)):
+ATTN_TOL = {"float32": 1e-5,   # same f32 math, another summation order
+            "bfloat16": 8e-3}  # p, ds and the outputs rounded to bf16 at
+                               # the same points; a last-bit difference of
+                               # an f32 sum moves one rounding by one ulp
+                               # (2^-8 relative), so 2 ulp
+K1_GRAD_TOL = 1e-5           # f32: the backward IS the plain recompute;
+                             # only the forward differs, by <= 1e-5
+STEP_LOSS_RTOL = 1e-4        # f32 step, kernels vs plain: loss values
+# f32 step, kernels vs plain: ||update_kernel - update_plain|| over
+# ||update_plain|| per parameter, over the entries whose gradient (weight
+# decay included) is above 1e-6; below it Adam's g / (|g| + 1e-8) follows
+# rounding noise (the attention's key bias has an exactly zero gradient)
+STEP_UPDATE_RTOL = 1e-3
+NOISE_FLOOR = 1e-6
+VIT_YAML = "configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_2048.yaml"
+TRAIN_STEPS = 3
 
 
 def fail(msg):
@@ -194,6 +228,83 @@ def check_k2():
         if not math.isfinite(err) or err > K2_TOL or bad or not ties_ok:
             fail(f"K2 G={n_g} k={k} disagrees with its plain version")
         worst = max(worst, err)
+    return worst
+
+
+def attn_inputs(batch, seq, width, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(batch, seq, 3 * width, device="cuda", generator=g)
+    grad = torch.randn(batch, seq, width, device="cuda", generator=g)
+    return qkv.to(dtype), grad.to(dtype)
+
+
+ATTN_CASES = [  # (name, batch, seq, width, heads, causal)
+    ("ViT-B/16", 128, 193, 768, 12, False),
+    ("CLIP text", 128, 77, 512, 8, True),
+]
+
+
+def check_attention():
+    """K5 and K6 against their plain versions; returns the worst absolute
+    error per (kernel, dtype)."""
+    import torch
+    from textreid_torch.ops import attention as A
+
+    worst = {}
+    for name, batch, seq, width, heads, causal in ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, g = attn_inputs(batch, seq, width, dtype, seed=seq)
+            pairs = (("K5", A.fused_attention(qkv, heads, causal),
+                      A.fused_attention_plain(qkv, heads, causal)),
+                     ("K6", A.fused_attention_bwd(qkv, g, heads, causal),
+                      A.fused_attention_bwd_plain(qkv, g, heads, causal)))
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[1]
+            for kname, got, want in pairs:
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    fail(f"{kname} {name} {dname}: {got.shape}/{got.dtype} "
+                         f"vs {want.shape}/{want.dtype}")
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                log(f"{kname} {name} B={batch} S={seq} W={width} H={heads} "
+                    f"causal={causal} {dname}: max_abs_err={err:.3e}, "
+                    f"relative {err / scale:.3e} (tol {ATTN_TOL[dname]:.0e})")
+                if not math.isfinite(err) or err > ATTN_TOL[dname] * scale:
+                    fail(f"{kname} {name} {dname} disagrees with its plain "
+                         "version")
+                if name == "ViT-B/16":
+                    worst[(kname, dname)] = err
+    return worst
+
+
+def check_k1_grad():
+    """K1's autograd Function (kernel forward, plain recompute backward)
+    against autograd through the plain version, f32, training shapes."""
+    import torch
+    from textreid_torch.ops import gru
+
+    args = k1_inputs(128, torch.float32, seed=9)
+    g = torch.randn(128, 1024, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    out = gru.bigru_pooled_scan(*leaves, args[4], pool_mode="batch")
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    ref = gru.zero_participation(
+        gru.bigru_pooled_scan_plain(*ref_leaves, args[4]), args[4], 105,
+        "batch")
+    want = torch.autograd.grad(ref, ref_leaves, g)
+    worst = 0.0
+    for name, a, b in zip(("xf", "xb", "w_f", "w_b"), got, want):
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        worst = max(worst, err)
+        if a.grad_fn is not None or not math.isfinite(err) or (
+                err > K1_GRAD_TOL) or b.abs().max().item() == 0:
+            fail(f"K1 autograd: d/d{name} off by {err:.3e}")
+    log(f"K1 autograd B=128 T=105 H=512 f32: gradients of xf, xb, w_f, w_b "
+        f"within {worst:.3e} of autograd through the plain version "
+        f"(tol {K1_GRAD_TOL:.0e})")
     return worst
 
 
@@ -451,6 +562,272 @@ def time_serving(service, base, rows=3074, batch=128):
     return img_s, p50
 
 
+# -- phases 5-7: the training slice ------------------------------------------
+
+def train_counts():
+    from textreid_torch.ops import attention, gru
+
+    return {"bigru_pooled_fwd": gru.bigru_pooled_scan.launches,
+            "fused_attention_fwd": attention.fused_attention.launches,
+            "fused_attention_bwd": attention.fused_attention_bwd.launches}
+
+
+def zero_train_counts():
+    from textreid_torch.ops import attention, gru
+
+    gru.bigru_pooled_scan.launches = 0
+    attention.fused_attention.launches = 0
+    attention.fused_attention_bwd.launches = 0
+
+
+def drive_training():
+    """``textreid_torch.train_net.main`` on a synthetic train split of
+    TRAIN_STEPS batches.  Returns the counts, the state and meters."""
+    import torch
+    from textreid_torch import train_net
+    from textreid_torch.data import make_synthetic_dataset
+
+    root = os.path.join(WORK, "train")
+    make_synthetic_dataset(
+        os.path.join(root, "datasets", "cuhkpedes"),
+        num_identities=32 * TRAIN_STEPS, images_per_id=4,
+        image_size=(384, 128), vocab_size=512, max_tokens=60, split="train")
+    argv = ["--root", root, "--config-file", os.path.join(REPO, VIT_YAML),
+            "--device", "cuda", "SOLVER.EVALUATE_PERIOD", "0",
+            "SOLVER.NUM_EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
+            "SOLVER.LOG_PERIOD", "1", "TPU.DEBUG_NANS", "True",
+            "TPU.ALLOW_RANDOM_VOCAB", "True", "DATALOADER.NUM_WORKERS", "8"]
+    zero_train_counts()
+    t0 = time.time()
+    state, meters = train_net.main(argv)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    log(f"training slice: train_net.main, {state.step} steps in "
+        f"{time.time() - t0:.1f} s; launches {counts}")
+    ckpt = os.path.join(root, "output", "cuhkpedes",
+                        "moco_gru_clipvitb16_ls_bs128_2048", "epoch_1.pth")
+    return counts, state, meters, ckpt
+
+
+def check_training(counts, state, meters, ckpt):
+    import torch
+
+    steps = state.step
+    if steps != TRAIN_STEPS:
+        fail(f"training slice ran {steps} steps, not {TRAIN_STEPS}")
+    want = {"bigru_pooled_fwd": 2 * steps, "fused_attention_fwd": 24 * steps,
+            "fused_attention_bwd": 12 * steps}
+    if counts != want:
+        fail(f"training slice launches {counts}, expected {want}")
+    losses = list(meters.loss.deque)
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"training losses {losses}")
+    if state.queue_ptr != steps * 128 % 2048:
+        fail(f"queue_ptr {state.queue_ptr} after {steps} steps")
+    if not os.path.isfile(ckpt):
+        fail(f"no checkpoint at {ckpt}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    if saved["queue_ptr"] != state.queue_ptr or saved["meta"]["iteration"] \
+            != steps or not torch.isfinite(saved["v_queue"]).all():
+        fail("the checkpoint does not hold the run's state")
+    log(f"training slice: losses {[round(v, 4) for v in losses]}, "
+        f"queue_ptr {state.queue_ptr}, checkpoint "
+        f"{os.path.relpath(ckpt, REPO)} ({os.path.getsize(ckpt) >> 20} MB)")
+    return losses
+
+
+@contextmanager
+def plain_train_kernels():
+    """Route the ViT blocks' attention and the text tower's fused scan
+    through their plain PyTorch versions (autograd through both)."""
+    import textreid_torch.models.gru as gru_model
+    import textreid_torch.models.vit as vit_model
+    from textreid_torch.ops import attention, gru
+
+    def plain_attention(qkv, heads, causal=False, scale=None):
+        return attention.fused_attention_plain(qkv, heads, causal, scale)
+
+    def plain_scan(xf, xb, w_f, w_b, lengths, pool_mode):
+        pooled = gru.bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
+        return gru.zero_participation(pooled, lengths, xf.shape[1], pool_mode)
+
+    with mock.patch.object(vit_model, "attention", plain_attention), \
+            mock.patch.object(gru_model, "bigru_pooled_scan", plain_scan):
+        yield
+
+
+def train_setup(compute_dtype_name):
+    """Full-width ViT-B/16 + bi-GRU MoCo state on the card and one device
+    batch of 32 identities x 4."""
+    import torch
+    from textreid_torch.config import get_default_cfg
+    from textreid_torch.engine import create_train_state, make_train_step
+    from textreid_torch.models import build_model
+    from textreid_torch.solver import make_optimizer, set_learning_rate
+    from textreid_torch.utils.platform import compute_dtype
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, VIT_YAML))
+    cfg.TPU.ALLOW_RANDOM_VOCAB = True
+    cfg.TPU.COMPUTE_DTYPE = compute_dtype_name
+    model = build_model(cfg, "cuda", torch.float32,
+                        compute_dtype(cfg, "cuda"), train=True)
+
+    def state_of(m):
+        opt = make_optimizer(cfg, m)
+        set_learning_rate(opt, cfg.SOLVER.BASE_LR)
+        return create_train_state(cfg, m, opt, 128)
+
+    rng = np.random.RandomState(11)
+    seq = cfg.INPUT.MAX_TEXT_LENGTH
+    lengths = rng.randint(5, seq + 1, 128).astype(np.int32)
+    ids = np.zeros((128, seq), np.int64)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = rng.randint(1, 512, n)
+    erase = np.zeros((128, 5), np.int32)
+    erase[::4] = [1, 100, 20, 80, 40]
+    batch = {"pixels": rng.randint(0, 256, (128, 384, 128, 3), np.uint8),
+             "erase": erase, "token_ids": ids, "lengths": lengths,
+             "pids": np.repeat(np.arange(32), 4)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    return cfg, model, state_of, make_train_step(cfg), batch
+
+
+def compare_steps():
+    """One f32 step with the kernels and one with their plain versions,
+    from the same state and batch."""
+    import copy
+
+    import torch
+
+    cfg, model, state_of, step, batch = train_setup("float32")
+    states = [state_of(model), state_of(copy.deepcopy(model))]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    zero_train_counts()
+    got = step(states[0], batch)
+    counts = train_counts()
+    with plain_train_kernels():
+        want = step(states[1], batch)
+    torch.cuda.synchronize()
+    if counts != {"bigru_pooled_fwd": 2, "fused_attention_fwd": 24,
+                  "fused_attention_bwd": 12} or train_counts() != counts:
+        fail(f"f32 step launches {counts}, then {train_counts()}")
+    loss_err = 0.0
+    for name in want:
+        a, b = float(got[name]), float(want[name])
+        err = abs(a - b) / max(abs(b), 1e-12)
+        loss_err = max(loss_err, err)
+        log(f"f32 step {name}: kernels {a:.6f}, plain {b:.6f}")
+        if not math.isfinite(a) or err > STEP_LOSS_RTOL:
+            fail(f"f32 step {name} differs by {err:.3e} (rtol "
+                 f"{STEP_LOSS_RTOL:.0e})")
+    decay = {id(p): g["weight_decay"]
+             for g in states[1].optimizer.param_groups for p in g["params"]}
+    worst, worst_name, masked, total = 0.0, "", 0, 0
+    plain_params = dict(states[1].model.named_parameters())
+    for name, p in states[0].model.named_parameters():
+        q = plain_params[name]
+        keep = (q.grad + decay[id(q)] * before[name]).abs() >= NOISE_FLOOR
+        masked += int((~keep).sum())
+        total += keep.numel()
+        d_k = (p.detach() - before[name])[keep]
+        d_p = (q.detach() - before[name])[keep]
+        if d_p.numel() == 0:
+            continue
+        err = ((d_k - d_p).norm() / d_p.norm().clamp_min(1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, name
+        if not math.isfinite(err) or err > STEP_UPDATE_RTOL:
+            fail(f"f32 step: the update of {name} differs by {err:.3e}")
+    log(f"f32 step, kernels vs plain: losses within {loss_err:.3e} "
+        f"(rtol {STEP_LOSS_RTOL:.0e}); worst update error {worst:.3e} at "
+        f"{worst_name} (bound {STEP_UPDATE_RTOL:.0e}; {masked} of {total} "
+        f"entries under the {NOISE_FLOOR:.0e} gradient floor left out)")
+    del states, model, before
+    torch.cuda.empty_cache()
+    return loss_err, worst
+
+
+def time_training(reps=8):
+    """Median ms per bf16 step (kernels, then plain versions, then kernels
+    again), peak memory, and K1's recompute backward at the step's shape."""
+    import torch
+    from textreid_torch.ops import gru
+
+    cfg, model, state_of, step, batch = train_setup("bfloat16")
+    state = state_of(model)
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1000)
+        return out
+
+    timed(3)  # warmup
+    kernel = timed(reps)
+    peak = torch.cuda.max_memory_allocated()
+    with plain_train_kernels():
+        timed(2)
+        plain = timed(reps)
+    kernel += timed(reps)
+    ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
+
+    # K1 at the step's shape: forward (kernel) and forward + backward
+    # (plain recompute), bf16, B=128, T=105, H=512
+    args = k1_inputs(128, torch.bfloat16, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    g = torch.randn(128, 1024, device="cuda", dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            gru.bigru_pooled_scan(*leaves, args[4])
+
+    def fwd_bwd():
+        torch.autograd.backward(
+            gru.bigru_pooled_scan(*leaves, args[4]), g)
+
+    k1_fwd = cuda_ms(fwd, 10)
+    k1_both = cuda_ms(fwd_bwd, 3)
+    log(f"time train step bf16 B=128 (ViT-B/16 384x128 + bi-GRU T=105, "
+        f"K=2048): median {ms:.2f} ms with the kernels "
+        f"({len(kernel)} steps), {plain_ms:.2f} ms with the plain versions "
+        f"({len(plain)} steps); peak memory "
+        f"{peak / 2**30:.2f} GiB ({card_line()})")
+    log(f"time K1 at the step's shape bf16: forward (kernel) {k1_fwd:.3f} ms, "
+        f"backward (plain recompute, autograd) {k1_both - k1_fwd:.3f} ms")
+    del state, model
+    torch.cuda.empty_cache()
+    return ms, plain_ms, peak, k1_fwd, k1_both - k1_fwd
+
+
+def time_attention():
+    """K5 and K6 at the ViT-B/16 shape in bf16, kernel and plain version
+    interleaved."""
+    import torch
+    from textreid_torch.ops import attention as A
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, g = attn_inputs(128, 193, 768, dtype, seed=1)
+        dname = str(dtype).split(".")[1]
+        out[("K5", dname)] = interleaved_ms(
+            lambda: A.fused_attention(qkv, 12),
+            lambda: A.fused_attention_plain(qkv, 12), 10, 5)
+        out[("K6", dname)] = interleaved_ms(
+            lambda: A.fused_attention_bwd(qkv, g, 12),
+            lambda: A.fused_attention_bwd_plain(qkv, g, 12), 10, 5)
+        for k in ("K5", "K6"):
+            ms, plain_ms = out[(k, dname)]
+            log(f"time {k} B=128 S=193 W=768 H=12 {dname}: kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return out
+
+
 def main():
     import torch
 
@@ -478,6 +855,8 @@ def main():
 
     k1_err = check_k1()
     k2_err = check_k2()
+    attn_err = check_attention()
+    check_k1_grad()
 
     service, server, thread, base, text, images, counts = drive_slice()
     try:
@@ -489,17 +868,28 @@ def main():
         server.server_close()
         thread.join(timeout=30)
 
+    train_launches, state, meters, ckpt = drive_training()
+    check_training(train_launches, state, meters, ckpt)
+    del state
+    compare_steps()
+    step_ms, step_plain_ms, peak, k1_fwd_ms, k1_bwd_ms = time_training()
+    attn_times = time_attention()
+
     if "jax" in sys.modules:
         fail("the port imported jax")
     k1_ms, k1_plain = times[("K1", 256, "bfloat16")]
     k2_ms, k2_plain = times[("K2", 3074)]
-    log(f"summary: gallery encode {img_s:.1f} img/s, /search p50 {p50:.3f} ms "
-        f"({card})")
+    log(f"summary: gallery encode {img_s:.1f} img/s, /search p50 {p50:.3f} ms; "
+        f"train step bf16 {step_ms:.2f} ms (plain versions {step_plain_ms:.2f}"
+        f" ms), peak {peak / 2**30:.2f} GiB, K1 recompute backward "
+        f"{k1_bwd_ms:.2f} ms ({card})")
+    log(f"launches: serving {counts}; training {train_launches}")
     log(json.dumps({"kernels": [
         {"name": "bigru_pooled_fwd", "route": "cuda",
          "source": "textreid_torch/csrc/bigru_pooled.cu",
          "replaces": "textreid_tpu/ops/gru_pallas.py:396",
-         "launches": counts["bigru_pooled_fwd"],
+         "launches": counts["bigru_pooled_fwd"]
+         + train_launches["bigru_pooled_fwd"],
          "max_abs_err": k1_err["bfloat16"], "ms": k1_ms,
          "plain_ms": k1_plain},
         {"name": "topk_similarity_f32", "route": "cuda",
@@ -507,6 +897,20 @@ def main():
          "replaces": "textreid_tpu/ops/ranking_pallas.py:211",
          "launches": counts["topk_similarity_f32"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "fused_attention_fwd", "route": "cuda",
+         "source": "textreid_torch/csrc/fused_attention.cu",
+         "replaces": "textreid_tpu/ops/attention_pallas.py:429",
+         "launches": train_launches["fused_attention_fwd"],
+         "max_abs_err": attn_err[("K5", "bfloat16")],
+         "ms": attn_times[("K5", "bfloat16")][0],
+         "plain_ms": attn_times[("K5", "bfloat16")][1]},
+        {"name": "fused_attention_bwd", "route": "cuda",
+         "source": "textreid_torch/csrc/fused_attention.cu",
+         "replaces": "textreid_tpu/ops/attention_pallas.py:694",
+         "launches": train_launches["fused_attention_bwd"],
+         "max_abs_err": attn_err[("K6", "bfloat16")],
+         "ms": attn_times[("K6", "bfloat16")][0],
+         "plain_ms": attn_times[("K6", "bfloat16")][1]},
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

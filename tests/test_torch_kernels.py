@@ -14,7 +14,7 @@ import math
 import pytest
 import torch
 
-from textreid_torch.ops import gru, ranking
+from textreid_torch.ops import attention, gru, ranking
 
 torch.set_num_threads(2)
 
@@ -128,3 +128,86 @@ def test_deep_gru_on_the_card_names_the_missing_kernel(cuda):
     ids = torch.ones(2, 5, dtype=torch.long, device=cuda)
     with pytest.raises(NotImplementedError, match="gru_scan_pallas"):
         enc(ids, torch.full((2,), 5, device=cuda))
+
+
+def _qkv_args(batch, seq, width, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(batch, seq, 3 * width, generator=g)
+    grad = torch.randn(batch, seq, width, generator=g)
+    return qkv.to(device, dtype), grad.to(device, dtype)
+
+
+# relative to the plain version's largest magnitude: f32 sums in another
+# order; bf16 one rounding of the output (or of p, ds) that may land one
+# ulp (2^-8 relative) apart
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,seq,width,heads,causal", [
+    (3, 17, 64, 2, False), (2, 33, 128, 4, True), (4, 193, 768, 12, False),
+    (2, 77, 512, 8, True), (1, 288, 128, 2, True), (2, 1, 64, 1, False)])
+def test_attention_kernels_match_plain(cuda, dtype, batch, seq, width,
+                                       heads, causal):
+    qkv, g = _qkv_args(batch, seq, width, dtype, cuda)
+    before = (attention.fused_attention.launches,
+              attention.fused_attention_bwd.launches)
+    out = attention.fused_attention(qkv, heads, causal)
+    dqkv = attention.fused_attention_bwd(qkv, g, heads, causal)
+    want = attention.fused_attention_plain(qkv, heads, causal)
+    want_d = attention.fused_attention_bwd_plain(qkv, g, heads, causal)
+    torch.cuda.synchronize()
+    assert (attention.fused_attention.launches,
+            attention.fused_attention_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for got, ref in ((out, want), (dqkv, want_d)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_attention_function_on_the_card(cuda):
+    """Forward K5, backward K6, through autograd."""
+    qkv, g = _qkv_args(2, 50, 128, torch.float32, cuda, seed=1)
+    qkv.requires_grad_(True)
+    (got,) = torch.autograd.grad(attention.attention(qkv, 2), qkv, g)
+    want = attention.fused_attention_bwd_plain(qkv.detach(), g, 2)
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    qkv, g = _qkv_args(2, 5, 96, torch.float32, cuda)  # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.fused_attention(qkv, 2)
+    qkv, g = _qkv_args(1, 289, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="S <= 288"):
+        attention.fused_attention(qkv, 1)
+    qkv, g = _qkv_args(2, 5, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="g is"):
+        attention.fused_attention_bwd(qkv, g.bfloat16(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.fused_attention(qkv.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), 2)
+
+
+@pytest.mark.gpu
+def test_bigru_function_gradients_on_the_card(cuda):
+    """K1's autograd Function: gradients equal autograd through the plain
+    version (f32, 1e-5: the same recompute, another summation order in the
+    forward only)."""
+    args = _k1_args(6, 12, 64, torch.float32, cuda)
+    g = torch.randn(6, 128, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    out = gru.bigru_pooled_scan(*leaves, args[4], pool_mode="batch")
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    ref = gru.zero_participation(
+        gru.bigru_pooled_scan_plain(*ref_leaves, args[4]), args[4], 12,
+        "batch")
+    want = torch.autograd.grad(ref, ref_leaves, g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5

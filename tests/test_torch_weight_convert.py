@@ -62,8 +62,9 @@ def jax_pieces():
 
 
 def test_matches_the_jax_exporter_key_for_key(jax_pieces):
-    """On every query key the port's converter gives exactly what the JAX
-    package's exporter gives, so the two cannot drift."""
+    """On every query key (the loss projection included) the port's
+    converter gives exactly what the JAX package's exporter gives, so the
+    two cannot drift."""
     sd = state_dict_from_jax(jax_pieces)
     moco = dict(jax_pieces, key_params=jax_pieces["params"],
                 key_batch_stats=jax_pieces["batch_stats"],
@@ -83,7 +84,7 @@ def test_matches_the_jax_exporter_key_for_key(jax_pieces):
         assert value.dtype == ref[key].dtype, key
     query = {k for k in ref if not k.startswith(
         ("embed_model.v_encoder_k", "embed_model.t_encoder_k",
-         "embed_model.loss_evaluator", "embed_model.v_queue",
+         "embed_model.v_queue",
          "embed_model.t_queue", "embed_model.id_queue",
          "embed_model.queue_ptr"))}
     assert query == set(sd) - {FROZEN_TABLE_KEY}

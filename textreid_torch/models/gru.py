@@ -26,9 +26,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gru import bigru_pooled_scan, zero_participation
+from .common import linear
 
 
 def gru_scan(x_gates: torch.Tensor, w_h: torch.Tensor,
@@ -127,21 +129,31 @@ class BiGRUEncoder(nn.Module):
     def out_channels(self) -> int:
         return 2 * self.hidden_dim
 
-    def embed_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, token_ids: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Token embeddings in ``dtype`` (default: the table's)."""
         if self.frozen_token_table is None:
-            return self.embed(token_ids)
+            x = F.embedding(token_ids, self.embed.weight, padding_idx=0)
+            return x if dtype is None else x.to(dtype)
         x = self.frozen_token_table[token_ids]
-        return x if self.embed is None else self.embed(x)
+        if dtype is not None:
+            x = x.to(dtype)
+        return x if self.embed is None else linear(x, self.embed)
 
     def forward(self, token_ids: torch.Tensor, lengths: torch.Tensor,
-                pool_mode: Optional[str] = None) -> torch.Tensor:
-        """token_ids ``[B, T]``, lengths ``[B]`` -> ``[B, 2H]``.
-        ``pool_mode`` overrides the module's rule for this call."""
+                pool_mode: Optional[str] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """token_ids ``[B, T]``, lengths ``[B]`` -> ``[B, 2H]``, computed in
+        ``dtype`` (default: the token table's).  ``pool_mode`` overrides
+        the module's rule for this call."""
         pool_mode = pool_mode or self.pool_mode
-        x = self.embed_tokens(token_ids)
+        x = self.embed_tokens(token_ids, dtype)
         batch, seq, _ = x.shape
         lengths = lengths.clamp(1, seq).to(torch.int32)
         gru = self.gru
+
+        def weight(name):
+            return getattr(gru, name).to(x.dtype)
 
         def input_gates(inputs, w_ih):
             return (inputs.reshape(batch * seq, -1) @ w_ih.T).reshape(
@@ -149,11 +161,11 @@ class BiGRUEncoder(nn.Module):
 
         if self.num_layers == 1:
             return bigru_pooled_scan(
-                input_gates(x, gru.weight_ih_l0),
+                input_gates(x, weight("weight_ih_l0")),
                 input_gates(reverse_padded(x, lengths),
-                            gru.weight_ih_l0_reverse),
-                gru.weight_hh_l0.T.contiguous(),
-                gru.weight_hh_l0_reverse.T.contiguous(),
+                            weight("weight_ih_l0_reverse")),
+                weight("weight_hh_l0").T.contiguous(),
+                weight("weight_hh_l0_reverse").T.contiguous(),
                 lengths, pool_mode)
         if x.is_cuda:
             raise NotImplementedError(
@@ -163,10 +175,10 @@ class BiGRUEncoder(nn.Module):
         h0 = x.new_zeros(batch, self.hidden_dim)
         layer_in = x
         for layer in range(self.num_layers):
-            w_ih = getattr(gru, f"weight_ih_l{layer}")
-            w_hh = getattr(gru, f"weight_hh_l{layer}")
-            w_ih_r = getattr(gru, f"weight_ih_l{layer}_reverse")
-            w_hh_r = getattr(gru, f"weight_hh_l{layer}_reverse")
+            w_ih = weight(f"weight_ih_l{layer}")
+            w_hh = weight(f"weight_hh_l{layer}")
+            w_ih_r = weight(f"weight_ih_l{layer}_reverse")
+            w_hh_r = weight(f"weight_hh_l{layer}_reverse")
             out_f = gru_scan(input_gates(layer_in, w_ih), w_hh.T, h0)
             rev = reverse_padded(layer_in, lengths)
             out_b = reverse_padded(

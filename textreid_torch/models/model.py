@@ -1,12 +1,16 @@
 """Model composition (counterpart of ``textreid_tpu/models/model.py``):
-visual tower + textual tower + the two retrieval embedding layers.
+visual tower + textual tower + the retrieval embedding layers, the MoCo
+MLP projectors (``MOCO.FC``) and the loss's classifier projection.
 
 Submodule names are the reference torch layout's: ``visual_model``,
-``textual_model`` and ``embed_model.{v,t}_embed_layer``, so a reference
-state dict loads with ``load_state_dict`` (see
-``utils/weight_convert.py:load_reference_state_dict``).  Only the serving
-half exists so far: the MoCo key encoders, queues, projectors and the loss
-projection come with the train step.
+``textual_model``, ``embed_model.{v,t}_embed_layer``,
+``embed_model.{v,t}_fc_q`` and ``embed_model.loss_evaluator.projection``,
+so a reference state dict loads with ``load_state_dict`` (see
+``utils/weight_convert.py:load_reference_state_dict``).  The MoCo key
+encoders and queues live in the train state (``engine/state.py``).
+
+Parameters keep their dtype (f32 masters when training); the towers run in
+``compute_dtype`` by casting them on use (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +21,16 @@ import torch
 from torch import nn
 
 from ..utils.vocab import frozen_table_initializer
+from .common import linear
 from .gru import BiGRUEncoder, build_bigru
 from .m_resnet import build_m_resnet
+from .vit import build_vit
+
+M_RESNETS = ("m_resnet", "m_resnet50", "m_resnet101")
+# towers with BatchNorm: the port has no parity test of their batch
+# statistics in the train step yet
+BN_TOWERS = M_RESNETS + ("resnet18", "resnet34", "resnet50", "resnet101",
+                         "resnet152")
 
 
 def preprocess_pixels(images: torch.Tensor, erase: Optional[torch.Tensor],
@@ -41,16 +53,51 @@ def preprocess_pixels(images: torch.Tensor, erase: Optional[torch.Tensor],
     return x
 
 
-class EmbedHead(nn.Module):
-    """The retrieval embedding layers of the reference MoCo head."""
+class MLPProjector(nn.Sequential):
+    """The 2-layer MoCo projector used when ``MOCO.FC`` is True (reference
+    ``v_fc_q``: Linear, ReLU, Linear; kaiming fan-out init, zero bias)."""
 
-    def __init__(self, v_in: int, t_in: int, feature_size: int):
+    def __init__(self, in_features: int, feature_size: int):
+        super().__init__(nn.Linear(in_features, feature_size), nn.ReLU(),
+                         nn.Linear(feature_size, feature_size))
+        for layer in (self[0], self[2]):
+            nn.init.kaiming_normal_(layer.weight, mode="fan_out")
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(torch.relu(linear(x, self[0])), self[2])
+
+
+class LossEvaluator(nn.Module):
+    """Holder of the identity loss's classifier ``projection``
+    ``[feature_size, num_classes]`` (xavier-uniform, kept in f32)."""
+
+    def __init__(self, feature_size: int, num_classes: int):
+        super().__init__()
+        self.projection = nn.Parameter(torch.empty(feature_size, num_classes))
+        nn.init.xavier_uniform_(self.projection)
+
+
+class EmbedHead(nn.Module):
+    """The reference MoCo head's parameters: embedding layers, optional
+    projectors, the loss projection."""
+
+    def __init__(self, v_in: int, t_in: int, feature_size: int,
+                 num_classes: int = 0, moco_fc: bool = False):
         super().__init__()
         self.v_embed_layer = nn.Linear(v_in, feature_size)
         self.t_embed_layer = nn.Linear(t_in, feature_size)
         for layer in (self.v_embed_layer, self.t_embed_layer):
             nn.init.kaiming_normal_(layer.weight, mode="fan_out")
             nn.init.zeros_(layer.bias)
+        # created after the embed layers, so a seed gives the serving
+        # weights it gave before these existed
+        self.moco_fc = moco_fc
+        if moco_fc:
+            self.v_fc_q = MLPProjector(v_in, feature_size)
+            self.t_fc_q = MLPProjector(t_in, feature_size)
+        if num_classes:
+            self.loss_evaluator = LossEvaluator(feature_size, num_classes)
 
 
 class TextReIDModel(nn.Module):
@@ -59,12 +106,16 @@ class TextReIDModel(nn.Module):
     def __init__(self, visual: nn.Module, textual: BiGRUEncoder,
                  feature_size: int,
                  pixel_mean: Sequence[float] = (0.485, 0.456, 0.406),
-                 pixel_std: Sequence[float] = (0.229, 0.224, 0.225)):
+                 pixel_std: Sequence[float] = (0.229, 0.224, 0.225),
+                 num_classes: int = 0, moco_fc: bool = False):
         super().__init__()
         self.visual_model = visual
         self.textual_model = textual
         self.embed_model = EmbedHead(visual.out_channels,
-                                     textual.out_channels, feature_size)
+                                     textual.out_channels, feature_size,
+                                     num_classes, moco_fc)
+        # dtype the towers run in; None = the parameters' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
         # float32 whatever the model dtype: preprocessing runs in f32
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean),
                              persistent=False)
@@ -73,7 +124,9 @@ class TextReIDModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed_model.v_embed_layer.weight.dtype
+        """The dtype the towers run in."""
+        return (self.compute_dtype
+                or self.embed_model.v_embed_layer.weight.dtype)
 
     def encode_image(self, images: torch.Tensor,
                      erase: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -86,39 +139,75 @@ class TextReIDModel(nn.Module):
 
     def encode_text(self, token_ids: torch.Tensor, lengths: torch.Tensor,
                     pool_mode: Optional[str] = None) -> torch.Tensor:
-        return self.textual_model(token_ids, lengths, pool_mode)
+        return self.textual_model(token_ids, lengths, pool_mode, self.dtype)
 
     def embed_image(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.embed_model.v_embed_layer(feat)
+        return linear(feat, self.embed_model.v_embed_layer)
 
     def embed_text(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.embed_model.t_embed_layer(feat)
+        return linear(feat, self.embed_model.t_embed_layer)
+
+    # -- MoCo contrastive projections (the embed layers when FC is off) ---
+    def project_image(self, feat: torch.Tensor) -> torch.Tensor:
+        if self.embed_model.moco_fc:
+            return self.embed_model.v_fc_q(feat)
+        return self.embed_image(feat)
+
+    def project_text(self, feat: torch.Tensor) -> torch.Tensor:
+        if self.embed_model.moco_fc:
+            return self.embed_model.t_fc_q(feat)
+        return self.embed_text(feat)
+
+    @property
+    def projection(self) -> torch.Tensor:
+        return self.embed_model.loss_evaluator.projection
 
 
-def build_model(cfg, device="cpu", dtype=torch.float32) -> TextReIDModel:
-    """Seeded (``cfg.SEED``) eval-mode model for ``cfg`` on ``device`` in
-    ``dtype``.  Only the CLIP ModifiedResNet + bi-GRU family is ported."""
-    if cfg.MODEL.VISUAL_MODEL not in ("m_resnet", "m_resnet50", "m_resnet101"):
+def build_visual_model(cfg) -> nn.Module:
+    name = cfg.MODEL.VISUAL_MODEL
+    if name in M_RESNETS:
+        return build_m_resnet(cfg)
+    if name.startswith("clip_vit") or name == "vit":
+        return build_vit(cfg)
+    raise NotImplementedError(
+        f"visual tower {name!r} is not ported yet (ROADMAP Queue A item 10: "
+        "torchvision ResNet)")
+
+
+def build_model(cfg, device="cpu", dtype=torch.float32,
+                compute_dtype: Optional[torch.dtype] = None,
+                train: bool = False) -> TextReIDModel:
+    """Seeded (``cfg.SEED``) model for ``cfg`` on ``device``, parameters in
+    ``dtype``, towers running in ``compute_dtype`` (default ``dtype``).
+    ``train=True`` returns it in train mode and refuses the BatchNorm
+    towers, whose batch statistics no parity test covers yet."""
+    name = cfg.MODEL.VISUAL_MODEL
+    if train and name in BN_TOWERS:
         raise NotImplementedError(
-            f"visual tower {cfg.MODEL.VISUAL_MODEL!r} is not ported yet "
-            "(ROADMAP Queue A: torchvision ResNet, ViT and text-transformer "
-            "towers)")
+            f"training the BatchNorm tower {name!r} is not ported yet "
+            "(ROADMAP Queue A item 3: BN batch statistics in the train step)")
     if cfg.MODEL.TEXTUAL_MODEL != "bigru":
         raise NotImplementedError(
             f"textual tower {cfg.MODEL.TEXTUAL_MODEL!r} is not ported yet "
-            "(ROADMAP Queue A: ViT and text-transformer towers)")
+            "(ROADMAP Queue A item 7: the CLIP text transformer)")
     table_init = frozen_table_initializer(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.SEED)
         model = TextReIDModel(
-            visual=build_m_resnet(cfg),
+            visual=build_visual_model(cfg),
             textual=build_bigru(cfg, table_init() if table_init else None),
             feature_size=cfg.MODEL.EMBEDDING.FEATURE_SIZE,
             pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN),
             pixel_std=tuple(cfg.INPUT.PIXEL_STD),
+            num_classes=cfg.MODEL.NUM_CLASSES,
+            moco_fc=(cfg.MODEL.EMBEDDING.EMBED_HEAD == "moco"
+                     and bool(cfg.MODEL.MOCO.FC)),
         )
     model.to(device=device, dtype=dtype)
     # .to(dtype) casts every floating buffer; keep the pixel stats in f32
     model.pixel_mean = model.pixel_mean.float()
     model.pixel_std = model.pixel_std.float()
-    return model.eval()
+    # the loss projection stays f32 whatever the model dtype
+    model.embed_model.loss_evaluator.float()
+    model.compute_dtype = compute_dtype
+    return model.train(train)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``.  No PyTorch header is
-included, so a build takes seconds.  The library lands in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, loaded with ``ctypes``.  No PyTorch header is included, so a
+build takes seconds.  The library lands in
 ``build/textreid_torch/`` beside the package and is keyed on a hash of the
 sources and flags, so a fresh checkout builds at first use and an edited
 source rebuilds.  Nothing here runs at import time: the CPU tests import
@@ -25,10 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "textreid_torch"
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in the
 # build log that chip_smoke.py prints
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each kernel entry point: (argtypes); every one returns the
 # cudaError_t of its launch as an int
 SIGNATURES = {
@@ -38,6 +40,10 @@ SIGNATURES = {
     # splits, stream
     "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
+    # qkv, out, B, S, W, heads, scale, causal, is_bf16, stream
+    "fused_attention_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # qkv, g, dqkv, stats, B, S, W, heads, scale, causal, is_bf16, stream
+    "fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 
@@ -72,6 +78,24 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list) -> str:
+    """Run the commands at once; their output, or raise with the first
+    failure's stderr."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed:
+        cmd, code, err = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{err}")
+    return "".join(logs)
+
+
 def build() -> tuple[Path, str]:
     """Compile the library unless this source hash is already built.
     Returns ``(path, nvcc output)``; raises with nvcc's stderr on failure."""
@@ -80,17 +104,17 @@ def build() -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    log_path.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half
-    return lib_path, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(_sources(), objs)])
+        tmp_lib = str(Path(tmp) / "lib.so")
+        log += _run([[nvcc, "-shared", "-o", tmp_lib, *objs]])
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib_path)  # atomic: a concurrent build never
+        # sees half a library
+    return lib_path, log
 
 
 @functools.cache

@@ -2,7 +2,9 @@
 
 Counterpart of ``textreid_tpu/ops/gru_pallas.py:bigru_pooled_scan``.  On a
 CUDA tensor :func:`bigru_pooled_scan` launches the hand-written kernel
-``csrc/bigru_pooled.cu`` (forward only); on a CPU tensor it runs
+``csrc/bigru_pooled.cu`` through an autograd Function whose backward
+differentiates the plain scan (the JAX package's custom VJP does the same;
+it has no backward kernel either); on a CPU tensor it runs
 :func:`bigru_pooled_scan_plain`, the kernel's contract.  Nothing falls back
 from one to the other.
 
@@ -23,28 +25,30 @@ def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
                             lengths: torch.Tensor) -> torch.Tensor:
     """Both directions' GRU scans in float32, then the max over ``t < len``
     (``-inf`` where a row has no valid step).  Returns ``[B, 2H]`` in the
-    input dtype.  The kernel computes exactly this."""
-    batch, seq, three_h = xf.shape
-    hidden = three_h // 3
+    input dtype.  The kernel computes exactly this.
+
+    It is also the backward's recompute (autograd through it), so it is
+    written for that: the two directions run as one batched loop (``bmm``
+    over a leading axis of 2), and the steps and gates are taken with
+    ``unbind`` and ``chunk``, whose backward assembles the input gradient
+    once, where indexing would fill and add a zero tensor of the input's
+    size at every step."""
+    batch, seq, _ = xf.shape
     valid = (torch.arange(seq, device=xf.device)[None, :]
-             < lengths.to(xf.device)[:, None])  # [B, T]
-    pooled = []
-    for x, w in ((xf, w_f), (xb, w_b)):
-        x = x.float()
-        w = w.float()
-        h = x.new_zeros(batch, hidden)
-        m = x.new_full((batch, hidden), float("-inf"))
-        for t in range(seq):
-            hg = h @ w
-            xg = x[:, t]
-            r = torch.sigmoid(xg[:, :hidden] + hg[:, :hidden])
-            z = torch.sigmoid(xg[:, hidden:2 * hidden]
-                              + hg[:, hidden:2 * hidden])
-            n = torch.tanh(xg[:, 2 * hidden:] + r * hg[:, 2 * hidden:])
-            h = (1.0 - z) * n + z * h
-            m = torch.where(valid[:, t:t + 1], torch.maximum(m, h), m)
-        pooled.append(m)
-    return torch.cat(pooled, dim=1).to(xf.dtype)
+             < lengths.to(xf.device)[:, None]).unbind(1)  # T x [B]
+    steps = torch.stack([xf, xb]).float().unbind(2)  # T x [2, B, 3H]
+    w = torch.stack([w_f, w_b]).float()  # [2, H, 3H]
+    h = steps[0].new_zeros(2, batch, w.shape[1])
+    m = torch.full_like(h, float("-inf"))
+    for t in range(seq):
+        x_r, x_z, x_n = steps[t].chunk(3, dim=-1)
+        h_r, h_z, h_n = torch.bmm(h, w).chunk(3, dim=-1)
+        r = torch.sigmoid(x_r + h_r)
+        z = torch.sigmoid(x_z + h_z)
+        n = torch.tanh(x_n + r * h_n)
+        h = (1.0 - z) * n + z * h
+        m = torch.where(valid[t][None, :, None], torch.maximum(m, h), m)
+    return torch.cat([m[0], m[1]], dim=1).to(xf.dtype)
 
 
 def _check_inputs(xf, xb, w_f, w_b, lengths) -> None:
@@ -93,19 +97,43 @@ def _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths) -> torch.Tensor:
     return out
 
 
+class _BigruPooled(torch.autograd.Function):
+    """Kernel forward; the backward reruns :func:`bigru_pooled_scan_plain`
+    on the saved inputs with autograd on and backpropagates through it,
+    the recompute VJP of ``bigru_pooled_scan`` in ``gru_pallas.py`` (its
+    ``bwd``).  The recompute runs in f32, as the plain version does (JAX
+    recomputes in the input dtype); each gradient comes back in its
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, xf, xb, w_f, w_b, lengths):
+        ctx.save_for_backward(xf, xb, w_f, w_b, lengths)
+        return _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths)
+
+    @staticmethod
+    def backward(ctx, g):
+        *inputs, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in inputs]
+            out = bigru_pooled_scan_plain(*inputs, lengths)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
+
+
 def bigru_pooled_scan(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
                       w_b: torch.Tensor, lengths: torch.Tensor,
                       pool_mode: str = "batch") -> torch.Tensor:
     """Fused 1-layer bi-GRU: scan both directions and max-pool over valid
     time steps, then apply the zero-participation rule of
     ``models.gru.masked_max_pool`` (``pool_mode`` "batch" or "always").
-    Returns ``[B, 2H]`` in the input dtype.
+    Returns ``[B, 2H]`` in the input dtype; differentiable on both paths.
 
     A CUDA tensor launches ``bigru_pooled_fwd`` (counted in
-    ``bigru_pooled_scan.launches``); a CPU tensor runs the plain version.
+    ``bigru_pooled_scan.launches``, forward launches only); a CPU tensor
+    runs the plain version.
     """
     if xf.is_cuda:
-        pooled = _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths)
+        pooled = _BigruPooled.apply(xf, xb, w_f, w_b, lengths)
     else:
         pooled = bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
     return zero_participation(pooled, lengths, xf.shape[1], pool_mode)

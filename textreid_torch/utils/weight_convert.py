@@ -1,18 +1,25 @@
 """Weights between the JAX package, the reference torch layout and the port.
 
 * :func:`state_dict_from_jax` — the JAX ``TrainState`` pieces (as numpy
-  arrays) -> a reference-layout state dict for the port's serving model.
-  It is the inverse of ``textreid_tpu/utils/weight_convert.py``'s importers
-  for the query towers and embed layers, written again in numpy alone (the
-  port never imports JAX), and it also carries the frozen token table,
-  which the reference layout has no slot for.
+  arrays) -> a reference-layout state dict for the port's model: query
+  towers (CLIP ModifiedResNet or ViT, bi-GRU), embed layers, MoCo
+  projectors and the loss projection.  It is the inverse of
+  ``textreid_tpu/utils/weight_convert.py``'s importers, written again in
+  numpy alone (the port never imports JAX), and it also carries the frozen
+  token table, which the reference layout has no slot for.
+* :func:`train_state_from_jax` — the same for a whole MoCo train state:
+  query and key models, queues and pointer.
+* :func:`convert_clip_vit` — a CLIP ViT state dict -> the port's
+  ``visual_model`` keys, with the position embedding resized.
 * :func:`load_reference_state_dict` — a reference ``.pth`` state dict ->
   the port's model, refusing any key it does not know.
 
 Layout rules: flax conv ``[kh, kw, in, out]`` -> torch ``[out, in, kh, kw]``;
 flax dense ``[in, out]`` -> torch ``[out, in]``; our GRU ``fwd_w_ih_l0
 [E, 3H]`` -> ``gru.weight_ih_l0 [3H, E]`` (gate order r, z, n); BN
-scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var.
+scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var;
+LayerNorm scale/bias -> weight/bias.  Queues are ``[K, D]`` in both
+packages.
 """
 
 from __future__ import annotations
@@ -87,6 +94,31 @@ def _visual(out: dict, prefix: str, params: dict, stats: dict) -> None:
         _dense(out, f"{prefix}attnpool.{name}", attn[name])
 
 
+def _ln(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = p["scale"]
+    out[f"{prefix}.bias"] = p["bias"]
+
+
+def _vit(out: dict, prefix: str, params: dict) -> None:
+    """CLIP ViT: the inverse of ``convert_clip_vit``."""
+    out[f"{prefix}conv1.weight"] = _conv(params["patch_embed"]["kernel"])
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        out[f"{prefix}{name}"] = params[name]
+    _ln(out, f"{prefix}ln_pre", params["ln_pre"])
+    _ln(out, f"{prefix}ln_post", params["ln_post"])
+    blocks = sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("block_"))
+    for i in blocks:
+        bp, dst = params[f"block_{i}"], f"{prefix}transformer.resblocks.{i}"
+        _ln(out, f"{dst}.ln_1", bp["ln_1"])
+        _ln(out, f"{dst}.ln_2", bp["ln_2"])
+        out[f"{dst}.attn.in_proj_weight"] = _linear(bp["qkv"]["kernel"])
+        out[f"{dst}.attn.in_proj_bias"] = bp["qkv"]["bias"]
+        _dense(out, f"{dst}.attn.out_proj", bp["out_proj"])
+        _dense(out, f"{dst}.mlp.c_fc", bp["c_fc"])
+        _dense(out, f"{dst}.mlp.c_proj", bp["c_proj"])
+
+
 def _textual(out: dict, prefix: str, params: dict) -> None:
     """bi-GRU: the inverse of ``convert_gru``."""
     if "token_embedding" in params:
@@ -107,19 +139,109 @@ def _textual(out: dict, prefix: str, params: dict) -> None:
 def state_dict_from_jax(pieces: dict) -> dict:
     """JAX ``TrainState`` pieces (``params``, ``batch_stats``,
     ``constants``; any Mapping of array-likes) -> the port's reference-layout
-    state dict (numpy values): query towers, embed layers, and the frozen
-    token table when the text tower has one."""
+    state dict (numpy values): query towers, embed layers, MoCo projectors
+    and loss projection where the params have them, and the frozen token
+    table when the text tower has one."""
     params = _numpy_tree(pieces["params"])
     stats = _numpy_tree(pieces.get("batch_stats", {}))
     constants = _numpy_tree(pieces.get("constants", {}))
     out: dict = {}
-    _visual(out, "visual_model.", params["visual"], stats["visual"])
+    if "patch_embed" in params["visual"]:
+        _vit(out, "visual_model.", params["visual"])
+    else:
+        _visual(out, "visual_model.", params["visual"], stats["visual"])
     _textual(out, "textual_model.", params["textual"])
     table = constants.get("textual", {}).get("frozen_token_table")
     if table is not None:
         out[FROZEN_TABLE_KEY] = table
     _dense(out, "embed_model.v_embed_layer", params["v_embed_layer"])
     _dense(out, "embed_model.t_embed_layer", params["t_embed_layer"])
+    for tower in ("v", "t"):
+        if f"{tower}_fc" in params:
+            fc = params[f"{tower}_fc"]
+            _dense(out, f"embed_model.{tower}_fc_q.0", fc["fc1"])
+            _dense(out, f"embed_model.{tower}_fc_q.2", fc["fc2"])
+    if "projection" in params:
+        out["embed_model.loss_evaluator.projection"] = params["projection"]
+    return out
+
+
+def train_state_from_jax(pieces: dict) -> dict:
+    """A JAX MoCo ``TrainState``'s pieces -> ``{"model", "key_model"}``
+    state dicts (see :func:`state_dict_from_jax`; the key model is built
+    from ``key_params``/``key_batch_stats``) plus ``v_queue``, ``t_queue``
+    ``[K, D]``, ``id_queue [K]`` and ``queue_ptr`` as numpy values, for
+    ``engine.state.TrainState.load``."""
+    constants = pieces.get("constants", {})
+    return {
+        "model": state_dict_from_jax(pieces),
+        "key_model": state_dict_from_jax({
+            "params": pieces["key_params"],
+            "batch_stats": pieces.get("key_batch_stats", {}),
+            "constants": constants}),
+        "v_queue": np.asarray(pieces["v_queue"]),
+        "t_queue": np.asarray(pieces["t_queue"]),
+        "id_queue": np.asarray(pieces["id_queue"]),
+        "queue_ptr": int(np.asarray(pieces["queue_ptr"])),
+    }
+
+
+def _bilinear_axis(x: np.ndarray, new_size: int, axis: int) -> np.ndarray:
+    """Bilinear resample along one axis with half-pixel centres and no
+    antialiasing: torch ``F.interpolate(mode="bilinear",
+    align_corners=False)``."""
+    old_size = x.shape[axis]
+    if old_size == new_size:
+        return x
+    coords = (np.arange(new_size) + 0.5) * (old_size / new_size) - 0.5
+    lo = np.floor(coords).astype(np.int64)
+    frac = (coords - lo).astype(x.dtype)
+    a = np.take(x, np.clip(lo, 0, old_size - 1), axis=axis)
+    b = np.take(x, np.clip(lo + 1, 0, old_size - 1), axis=axis)
+    shape = [1] * x.ndim
+    shape[axis] = new_size
+    frac = frac.reshape(shape)
+    return a * (1 - frac) + b * frac
+
+
+def resize_pos_embed(posemb: np.ndarray, new_grid) -> np.ndarray:
+    """Bilinear resize of a CLIP position embedding ``[1 + g*g, W]`` from
+    its square grid to ``new_grid``; the class-token row is kept."""
+    tok, grid = posemb[:1], posemb[1:]
+    side = int(round(len(grid) ** 0.5))
+    if side * side != len(grid):
+        raise ValueError(f"non-square source grid: {len(grid)} positions")
+    grid = grid.reshape(side, side, -1)
+    grid = _bilinear_axis(grid, new_grid[0], axis=0)
+    grid = _bilinear_axis(grid, new_grid[1], axis=1)
+    return np.concatenate(
+        [tok, grid.reshape(new_grid[0] * new_grid[1], -1)], axis=0)
+
+
+def convert_clip_vit(sd: Mapping, layers: int, final_grid=None,
+                     prefix: str = "visual_model.") -> dict:
+    """CLIP VisionTransformer state dict (a whole CLIP archive's
+    ``visual.*`` subtree, or the bare tower) -> the port's ``visual_model``
+    keys (numpy values) for the first ``layers`` blocks, the position
+    embedding resized to ``final_grid`` when the grids differ.  The port's
+    ViT keeps CLIP's names, so this is a rename and the resize."""
+    if any(k.startswith("visual.") for k in sd):
+        # a whole CLIP archive: its text tower has transformer.resblocks.*
+        # keys of its own
+        sd = {k[len("visual."):]: v for k, v in sd.items()
+              if k.startswith("visual.")}
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    pos = sd["positional_embedding"]
+    if final_grid is not None and len(pos) - 1 != final_grid[0] * final_grid[1]:
+        sd["positional_embedding"] = resize_pos_embed(pos, final_grid)
+    keep = re.compile(r"^(conv1\.weight|class_embedding|positional_embedding|"
+                      r"ln_pre\.|ln_post\.|proj$|transformer\.resblocks\.)")
+    block = re.compile(r"^transformer\.resblocks\.(\d+)\.")
+    out = {prefix + k: v for k, v in sd.items() if keep.match(k) and not (
+        block.match(k) and int(block.match(k).group(1)) >= layers)}
+    for i in range(layers):
+        if f"{prefix}transformer.resblocks.{i}.attn.in_proj_weight" not in out:
+            raise KeyError(f"CLIP ViT state dict has no block {i}")
     return out
 
 
@@ -127,22 +249,26 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping) -> None:
     """Load a reference-layout state dict (numpy or torch values, with or
     without a DataParallel ``module.`` prefix) into the port's model.
 
-    Keys the serving model has no use for (MoCo key encoders, projectors,
-    queues, the loss projection) are ignored by name.  The frozen token
+    MoCo key encoders, projectors, queues and the loss projection are
+    loaded where the model has them and ignored by name where it does
+    not.  The frozen token
     table may be absent, as it is from every reference checkpoint: the
     model keeps the table it was built with.  Any other missing or
     unexpected key raises ``KeyError``."""
+    expected = set(model.state_dict())
     clean = {}
     for key, value in sd.items():
         key = re.sub(r"^module\.", "", key)
         for old, new in _SIMPLE_HEAD_NAMES.items():
             if key.startswith(old):
                 key = new + key[len(old):]
-        if not _IGNORED.match(key):
+        if key in expected or not _IGNORED.match(key):
             clean[key] = (value if isinstance(value, torch.Tensor)
                           else torch.from_numpy(np.array(value)))
-    expected = set(model.state_dict())
-    missing = expected - set(clean) - {FROZEN_TABLE_KEY}
+    # training-only pieces the model has may be absent from a serving
+    # checkpoint: the model keeps what it was built with
+    optional = {k for k in expected if _IGNORED.match(k)} | {FROZEN_TABLE_KEY}
+    missing = expected - set(clean) - optional
     unexpected = set(clean) - expected
     if missing or unexpected:
         raise KeyError(
