@@ -12,6 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
+    """Neither JAX nor anything of the JAX package ``textreid_tpu`` is
+    loaded after importing every module of the port and ``chip_smoke``."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import textreid_torch\n"
@@ -19,12 +21,17 @@ def test_port_never_imports_jax():
         "    textreid_torch.__path__, 'textreid_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 32, names\n"
-        "for name in ('train_net', 'engine.steps', 'engine.trainer',\n"
-        "             'solver.build', 'models.vit', 'ops.attention'):\n"
+        "import chip_smoke\n"
+        "assert len(names) >= 47, names\n"
+        "for name in ('train_net', 'test_net', 'server', 'engine.steps',\n"
+        "             'engine.trainer', 'engine.inference', 'solver.build',\n"
+        "             'models.vit', 'ops.attention', 'ops.quant',\n"
+        "             'evaluation.metrics', 'config.defaults', 'config.node',\n"
+        "             'data.loader', 'data.datasets'):\n"
         "    assert 'textreid_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
-        "             m.startswith(('jax.', 'flax', 'optax', 'orbax')))\n"
+        "             m == 'textreid_tpu' or m.startswith(\n"
+        "             ('jax.', 'flax', 'optax', 'orbax', 'textreid_tpu.')))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -32,7 +39,26 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32
+    assert int(out.stdout.strip()) >= 47
+
+
+def test_no_source_line_imports_the_jax_package():
+    """The same, read off the sources: no import statement names
+    ``textreid_tpu`` or ``jax`` (mentions in docstrings are fine)."""
+    import re
+
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(textreid_tpu|jax|flax|optax|orbax)\b")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for folder, _, names in os.walk(os.path.join(REPO, "textreid_torch")):
+        files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 48
+    hits = []
+    for path in files:
+        with open(path) as f:
+            hits += [f"{path}:{i}" for i, line in enumerate(f, 1)
+                     if pattern.match(line)]
+    assert not hits, hits
 
 
 def _no_card():
@@ -62,6 +88,13 @@ def test_tools_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="is_available"):
         serve.build_server(["--config-file", str(cfg), "--checkpoint-file",
                             "x.pth", "--index-file", "g.idx"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_index.main(["--config-file", str(cfg), "--checkpoint-file",
+                          "x.pth", "--output", str(tmp_path / "g.idx"),
+                          "--quantize"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.build_server(["--config-file", str(cfg), "--checkpoint-file",
+                            "x.pth", "--index-file", "g.idx", "--quantize"])
 
 
 def test_kernel_paths_refuse_what_they_cannot_launch():
@@ -79,6 +112,17 @@ def test_kernel_paths_refuse_what_they_cannot_launch():
         ranking._topk_cuda(q, q, 2, 0)
     with pytest.raises(ValueError, match="k <= 64"):
         ranking._topk_cuda(q, q, 65, 0)
+    h0 = torch.zeros(2, 32)
+    with pytest.raises(ValueError, match="must be on"):
+        gru._gru_scan_cuda(x, w, h0, False)
+    with pytest.raises(ValueError, match="must be on"):
+        gru._GruScan.apply(x, w, h0, False)
+    values = torch.zeros(3, 16, dtype=torch.int8)
+    q16, scales = torch.zeros(3, 16), torch.ones(3)
+    with pytest.raises(ValueError, match="must be on"):
+        ranking._topk_quantized_cuda(q16, values, scales, 2, 0)
+    with pytest.raises(ValueError, match="k <= 64"):
+        ranking._topk_quantized_cuda(q16, values, scales, 65, 0)
     qkv = torch.zeros(2, 5, 3 * 128)
     with pytest.raises(ValueError, match="must be on"):
         attention._fused_attention_cuda(qkv, 2, False, None)
@@ -100,3 +144,24 @@ def test_missing_nvcc_is_an_error(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited ``.cuh`` must give another library name, or a stale
+    ``.so`` would be loaded."""
+    import shutil
+
+    from textreid_torch.ops import _build
+
+    assert (_build.CSRC / "gru_cell.cuh").exists()
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = _build.source_hash()
+    assert before == _build.source_hash()
+    with open(copy / "gru_cell.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.source_hash() != before
+    assert sorted(p.name for p in _build._sources()) == [
+        "bigru_pooled.cu", "fused_attention.cu", "gru_scan.cu",
+        "topk_similarity.cu"]

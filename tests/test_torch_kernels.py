@@ -63,6 +63,30 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
             ranking.topk_similarity.launches) == before
 
 
+def test_cpu_tensors_of_the_scan_and_the_int8_topk_launch_nothing():
+    from textreid_torch.ops.quant import quantize_rows
+
+    before = (gru.gru_scan.launches,
+              ranking.topk_similarity_quantized.launches)
+    x, _, w, _, _ = _k1_args(3, 5, 8, torch.float32, "cpu")
+    out = gru.gru_scan(x, w, torch.zeros(3, 8), reverse=True)
+    assert out.shape == (3, 5, 8)
+    q, gal = _k2_args(4, 30, "cpu")
+    quant = quantize_rows(gal)
+    vals, idx = ranking.topk_similarity_quantized(q, quant.values,
+                                                  quant.scales, k=5)
+    assert idx[0, 0] == 29 and idx[0, 1] == 0  # the tie, larger row first
+    assert (gru.gru_scan.launches,
+            ranking.topk_similarity_quantized.launches) == before
+
+
+def test_gallery_splits_of_the_int8_tile():
+    # 128-row tiles: 98,304 rows are 768 tiles, 3,074 rows are 25
+    assert ranking.gallery_splits(256, 98304, 132, 128) == 8
+    assert ranking.gallery_splits(256, 3074, 132, 128) == 6
+    assert ranking.gallery_splits(256, 400, 132, 128) == 1
+
+
 @pytest.mark.parametrize("n_q,n_rows,sms,want", [
     (256, 3074, 132, 8),     # Q=256: 32 query tiles, ~2 blocks per SM
     (256, 98304, 132, 8),
@@ -120,14 +144,80 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_deep_gru_on_the_card_names_the_missing_kernel(cuda):
+def test_deep_gru_on_the_card_launches_both_kernels(cuda):
+    """A 2-layer encoder on the card: the one-direction scan twice for
+    layer 0, the fused scan once for layer 1, and the CPU's result."""
     from textreid_torch.models import BiGRUEncoder
 
-    enc = BiGRUEncoder(hidden_dim=8, vocab_size=20, embed_size=8,
-                       num_layers=2).to(cuda)
-    ids = torch.ones(2, 5, dtype=torch.long, device=cuda)
-    with pytest.raises(NotImplementedError, match="gru_scan_pallas"):
-        enc(ids, torch.full((2,), 5, device=cuda))
+    enc = BiGRUEncoder(hidden_dim=32, vocab_size=20, embed_size=8,
+                       num_layers=2).eval()
+    ids = torch.randint(1, 20, (5, 9))
+    lengths = torch.tensor([9, 3, 1, 5, 7])
+    with torch.no_grad():
+        want = enc(ids, lengths)
+        before = (gru.gru_scan.launches, gru.bigru_pooled_scan.launches)
+        got = enc.to(cuda)(ids.to(cuda), lengths.to(cuda))
+    torch.cuda.synchronize()
+    assert (gru.gru_scan.launches, gru.bigru_pooled_scan.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("batch,seq,hidden,reverse", [
+    (5, 9, 64, False), (13, 9, 32, True), (128, 105, 512, False)])
+def test_gru_scan_kernel_matches_plain(cuda, dtype, tol, batch, seq, hidden,
+                                       reverse):
+    x, _, w, _, _ = _k1_args(batch, seq, hidden, dtype, cuda)
+    h0 = (torch.randn(batch, hidden, generator=torch.Generator().manual_seed(1))
+          * 0.5).to(device=cuda, dtype=dtype)
+    before = gru.gru_scan.launches
+    got = gru.gru_scan(x, w, h0, reverse=reverse)
+    want = gru.gru_scan_plain(x, w, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    assert gru.gru_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == (batch, seq, hidden)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_gru_scan_function_has_the_plain_gradient_on_the_card(cuda):
+    x, _, w, _, _ = _k1_args(6, 9, 64, torch.float32, cuda)
+    h0 = torch.randn(6, 64, device=cuda) * 0.5
+    g = torch.randn(6, 9, 64, device=cuda)
+    grads = []
+    for scan in (gru.gru_scan, gru.gru_scan_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, h0)]
+        grads.append(torch.autograd.grad(scan(*leaves, reverse=True), leaves,
+                                         g))
+    for a, b in zip(*grads):
+        assert b.abs().max().item() > 0
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_q,n_g,k,valid", [
+    (13, 200, 1, 0), (13, 200, 7, 0), (9, 130, 64, 0), (8, 50, 64, 0),
+    (17, 300, 10, 250),
+    (5, 4000, 10, 0), (9, 9000, 64, 4321),  # gallery split + merge kernel
+])
+def test_quantized_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
+    from textreid_torch.ops.quant import quantize_rows
+
+    q, gal = _k2_args(n_q, n_g, cuda)
+    quant = quantize_rows(gal)
+    before = ranking.topk_similarity_quantized.launches
+    vals, idx = ranking.topk_similarity_quantized(
+        q, quant.values, quant.scales, k=k, valid_gallery=valid)
+    pv, pi = ranking.topk_similarity_quantized_plain(
+        q, quant.values, quant.scales, k, valid)
+    torch.cuda.synchronize()
+    assert ranking.topk_similarity_quantized.launches == before + 1
+    assert ((vals - pv).abs() <= 1e-5 * pv.abs() + 1e-6).all()
+    assert torch.equal(idx, pi)  # dim 32: the sums are exact in f32
 
 
 def _qkv_args(batch, seq, width, dtype, device, seed=0):

@@ -7,7 +7,14 @@ table; 24 gallery images (the last dropped as a pad row through
 ``valid_rows``), 6 text queries.  Gallery embeddings and scores
 agree to atol 1e-4 (convolutions sum in another order), meta exactly.
 Index files cross between the packages both ways, and one HTTP round trip
-runs through the shared ``textreid_tpu.server`` front.
+runs through the port's own ``textreid_torch.server`` front.
+
+With ``quantize=True`` both indexes rank from the int8 form of the gallery
+(JAX through its plain path, ``use_pallas=False``; the port through the
+plain version of its int8 kernel): the same top-k outside ties of exactly
+equal scores, scores rtol 1e-5 once both sides hold the same int8 rows;
+quantized index files cross both ways, and stored int8 rows of the wrong
+shape are derived again.
 """
 
 import json
@@ -25,10 +32,10 @@ from textreid_tpu.engine.state import TrainState
 from textreid_tpu.models import BiGRUEncoder as JaxBiGRU
 from textreid_tpu.models import TextReIDModel as JaxTextReIDModel
 from textreid_tpu.models.m_resnet import ModifiedResNet as JaxModifiedResNet
-from textreid_tpu.server import RetrievalService, make_server
 from textreid_tpu.serving import RetrievalIndex as JaxRetrievalIndex
 from textreid_torch.models import BiGRUEncoder, TextReIDModel
 from textreid_torch.models.m_resnet import ModifiedResNet
+from textreid_torch.server import RetrievalService, make_server
 from textreid_torch.serving import RetrievalIndex
 from textreid_torch.utils.weight_convert import (
     load_reference_state_dict,
@@ -60,8 +67,20 @@ def _randomized(tree, rng):
 
 
 @pytest.fixture(scope="module")
-def indexes():
+def indexes(_built):
     """(jax index, port index), both holding the same 23-row gallery."""
+    return _built[0], _built[1]
+
+
+@pytest.fixture(scope="module")
+def quantized(_built):
+    """(jax index, port index) with ``quantize=True``, same gallery; the
+    port's int8 rows are derived from its own float gallery."""
+    return _built[2], _built[3]
+
+
+@pytest.fixture(scope="module")
+def _built():
     jax_model = JaxTextReIDModel(
         visual=JaxModifiedResNet(**VISUAL), textual=JaxBiGRU(**TEXT),
         feature_size=12, num_classes=5, pixel_mean=MEAN, pixel_std=STD)
@@ -85,12 +104,17 @@ def indexes():
          "constants": state.constants}))
     port_index = RetrievalIndex(model, query_batch=4)
 
+    jax_quant = JaxRetrievalIndex(jax_model, state, query_batch=4,
+                                  use_pallas=False, quantize=True)
+    port_quant = RetrievalIndex(model, query_batch=4, quantize=True)
+
     batches = [rng.randint(0, 255, (8, 64, 32, 3), dtype=np.uint8)
                for _ in range(3)]
     meta = np.arange(500, 524)
-    jax_index.build_gallery(batches, meta=meta, valid_rows=23)
-    port_index.build_gallery(batches, meta=meta, valid_rows=23)
-    return jax_index, port_index
+    built = (jax_index, port_index, jax_quant, port_quant)
+    for index in built:
+        index.build_gallery(batches, meta=meta, valid_rows=23)
+    return built
 
 
 def _queries(n=6, seed=3):
@@ -183,7 +207,164 @@ def test_http_round_trip(indexes):
 
 def test_unported_options_raise(indexes):
     _, port_index = indexes
-    for kwargs in ({"mesh": object()}, {"quantize": True},
-                   {"int8_encode": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kwargs in ({"mesh": object()}, {"int8_encode": True},
+                   {"quantize": True, "int8_encode": "dataflow"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
             RetrievalIndex(port_index.model, **kwargs)
+
+
+def _share_int8_rows(jax_index, port_index):
+    """Give the port the JAX index's int8 rows, so that scores compare at
+    rtol 1e-5 (a float gallery that differs by 1e-5 may round a value to
+    the next int8 step)."""
+    from textreid_torch.ops.quant import QuantizedGallery
+
+    port_index._quant_gallery = QuantizedGallery(
+        torch.from_numpy(np.array(jax_index._quant_gallery.values)),
+        torch.from_numpy(np.array(jax_index._quant_gallery.scales)))
+
+
+def _assert_same_topk(got, want, scores_of):
+    """Scores rtol 1e-5; meta equal, or a swap within exactly equal
+    scores."""
+    (got_s, got_m), (want_s, want_m) = got, want
+    finite = np.isfinite(want_s)
+    np.testing.assert_array_equal(np.isfinite(got_s), finite)
+    np.testing.assert_allclose(got_s[finite], want_s[finite], rtol=1e-5,
+                               atol=1e-6)
+    for r, j in zip(*np.nonzero(got_m != want_m)):
+        assert scores_of(r, got_m[r, j]) == scores_of(r, want_m[r, j])
+
+
+def test_quantized_gallery_is_within_one_step_of_jax(quantized):
+    jax_index, port_index = quantized
+    got, want = port_index._quant_gallery, jax_index._quant_gallery
+    assert got.values.dtype == torch.int8 and got.values.shape == (23, 12)
+    step = np.abs(got.values.numpy().astype(np.int32)
+                  - np.asarray(want.values).astype(np.int32))
+    assert step.max() <= 1
+    np.testing.assert_allclose(got.scales.numpy(), np.asarray(want.scales),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 5, 30, 100])  # 30: k > G, 100: k > 64
+def test_quantized_search_matches_jax(quantized, k):
+    jax_index, port_index = quantized
+    kept = port_index._quant_gallery
+    _share_int8_rows(jax_index, port_index)
+    try:
+        ids, lens = _queries()
+        want = jax_index.search(ids, lens, k=k)
+        got = port_index.search(ids, lens, k=k)
+        from textreid_torch.ops.quant import quantized_scores
+        scores = quantized_scores(
+            torch.from_numpy(port_index.encode_queries(ids, lens)),
+            port_index._quant_gallery).numpy()
+        row_of = {m: r for r, m in enumerate(port_index.gallery_meta)}
+        assert got[0].shape == (6, k) and got[1].shape == (6, k)
+        _assert_same_topk(got, want,
+                          lambda r, m: scores[r, row_of[int(m)]])
+        if k > 23:
+            assert np.isneginf(got[0][:, 23:]).all()
+            assert (got[1][:, 23:] == -1).all()
+        pixels = np.random.RandomState(4).randint(0, 255, (3, 64, 32, 3),
+                                                  dtype=np.uint8)
+        img_scores = quantized_scores(
+            torch.from_numpy(port_index.encode_image_queries(pixels)),
+            port_index._quant_gallery).numpy()
+        _assert_same_topk(port_index.search_by_image(pixels, k=k),
+                          jax_index.search_by_image(pixels, k=k),
+                          lambda r, m: img_scores[r, row_of[int(m)]])
+    finally:
+        port_index._quant_gallery = kept
+
+
+def test_quantized_scores_stay_within_the_int8_error(indexes, quantized):
+    """Each id the int8 gallery returns scores, in float, within the int8
+    rounding error of its quantized score."""
+    _, port_float = indexes
+    _, port_index = quantized
+    ids, lens = _queries()
+    scores, meta = port_index.search(ids, lens, k=5)
+    full = port_float.encode_queries(ids, lens) @ port_float.gallery.numpy().T
+    row_of = {m: r for r, m in enumerate(port_index.gallery_meta)}
+    # |q . (g - dequant(g))| <= ||q||_1 scale / 2, and the query's bf16
+    # rounding adds 2^-9 relative
+    bound = 0.5 * float(port_index._quant_gallery.scales.max()) * np.sqrt(12)
+    for r in range(6):
+        for j in range(5):
+            exact = full[r, row_of[int(meta[r, j])]]
+            assert abs(exact - scores[r, j]) <= bound + 2.0 ** -8
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_quantized_index_files_cross_packages(quantized, tmp_path, writer):
+    jax_index, port_index = quantized
+    path = str(tmp_path / "gallery.idx")
+    src = jax_index if writer == "jax" else port_index
+    src.save_index(path)
+    with np.load(path) as data:
+        assert set(data.files) == {"gallery", "meta", "quant_values",
+                                   "quant_scales"}
+        stored = data["quant_values"], data["quant_scales"]
+        assert stored[0].dtype == np.int8 and stored[1].dtype == np.float32
+    if writer == "jax":
+        dst = RetrievalIndex(port_index.model, query_batch=4, quantize=True)
+    else:
+        dst = JaxRetrievalIndex(jax_index.model, jax_index.state,
+                                query_batch=4, use_pallas=False,
+                                quantize=True)
+    dst.load_index(path)
+    # the stored int8 rows are reused as they are
+    np.testing.assert_array_equal(np.asarray(dst._quant_gallery.values),
+                                  stored[0])
+    np.testing.assert_array_equal(np.asarray(dst._quant_gallery.scales),
+                                  stored[1])
+    np.testing.assert_array_equal(dst.gallery_meta, src.gallery_meta)
+    ids, lens = _queries()
+    got, want = dst.search(ids, lens, k=5), src.search(ids, lens, k=5)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    # a float-gallery index loads the quantized file too, and the other way
+    plain = RetrievalIndex(port_index.model, query_batch=4)
+    plain.load_index(path)
+    assert plain._quant_gallery is None and plain.gallery.shape == (23, 12)
+
+
+def test_float_index_file_is_quantized_at_load(indexes, quantized, tmp_path):
+    _, port_float = indexes
+    _, port_index = quantized
+    path = str(tmp_path / "float.idx")
+    port_float.save_index(path)
+    with np.load(path) as data:
+        assert set(data.files) == {"gallery", "meta"}
+    dst = RetrievalIndex(port_index.model, query_batch=4, quantize=True)
+    dst.load_index(path)
+    np.testing.assert_array_equal(dst._quant_gallery.values.numpy(),
+                                  port_index._quant_gallery.values.numpy())
+
+
+def test_stored_int8_rows_of_the_wrong_shape_are_derived_again(quantized,
+                                                               tmp_path):
+    _, port_index = quantized
+    path = str(tmp_path / "legacy.idx")
+    with open(path, "wb") as f:  # int8 rows of a padded, augmented matrix
+        np.savez(f, gallery=port_index.gallery.numpy(),
+                 meta=port_index.gallery_meta,
+                 quant_values=np.ones((24, 13), np.int8),
+                 quant_scales=np.ones(24, np.float32))
+    dst = RetrievalIndex(port_index.model, query_batch=4, quantize=True)
+    dst.load_index(path)
+    np.testing.assert_array_equal(dst._quant_gallery.values.numpy(),
+                                  port_index._quant_gallery.values.numpy())
+
+
+def test_a_failed_load_leaves_the_quantized_index_serving(quantized, tmp_path):
+    _, port_index = quantized
+    path = str(tmp_path / "broken.idx")
+    with open(path, "wb") as f:
+        np.savez(f, gallery=port_index.gallery.numpy())  # no meta
+    before = port_index._quant_gallery
+    with pytest.raises(KeyError):
+        port_index.load_index(path)
+    assert port_index._quant_gallery is before
+    assert port_index.gallery.shape == (23, 12)

@@ -83,7 +83,7 @@ def _main(workspace, *extra):
 
 
 def test_evaluation_during_training_raises(workspace):
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         _main(workspace, "SOLVER.EVALUATE_PERIOD", "1")
 
 

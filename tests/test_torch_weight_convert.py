@@ -136,6 +136,6 @@ def test_key_errors(jax_pieces):
         load_reference_state_dict(tiny_model(), missing)
     with pytest.raises(KeyError, match="unexpected"):
         load_reference_state_dict(tiny_model(), dict(sd, extra=np.zeros(1)))
-    with pytest.raises(ValueError, match="export_torch"):
+    with pytest.raises(NotImplementedError, match="export_torch"):
         build_eval_model(tiny_cfg(), os.path.dirname(__file__),
                          device="cpu")

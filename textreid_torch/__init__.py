@@ -3,9 +3,9 @@
 The JAX package ``textreid_tpu`` stays the reference; this package mirrors
 its layout (``models/``, ``ops/``, ``utils/``, ``serving.py``, ``tools/``)
 so each module's counterpart is easy to find.  It imports ``torch`` and
-never ``jax``.  The JAX-free parts of the reference package
-(``textreid_tpu.config``, ``textreid_tpu.data``, ``textreid_tpu.server``)
-are shared as they are.
+never ``jax``, and nothing of ``textreid_tpu``: the config tree
+(``config/``), the host-side data pipeline (``data/``) and the HTTP front
+(``server.py``) are the port's own copies, so the package stands alone.
 
 Hand-written CUDA kernels live in ``csrc/`` and are built with ``nvcc`` at
 first use (``ops/_build.py``); on CPU tensors every kernel wrapper runs its

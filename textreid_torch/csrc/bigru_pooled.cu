@@ -40,29 +40,13 @@
 // which serving never runs: it calls B=64 and B=256).  Fewer, fatter
 // clusters (16 rows) were slower at every B.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gru_cell.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;   // batch rows per cluster
-constexpr int kSplit = 8;  // blocks per cluster; each owns H / kSplit units
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+using namespace textreid_gru;  // kRows, kSplit, the cell (gru_cell.cuh)
 
 // blockDim.x = 2 * units: thread (half, j) sums k in [half H/2, (half+1) H/2)
 // for unit u0 + j.
@@ -108,38 +92,7 @@ bigru_pooled_kernel(const T* __restrict__ xf, const T* __restrict__ xb,
     const float* h_cur = h_buf + (t & 1) * kRows * hidden;
     const int nxt = ((t + 1) & 1) * kRows * hidden;
     float acc_r[kRows], acc_z[kRows], acc_n[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc_r[r] = acc_z[r] = acc_n[r] = 0.0f;
-    const T* __restrict__ wcol = w + u;
-    // 4 iterations' W loads in flight: the loop waits on L2, not on FMAs
-#pragma unroll 4
-    for (int k = k_lo; k < k_hi; k += 4) {
-      float wr[4], wz[4], wn[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const T* wrow = wcol + static_cast<size_t>(k + q) * three_h;
-        wr[q] = to_float(wrow[0]);
-        wz[q] = to_float(wrow[hidden]);
-        wn[q] = to_float(wrow[2 * hidden]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 hv =
-            *reinterpret_cast<const float4*>(h_cur + r * hidden + k);
-        acc_r[r] = fmaf(hv.x, wr[0], acc_r[r]);
-        acc_r[r] = fmaf(hv.y, wr[1], acc_r[r]);
-        acc_r[r] = fmaf(hv.z, wr[2], acc_r[r]);
-        acc_r[r] = fmaf(hv.w, wr[3], acc_r[r]);
-        acc_z[r] = fmaf(hv.x, wz[0], acc_z[r]);
-        acc_z[r] = fmaf(hv.y, wz[1], acc_z[r]);
-        acc_z[r] = fmaf(hv.z, wz[2], acc_z[r]);
-        acc_z[r] = fmaf(hv.w, wz[3], acc_z[r]);
-        acc_n[r] = fmaf(hv.x, wn[0], acc_n[r]);
-        acc_n[r] = fmaf(hv.y, wn[1], acc_n[r]);
-        acc_n[r] = fmaf(hv.z, wn[2], acc_n[r]);
-        acc_n[r] = fmaf(hv.w, wn[3], acc_n[r]);
-      }
-    }
+    recurrent_partial(w + u, h_cur, hidden, k_lo, k_hi, acc_r, acc_z, acc_n);
     if (half == 1) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -159,10 +112,9 @@ bigru_pooled_kernel(const T* __restrict__ xf, const T* __restrict__ xb,
           const float hr = acc_r[r] + red[(0 * kRows + r) * units + j];
           const float hz = acc_z[r] + red[(1 * kRows + r) * units + j];
           const float hn = acc_n[r] + red[(2 * kRows + r) * units + j];
-          const float rg = sigmoid(to_float(xg[u]) + hr);
-          const float zg = sigmoid(to_float(xg[hidden + u]) + hz);
-          const float ng = tanhf(to_float(xg[2 * hidden + u]) + rg * hn);
-          h_new = (1.0f - zg) * ng + zg * h_cur[r * hidden + u];
+          h_new = gru_cell(to_float(xg[u]), to_float(xg[hidden + u]),
+                           to_float(xg[2 * hidden + u]), hr, hz, hn,
+                           h_cur[r * hidden + u]);
           if (t < len_s[r]) {
             m_buf[r * units + j] = fmaxf(m_buf[r * units + j], h_new);
           }

@@ -1,4 +1,5 @@
-"""The MoCo train step (counterpart of ``textreid_tpu/engine/steps.py``).
+"""The MoCo train step and the eval-path encode step (counterpart of
+``textreid_tpu/engine/steps.py``).
 
 Order is the JAX step's (``moco_train_step``), which is the reference's:
 
@@ -128,6 +129,19 @@ def moco_train_step(cfg) -> Callable[[TrainState, dict], dict]:
         return metrics
 
     return step
+
+
+@torch.inference_mode()
+def encode_step(model, batch):
+    """Eval-path embeddings ``(v_embed, t_embed)``: backbone features
+    through the plain embed layers (reference moco_head/head.py:178-183),
+    with the model's own pool rule.  ``batch`` holds device tensors
+    ``pixels``, ``token_ids`` and ``lengths``; the model is expected in
+    eval mode."""
+    v_embed = model.embed_image(model.encode_image(batch["pixels"]))
+    t_embed = model.embed_text(
+        model.encode_text(batch["token_ids"], batch["lengths"]))
+    return v_embed, t_embed
 
 
 def make_train_step(cfg) -> Callable[[TrainState, dict], dict]:

@@ -5,7 +5,7 @@ host only at ``LOG_PERIOD`` boundaries (reading syncs with the card), the
 ``CHECKPOINT_PERIOD`` epochs.
 
 Not ported yet: evaluation during training (``SOLVER.EVALUATE_PERIOD > 0``
-raises, ROADMAP Queue A item 4), checkpoint pruning
+raises, ROADMAP Queue A item 5), checkpoint pruning
 (``SOLVER.CHECKPOINT_KEEP > 0`` raises) and preemption saves (item 5).
 """
 
@@ -54,7 +54,7 @@ def do_train(cfg, state, train_step, data_loader, lr_schedule,
     if cfg.SOLVER.EVALUATE_PERIOD > 0:
         raise NotImplementedError(
             "evaluation during training (SOLVER.EVALUATE_PERIOD > 0) is not "
-            "ported yet (ROADMAP Queue A item 4); pass "
+            "ported yet (ROADMAP Queue A item 5); pass "
             "SOLVER.EVALUATE_PERIOD 0")
     if cfg.SOLVER.CHECKPOINT_KEEP > 0:
         raise NotImplementedError(

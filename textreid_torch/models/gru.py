@@ -9,10 +9,12 @@ math is ``torch.nn.GRU`` with ``bias=False``: ``r = sigma(W_ir x + W_hr h)``,
 ``z = sigma(W_iz x + W_hz h)``, ``n = tanh(W_in x + r * (W_hn h))``,
 ``h' = (1-z) n + z h``.
 
-A 1-layer encoder (every shipped config) runs the fused scan of
-``ops/gru.py``: on CUDA the hand-written kernel, on the CPU its plain
-version.  Deeper encoders run the plain per-direction scan on the CPU only,
-until the one-direction scan kernel is ported.
+The last layer runs the fused scan with pooling of ``ops/gru.py``
+(``bigru_pooled_scan``), every layer before it the one-direction scan
+(``gru_scan``) once per direction, the composition of the JAX encoder with
+``use_pallas=True``: on CUDA the hand-written kernels, on the CPU their
+plain versions.  Inter-layer dropout is a training feature and not ported:
+a multi-layer encoder in train mode raises.
 
 Parameter names follow the reference torch layout (``embed.*``,
 ``gru.weight_ih_l0``, ``gru.weight_hh_l0`` and their ``_reverse`` pair);
@@ -29,26 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gru import bigru_pooled_scan, zero_participation
+from ..ops.gru import bigru_pooled_scan, gru_scan, zero_participation
 from .common import linear
-
-
-def gru_scan(x_gates: torch.Tensor, w_h: torch.Tensor,
-             h0: torch.Tensor) -> torch.Tensor:
-    """One direction over precomputed input gates ``[B, T, 3H]`` with the
-    recurrent weight ``[H, 3H]``; returns every hidden state ``[B, T, H]``."""
-    hidden = h0.shape[-1]
-    h = h0
-    outs = []
-    for t in range(x_gates.shape[1]):
-        hg = h @ w_h
-        xg = x_gates[:, t]
-        r = torch.sigmoid(xg[:, :hidden] + hg[:, :hidden])
-        z = torch.sigmoid(xg[:, hidden:2 * hidden] + hg[:, hidden:2 * hidden])
-        n = torch.tanh(xg[:, 2 * hidden:] + r * hg[:, 2 * hidden:])
-        h = (1.0 - z) * n + z * h
-        outs.append(h)
-    return torch.stack(outs, dim=1)
 
 
 def masked_max_pool(x: torch.Tensor, lengths: torch.Tensor,
@@ -99,10 +83,12 @@ class BiGRUEncoder(nn.Module):
                  embed_size: int = 512, num_layers: int = 1,
                  use_onehot: str = "yes",
                  frozen_table: Optional[np.ndarray] = None,
-                 allow_random_table: bool = False, pool_mode: str = "batch"):
+                 allow_random_table: bool = False, pool_mode: str = "batch",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
+        self.dropout_rate = dropout_rate  # between layers, training only
         self.pool_mode = pool_mode
         self.embed: Optional[nn.Module] = None
         if use_onehot == "yes":
@@ -159,32 +145,32 @@ class BiGRUEncoder(nn.Module):
             return (inputs.reshape(batch * seq, -1) @ w_ih.T).reshape(
                 batch, seq, -1)
 
-        if self.num_layers == 1:
-            return bigru_pooled_scan(
-                input_gates(x, weight("weight_ih_l0")),
-                input_gates(reverse_padded(x, lengths),
-                            weight("weight_ih_l0_reverse")),
-                weight("weight_hh_l0").T.contiguous(),
-                weight("weight_hh_l0_reverse").T.contiguous(),
-                lengths, pool_mode)
-        if x.is_cuda:
+        if self.num_layers > 1 and self.training and self.dropout_rate > 0:
             raise NotImplementedError(
-                "a multi-layer GRU needs the one-direction scan kernel "
-                "(textreid_tpu/ops/gru_pallas.py:gru_scan_pallas), which is "
-                "not ported yet (ROADMAP Queue B item 2)")
+                "inter-layer GRU dropout in training is not ported yet "
+                "(ROADMAP Queue A item 3)")
+        # K3 does not mask by length: positions t >= len are dealt with by
+        # reverse_padded's clipped gather and by the last layer's t < len
         h0 = x.new_zeros(batch, self.hidden_dim)
         layer_in = x
-        for layer in range(self.num_layers):
-            w_ih = weight(f"weight_ih_l{layer}")
-            w_hh = weight(f"weight_hh_l{layer}")
-            w_ih_r = weight(f"weight_ih_l{layer}_reverse")
-            w_hh_r = weight(f"weight_hh_l{layer}_reverse")
-            out_f = gru_scan(input_gates(layer_in, w_ih), w_hh.T, h0)
-            rev = reverse_padded(layer_in, lengths)
-            out_b = reverse_padded(
-                gru_scan(input_gates(rev, w_ih_r), w_hh_r.T, h0), lengths)
+        for layer in range(self.num_layers - 1):
+            out_f = gru_scan(
+                input_gates(layer_in, weight(f"weight_ih_l{layer}")),
+                weight(f"weight_hh_l{layer}").T.contiguous(), h0)
+            out_b = reverse_padded(gru_scan(
+                input_gates(reverse_padded(layer_in, lengths),
+                            weight(f"weight_ih_l{layer}_reverse")),
+                weight(f"weight_hh_l{layer}_reverse").T.contiguous(), h0),
+                lengths)
             layer_in = torch.cat([out_f, out_b], dim=-1)
-        return masked_max_pool(layer_in, lengths, pool_mode)
+        last = self.num_layers - 1
+        return bigru_pooled_scan(
+            input_gates(layer_in, weight(f"weight_ih_l{last}")),
+            input_gates(reverse_padded(layer_in, lengths),
+                        weight(f"weight_ih_l{last}_reverse")),
+            weight(f"weight_hh_l{last}").T.contiguous(),
+            weight(f"weight_hh_l{last}_reverse").T.contiguous(),
+            lengths, pool_mode)
 
 
 def build_bigru(cfg, frozen_table=None) -> BiGRUEncoder:
@@ -197,4 +183,5 @@ def build_bigru(cfg, frozen_table=None) -> BiGRUEncoder:
         use_onehot=cfg.MODEL.GRU.ONEHOT,
         frozen_table=frozen_table,
         allow_random_table=bool(cfg.TPU.ALLOW_RANDOM_VOCAB),
+        dropout_rate=1.0 - cfg.MODEL.GRU.DROPOUT_KEEP_PROB,
     )

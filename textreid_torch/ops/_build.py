@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
-together, and the objects are linked into ONE shared library with a plain
+together (shared device code is in ``csrc/*.cuh`` headers), and the objects are linked into ONE shared library with a plain
 C interface, loaded with ``ctypes``.  No PyTorch header is included, so a
 build takes seconds.  The library lands in
 ``build/textreid_torch/`` beside the package and is keyed on a hash of the
@@ -40,6 +40,12 @@ SIGNATURES = {
     # splits, stream
     "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
+    # x, w, h0, out, B, T, H, reverse, is_bf16, stream
+    "gru_scan_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, g_int8, scales, vals, idx, part_vals, part_idx, Q, G, D, k,
+    # valid_gallery, splits, stream
+    "topk_similarity_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P),
     # qkv, out, B, S, W, heads, scale, causal, is_bf16, stream
     "fused_attention_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, g, dqkv, stats, B, S, W, heads, scale, causal, is_bf16, stream
@@ -71,8 +77,10 @@ def _sources():
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include: an
+    edited ``.cuh`` must not reuse a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

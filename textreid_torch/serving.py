@@ -2,13 +2,15 @@
 
 Build a gallery index once (encode + L2-normalize), then answer tokenized
 text queries, or image queries, with the top-k gallery matches.  Ranking
-runs the streaming top-k kernel (``ops/ranking.py``) for k <= 64 and a
+runs the streaming top-k kernels (``ops/ranking.py``) for k <= 64 and a
 materialising ``torch.matmul`` + ``torch.topk`` beyond, as the JAX package
-leaves k > 64 to XLA.  The index file format (npz with ``gallery`` and
-``meta``) is the JAX package's, so an index written by either package loads
-in the other.  The interface (``search``, ``search_by_image``,
-``load_index``, ``gallery``, ``gallery_meta``) is what
-``textreid_tpu.server.RetrievalService`` drives.
+leaves k > 64 to XLA.  With ``quantize=True`` the gallery is ranked from its
+int8 form (``ops/quant.py``: a quarter of the bytes).  The index file format
+(npz with ``gallery`` and ``meta``, plus ``quant_values`` and
+``quant_scales`` from a quantized index) is the JAX package's, so an index
+written by either package loads in the other.  The interface (``search``,
+``search_by_image``, ``load_index``, ``gallery``, ``gallery_meta``) is what
+``textreid_torch.server.RetrievalService`` drives.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from .models.losses import l2_normalize
-from .ops.ranking import K_MAX, topk_similarity
+from .ops.quant import QuantizedGallery, quantize_rows, quantized_topk
+from .ops.ranking import K_MAX, topk_similarity, topk_similarity_quantized
 
 QUERY_BUCKET = 256  # search pads the query count to multiples of this
 
@@ -39,12 +42,14 @@ class RetrievalIndex:
             raise NotImplementedError(
                 "a gallery sharded over devices is not ported yet (ROADMAP "
                 "Queue A: parallel/mesh.py -> torch.distributed)")
-        if quantize or int8_encode:
+        if int8_encode:
             raise NotImplementedError(
-                "int8 galleries and int8 encoders are not ported yet "
-                "(ROADMAP Queue A: int8 serving and towers; Queue B "
-                "topk_similarity_quantized)")
+                "int8 encoders are not ported yet (ROADMAP Queue A item 6: "
+                "the int8 towers; Queue B K7-K9)")
         self.model = model
+        # rank from the int8 form of the gallery (ops/quant.py)
+        self.quantize = quantize
+        self._quant_gallery: Optional[QuantizedGallery] = None
         self.device = next(model.parameters()).device
         self.query_batch = query_batch
         self.image_query_batch = image_query_batch
@@ -81,27 +86,49 @@ class RetrievalIndex:
         self.gallery_meta = (np.asarray(meta)[: gallery.shape[0]]
                              if meta is not None
                              else np.arange(gallery.shape[0]))
+        if self.quantize:
+            self._quant_gallery = quantize_rows(gallery)
 
     def save_index(self, path: str) -> None:
-        """Persist the gallery and its metadata (atomic replace)."""
+        """Persist the gallery, its metadata and, from a quantized index,
+        the int8 form (atomic replace)."""
         if self.gallery is None:
             raise RuntimeError("call build_gallery first")
+        payload = {"gallery": self.gallery.cpu().numpy(),
+                   "meta": self.gallery_meta}
+        if self.quantize:
+            payload["quant_values"] = self._quant_gallery.values.cpu().numpy()
+            payload["quant_scales"] = self._quant_gallery.scales.cpu().numpy()
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            np.savez(f, gallery=self.gallery.cpu().numpy(),
-                     meta=self.gallery_meta)
+            np.savez(f, **payload)
         os.replace(tmp, path)
 
     def load_index(self, path: str) -> None:
-        """Load an index written by either package's ``save_index``.  Every
-        member is read before the instance changes, so a failed load leaves
-        the previous gallery serving."""
+        """Load an index written by either package's ``save_index``,
+        quantized or not.  A quantized instance reuses stored int8 rows
+        whose shape matches the gallery and quantizes the gallery again
+        otherwise.  Every member is read before the instance changes, so a
+        failed load leaves the previous gallery serving."""
         with np.load(path) as data:
             meta = data["meta"]
             gallery = data["gallery"]
+            stored = None
+            if (self.quantize and "quant_values" in data
+                    and data["quant_values"].shape == gallery.shape):
+                stored = (data["quant_values"], data["quant_scales"])
         gallery = torch.as_tensor(gallery, dtype=torch.float32).to(self.device)
+        quant = None
+        if stored is not None:
+            quant = QuantizedGallery(
+                torch.as_tensor(stored[0], dtype=torch.int8).to(self.device),
+                torch.as_tensor(stored[1],
+                                dtype=torch.float32).to(self.device))
+        elif self.quantize:
+            quant = quantize_rows(gallery)
         self.gallery_meta = meta
         self.gallery = gallery
+        self._quant_gallery = quant
 
     # -- queries ----------------------------------------------------------
     @torch.inference_mode()
@@ -132,6 +159,13 @@ class RetrievalIndex:
         return np.concatenate(out, axis=0)[:n]
 
     def _rank(self, queries: torch.Tensor, k: int):
+        if self.quantize:
+            quant = self._quant_gallery
+            if k <= K_MAX:
+                return topk_similarity_quantized(
+                    queries, quant.values, quant.scales, k=k)
+            return quantized_topk(queries, quant,
+                                  min(k, quant.values.shape[0]))
         if k <= K_MAX:
             return topk_similarity(queries, self.gallery, k=k)
         sim = queries @ self.gallery.T

@@ -7,7 +7,8 @@ and write an atomic index file that serving replicas load with
 
   python -m textreid_torch.tools.build_index --root $ROOT \
       --config-file configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml \
-      --checkpoint-file model.pth --output gallery.idx [--device cuda]
+      --checkpoint-file model.pth --output gallery.idx [--quantize] \
+      [--device cuda]
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ def parse_args(argv=None):
                         "(token_ids, lengths) beside the index")
     parser.add_argument("--text-calib-rows", type=int, default=2048,
                         help="caption rows to sample into --text-calib-out")
+    parser.add_argument("--quantize", action="store_true",
+                        help="also store the int8 form of the gallery (quant_values, quant_scales) in the index")
     parser.add_argument("--dataset", default="",
                         help="catalog name; default: first DATASETS.TEST")
     parser.add_argument("--device", default="cuda",
@@ -60,7 +63,7 @@ def main(argv=None):
     logger = setup_logger("PersonSearch")
     model = build_eval_model(cfg, args.checkpoint_file, args.device,
                              compute_dtype(cfg, args.device))
-    index = RetrievalIndex(model)
+    index = RetrievalIndex(model, quantize=args.quantize)
     loader = make_data_loader(cfg, is_train=False)[0]
 
     # one gallery row per unique image (the eval protocol's dedupe); meta

@@ -2,12 +2,12 @@
 
 Counterpart of ``tools/serve.py``: boots the towers from a reference-layout
 checkpoint, loads a gallery index, and serves JSON search over HTTP through
-``textreid_tpu.server`` (framework-free, shared with the JAX package).
+``textreid_torch.server`` (standard library and numpy).
 
   python -m textreid_torch.tools.serve --root $ROOT \
       --config-file configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml \
       --checkpoint-file model.pth --index-file gallery.idx \
-      [--vocab-file word2id.json] [--port 8080] [--device cuda]
+      [--vocab-file word2id.json] [--port 8080] [--quantize] [--device cuda]
 
 Then:
   curl localhost:8080/healthz
@@ -42,6 +42,8 @@ def parse_args(argv=None):
     parser.add_argument("--k-buckets", default="10,100,1000",
                         help="comma-separated canonical k values; the "
                         "largest is the service's max k")
+    parser.add_argument("--quantize", action="store_true",
+                        help="rank from the int8 form of the gallery (a quarter of the float gallery's bytes)")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' raises without a card")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
@@ -54,13 +56,9 @@ def build_server(argv=None):
     args = parse_args(argv)
 
     import numpy as np
-    from textreid_tpu.server import (
-        RetrievalService,
-        SimpleTokenizer,
-        make_server,
-    )
 
     from ..config import get_default_cfg
+    from ..server import RetrievalService, SimpleTokenizer, make_server
     from ..serving import RetrievalIndex
     from ..utils import setup_logger
     from ..utils.bootstrap import build_eval_model
@@ -75,7 +73,8 @@ def build_server(argv=None):
     logger = setup_logger("PersonSearch")
     model = build_eval_model(cfg, args.checkpoint_file, args.device,
                              compute_dtype(cfg, args.device))
-    index = RetrievalIndex(model, query_batch=args.query_batch)
+    index = RetrievalIndex(model, query_batch=args.query_batch,
+                           quantize=args.quantize)
     index.load_index(args.index_file)
     logger.info("Index: %d rows x %d dims", index.gallery.shape[0],
                 index.gallery.shape[1])

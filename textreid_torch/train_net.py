@@ -14,7 +14,7 @@ logged.
 
 Not ported yet (each raises, naming its ROADMAP Queue A item):
 ``--resume-from`` and a full-model warm start (``MODEL.WEIGHT``) (item 5),
-evaluation during training (item 4).
+evaluation during training (item 5).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def train(cfg, output_dir: str, device):
     if cfg.SOLVER.EVALUATE_PERIOD > 0:
         raise NotImplementedError(
             "evaluation during training (SOLVER.EVALUATE_PERIOD > 0) is not "
-            "ported yet (ROADMAP Queue A item 4); pass "
+            "ported yet (ROADMAP Queue A item 5); pass "
             "SOLVER.EVALUATE_PERIOD 0")
     if cfg.MODEL.WEIGHT != "imagenet":
         raise NotImplementedError(

@@ -16,16 +16,18 @@ def build_eval_model(cfg, checkpoint_file: str = "", device="cuda",
                      dtype=torch.float32):
     """Seeded model for ``cfg`` on ``device`` in ``dtype``, with the
     reference-layout ``.pth`` at ``checkpoint_file`` loaded when given
-    (``{"model": state_dict}`` or a bare state dict).  Raises when CUDA is
+    (``{"model": state_dict}``, as the reference and this package's
+    ``epoch_N.pth`` have it, or a bare state dict), in eval mode.  Raises when CUDA is
     asked for and absent."""
     device = require_cuda(device)
     model = build_model(cfg, device, dtype)
     if checkpoint_file:
         if os.path.isdir(checkpoint_file):
-            raise ValueError(
-                f"{checkpoint_file} is a directory (a JAX orbax checkpoint?); "
-                "export it to a reference .pth with tools/export_torch.py "
-                "first")
+            raise NotImplementedError(
+                f"{checkpoint_file} is a directory (an orbax checkpoint of "
+                "the JAX package?): reading one is not ported yet (ROADMAP "
+                "Queue A item 5); export it to a reference .pth with "
+                "tools/export_torch.py first")
         obj = torch.load(checkpoint_file, map_location="cpu",
                          weights_only=True)
         load_reference_state_dict(model, obj.get("model", obj))
