@@ -12,7 +12,10 @@ before the result line:
 1. Environment: the card (name, power limit), torch and CUDA versions, and
    the build of the hand-written kernels from ``textreid_torch/csrc``.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes its paths give it, with the tolerances stated below: K1 and K2 at
+   shapes its paths give it, with the tolerances stated below: K7, K8 and
+   K9 (the int8 encoders' FFN, matmul-requant and requant kernels) at the
+   ViT-B/16 gallery batch (24,704 rows, K=768, N=3072), the CLIP text query
+   bucket (25,600 rows, K=512, N=2048) and 37 rows, f32 and bf16; K1 and K2 at
    the serving shapes; K3 (the one-direction GRU scan) at T=105, H=512 and
    B=256, 128 and a ragged 37, with a non-zero h0 and both scan orders; K4
    (the int8 streaming top-k) at Q=256, D=256, G=3,074 and 98,304, k=10
@@ -44,7 +47,18 @@ before the result line:
    returned id's float score within the int8 error of its quantized one.
    Then ``/search`` latency from the int8 gallery at 3,074 and 98,304 rows,
    and the index's search time from the float and the int8 gallery.
-7. The training slice through ``textreid_torch.train_net.main`` at full
+7. Int8-encoder serving of the full-CLIP model at the full width of
+   ``configs/cuhkpedes/moco_fullclip_vitb16_ls_bs128_2048.yaml`` (ViT-B/16
+   at 384x128 + the CLIP text transformer, 12 layers each, T=100, bf16
+   towers, seeded weights): ``build_index --int8-encode --quantize
+   --text-calib-out``, ``serve --int8-text-calib``, ``/search`` and
+   ``/search_image``.  One forward of the int8 ViT launches K9 36, K8 12 and
+   K5 12 times, one of the int8 text tower K9 36, K7 12 and K5 12; the
+   served results agree with the same path through the plain versions; each
+   int8 tower's embeddings have cosine >= 0.999 to its float tower's.  Then
+   K7-K9's times, gallery encode and text encode (int8 against float, each
+   tower with ``fused_ffn`` on and off) and ``/search`` latency.
+8. The training slice through ``textreid_torch.train_net.main`` at full
    width (``configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_2048.yaml``:
    ViT-B/16 at 384x128 + bi-GRU H=512, MoCo K=2048, batch 128, bf16
    towers, seeded weights, random frozen token table) on a synthetic
@@ -52,12 +66,12 @@ before the result line:
    just before and read just after: K1 2, K5 24 and K6 12 per step.
    Losses must be finite, the queue pointer advanced, the checkpoint
    written.
-8. One f32 step with the kernels against one with their plain versions,
+9. One f32 step with the kernels against one with their plain versions,
    from the same state and batch: loss dicts and every parameter's update.
-9. Step time (median, bf16, after warmup) with the kernels and with their
+10. Step time (median, bf16, after warmup) with the kernels and with their
    plain versions, peak device memory, and the share of K1's plain
    recompute backward.
-10. The ``kernels`` line: for each of the six kernels its launches on the
+11. The ``kernels`` line: for each of the nine kernels its launches on the
     driven paths, its error, its time beside its plain version's, its
     roofline bound computed from the timed shapes (bytes over 3.35 TB/s
     against operations over the peak rate of the input type), and the time
@@ -121,9 +135,25 @@ EVAL_SIM_TOL = 1e-3
 # ... and may swap two gallery rows whose similarities are that close, so
 # the CMC/mAP grids agree to this many percent points, not exactly
 EVAL_GRID_TOL = 1.0
+FULLCLIP_YAML = "configs/cuhkpedes/moco_fullclip_vitb16_ls_bs128_2048.yaml"
+# K7-K9 against their plain versions: the int8 values equal but for one step
+# on at most this share of the elements (the kernel's row sums, exp and
+# rsqrt differ from torch's in the last bit, which moves a value that lies
+# on a rounding boundary, 127 * 2^-23 of them a step), ...
+INT8_STEP_SHARE = 1e-3
+INT8_SCALE_RTOL = 1e-6       # ... and the row scales (one f32 ulp is 1.2e-7)
+# K7's output: one step of g[m, n] moves out[m, j] by |w2[n, j]| s_w2[j]
+# r[m] <= 127 s_w2[j] r[m]; this many steps a row are allowed, plus one
+# rounding of the output dtype
+K7_FLIPS = 4
+# int8 against float embeddings of a tower (the JAX package's bar)
+INT8_COSINE_BAR = 0.999
+# served scores of the int8 encoders, kernels against plain versions: a
+# one-step difference of an int8 activation in 12 layers of bf16 towers
+INT8_SLICE_TOL = 5e-3
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): the roofline bounds
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def bound(n_bytes, n_ops, dtype_name):
@@ -477,13 +507,189 @@ def check_k4():
     return worst
 
 
+# -- K7-K9: the int8 encoders' kernels ------------------------------------------
+
+# (name, rows, K, N): the ViT-B/16 gallery batch (128 x 193 tokens), the CLIP
+# text query bucket (256 x 100 tokens), and a ragged row count
+INT8_SHAPES = [("ViT-B/16", 24704, 768, 3072), ("CLIP text", 25600, 512, 2048),
+               ("ragged", 37, 512, 2048)]
+
+
+def int8_site(rows, k, n, seed, m_out=0):
+    """One quantized site on the card: int8 rows and weights (held as the
+    transpose of a contiguous [N, K], as the towers hold them), decode
+    scales, bias, row scales and the consumer's scales."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, device="cuda", generator=g,
+                             dtype=torch.int8)
+
+    def uniform(*shape):
+        return torch.rand(*shape, device="cuda", generator=g)
+
+    site = dict(
+        xq=ints(rows, k), w=ints(n, k).t(), s_w=(uniform(n) + 0.1) * 1e-3,
+        b=torch.randn(n, device="cuda", generator=g) * 0.05,
+        r_row=(uniform(rows, 1) + 0.05) / 127.0,
+        s_next=(uniform(n) + 0.05) / 127.0)
+    if m_out:
+        site.update(w2=ints(m_out, n).t(), s_w2=(uniform(m_out) + 0.1) * 1e-3,
+                    b2=torch.randn(m_out, device="cuda", generator=g) * 0.05)
+    return site
+
+
+def int8_agreement(what, got, want):
+    """(q, r) of a kernel against its plain version; returns the largest
+    int8 step between them (0 or 1)."""
+    import torch
+
+    (q, r), (pq, pr) = got, want
+    torch.cuda.synchronize()
+    if q.shape != pq.shape or q.dtype != torch.int8 or r.shape != pr.shape:
+        fail(f"{what}: {q.shape}/{q.dtype}, {r.shape} vs {pq.shape}, "
+             f"{pr.shape}")
+    step = (q.int() - pq.int()).abs()
+    share = (step > 0).float().mean().item()
+    scale_err = ((r - pr).abs() / pr.abs()).max().item()
+    log(f"{what}: int8 max step {int(step.max())}, share one step apart "
+        f"{share:.2e} (tol {INT8_STEP_SHARE:.0e}), row scales rel err "
+        f"{scale_err:.2e} (rtol {INT8_SCALE_RTOL:.0e})")
+    if step.max().item() > 1 or share > INT8_STEP_SHARE or not (
+            scale_err <= INT8_SCALE_RTOL):
+        fail(f"{what} disagrees with its plain version")
+    return float(step.max())
+
+
+def check_k9():
+    """K9 against its plain version at the towers' widths (ln and none at
+    768 and 512, gelu at 3072 and 2048), f32 and bf16, and 37 rows."""
+    import torch
+    from textreid_torch.ops import requant
+
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for name, rows, width, wide in INT8_SHAPES:
+        for op, c in (("ln", width), ("none", width), ("gelu", wide)):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (torch.randn(rows, c, device="cuda", generator=g)
+                     * 1.5 + 0.2).to(dtype)
+                s = (torch.rand(c, device="cuda", generator=g) + 0.05) / 127
+                dname = str(dtype).split(".")[1]
+                worst = max(worst, int8_agreement(
+                    f"K9 fused_requant {name} [{rows}, {c}] op={op} {dname}",
+                    requant.fused_requant(x, s, op),
+                    requant.requant_plain(x, s, op)))
+    return worst
+
+
+def check_k8():
+    """K8 against its plain version: c_fc of both towers and 37 rows, with
+    and without the GELU."""
+    from textreid_torch.ops import int8_mm
+
+    worst = 0.0
+    for name, rows, k, n in INT8_SHAPES:
+        site = int8_site(rows, k, n, seed=rows)
+        args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
+                                      "s_next")]
+        for op in ("gelu", "none"):
+            worst = max(worst, int8_agreement(
+                f"K8 int8_matmul_requant {name} [{rows}, {k}] x [{k}, {n}] "
+                f"op={op}", int8_mm.fused_int8_matmul_requant(*args, op=op),
+                int8_mm.int8_matmul_requant_plain(*args, op=op)))
+    return worst
+
+
+def check_k7():
+    """K7 against its plain version: the FFN of both towers and 37 rows, f32
+    and bf16 output.  Returns the worst absolute error."""
+    import torch
+    from textreid_torch.ops import int8_mm
+
+    worst = 0.0
+    for name, rows, k, n in INT8_SHAPES:
+        site = int8_site(rows, k, n, seed=rows + 1, m_out=k)
+        args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
+                                      "s_next", "w2", "s_w2", "b2")]
+        _, r_mid = int8_mm.int8_matmul_requant_plain(*args[:6], op="gelu")
+        for dtype in (torch.bfloat16, torch.float32):
+            got = int8_mm.fused_int8_ffn(*args, out_dtype=dtype)
+            want = int8_mm.int8_ffn_plain(*args, out_dtype=dtype)
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[1]
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"K7 {name} {dname}: {got.shape}/{got.dtype} vs "
+                     f"{want.shape}/{want.dtype}")
+            ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+            allowed = (K7_FLIPS * 127.0 * site["s_w2"][None, :] * r_mid
+                       + ulp * want.float().abs())
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            over = (diff / allowed.clamp_min(1e-30)).max().item()
+            moved = (diff > 0).float().mean().item()
+            log(f"K7 int8_ffn {name} [{rows}, {k}] -> {n} -> {k} {dname}: "
+                f"max_abs_err={err:.3e}, {over:.3f} of the allowance of "
+                f"{K7_FLIPS} one-step flips of the middle a row, share of "
+                f"outputs that differ {moved:.2e}")
+            if not math.isfinite(err) or not over <= 1.0:
+                fail(f"K7 {name} {dname} disagrees with its plain version")
+            worst = max(worst, err)
+    return worst
+
+
+def time_int8_kernels():
+    """K7, K8 and K9 at both towers' shapes (bf16 where a float goes in or
+    out), kernel and plain version interleaved."""
+    import torch
+    from textreid_torch.ops import int8_mm, requant
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for name, rows, k, n in INT8_SHAPES[:2]:
+        for op, c in (("ln", k), ("none", k), ("gelu", n)):
+            x = torch.randn(rows, c, device="cuda", generator=g).to(
+                torch.bfloat16)
+            s = (torch.rand(c, device="cuda", generator=g) + 0.05) / 127
+            out[("K9", name, op)] = interleaved_ms(
+                lambda: requant.fused_requant(x, s, op),
+                lambda: requant.requant_plain(x, s, op), 20, 5)
+            log("time K9 %s [%d, %d] op=%s bf16: kernel %.3f ms, plain "
+                "%.3f ms" % (name, rows, c, op, *out[("K9", name, op)]))
+        site = int8_site(rows, k, n, seed=3, m_out=k)
+        args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
+                                      "s_next", "w2", "s_w2", "b2")]
+        out[("K8", name)] = interleaved_ms(
+            lambda: int8_mm.fused_int8_matmul_requant(*args[:6], op="gelu"),
+            lambda: int8_mm.int8_matmul_requant_plain(*args[:6], op="gelu"),
+            5, 5)
+        out[("K7", name)] = interleaved_ms(
+            lambda: int8_mm.fused_int8_ffn(*args, out_dtype=torch.bfloat16),
+            lambda: int8_mm.int8_ffn_plain(*args, out_dtype=torch.bfloat16),
+            5, 5)
+        # the library's product alone, for scale: not the same function
+        lib_ms = cuda_ms(lambda: int8_mm.int_matmul(args[0], args[1]), 10)
+        out[("int_mm", name)] = lib_ms
+        for kname in ("K8", "K7"):
+            log("time %s %s rows=%d K=%d N=%d: kernel %.3f ms, plain %.3f ms"
+                % (kname, name, rows, k, n, *out[(kname, name)]))
+        log(f"time torch._int_mm alone [{rows}, {k}] x [{k}, {n}] (the "
+            f"product without the epilogue): {lib_ms:.3f} ms")
+    return out
+
+
 # -- launch counters -----------------------------------------------------------
 
 def wrappers():
     """Kernel entry point -> the wrapper that counts its launches."""
-    from textreid_torch.ops import attention, gru, ranking
+    from textreid_torch.ops import attention, gru, int8_mm, ranking, requant
 
-    return {"bigru_pooled_fwd": gru.bigru_pooled_scan,
+    return {"fused_requant": requant.fused_requant,
+            "int8_matmul_requant": int8_mm.fused_int8_matmul_requant,
+            "int8_ffn": int8_mm.fused_int8_ffn,
+            "bigru_pooled_fwd": gru.bigru_pooled_scan,
             "gru_scan_fwd": gru.gru_scan,
             "topk_similarity_f32": ranking.topk_similarity,
             "topk_similarity_int8": ranking.topk_similarity_quantized,
@@ -749,6 +955,298 @@ def check_int8_error(index, text):
         f"{worst:.3f} of the int8 rounding allowance")
 
 
+# -- int8-encoder serving of the full-CLIP model --------------------------------
+
+INT8_SERVE_ENCODERS = ("fused_requant", "int8_matmul_requant", "int8_ffn",
+                       "fused_attention_fwd", "topk_similarity_int8",
+                       "topk_similarity_f32")
+VIT_FORWARD = {"fused_requant": 36, "int8_matmul_requant": 12, "int8_ffn": 0,
+               "fused_attention_fwd": 12}
+TEXT_FORWARD = {"fused_requant": 36, "int8_matmul_requant": 0, "int8_ffn": 12,
+                "fused_attention_fwd": 12}
+
+
+@contextmanager
+def plain_int8_kernels():
+    """Route the int8 towers' K9, K8, K7 and K5, the float ViT's K5 and the
+    index's ranking through their plain PyTorch versions, on the same
+    card."""
+    import textreid_torch.models.int8_vit as int8_vit
+    import textreid_torch.models.vit as vit_model
+    from textreid_torch.ops import attention, int8_mm, requant
+
+    def plain_attention(qkv, heads, causal=False, scale=None):
+        return attention.fused_attention_plain(qkv, heads, causal, scale)
+
+    with mock.patch.object(int8_vit, "fused_requant", requant.requant_plain), \
+            mock.patch.object(int8_vit, "fused_int8_matmul_requant",
+                              int8_mm.int8_matmul_requant_plain), \
+            mock.patch.object(int8_vit, "fused_int8_ffn",
+                              int8_mm.int8_ffn_plain), \
+            mock.patch.object(int8_vit, "fused_attention", plain_attention), \
+            mock.patch.object(vit_model, "attention", plain_attention), \
+            plain_kernels():
+        yield
+
+
+def make_fullclip_workspace(root):
+    """The full-CLIP YAML at full width (ViT-B/16 at 384x128 + the CLIP text
+    transformer, 12 layers each, T=100), a synthetic test split and a seeded
+    checkpoint under ``root``."""
+    from textreid_torch.config import get_default_cfg
+    from textreid_torch.data import make_synthetic_dataset
+    from textreid_torch.models import build_model
+    from textreid_torch.utils.weight_convert import save_reference_checkpoint
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, FULLCLIP_YAML))
+    cfg.DATASETS.TEST = ("cuhkpedes_test",)
+    cfg.DATALOADER.NUM_WORKERS = 4
+    folder = os.path.join(root, "configs", "cuhkpedes")
+    os.makedirs(folder, exist_ok=True)
+    cfg_path = os.path.join(folder, os.path.basename(FULLCLIP_YAML))
+    with open(cfg_path, "w") as f:
+        f.write(cfg.dump())
+    make_synthetic_dataset(
+        os.path.join(root, "datasets", "cuhkpedes"),
+        num_identities=SPLIT_IDS, images_per_id=SPLIT_IMAGES_PER_ID,
+        image_size=(cfg.INPUT.HEIGHT, cfg.INPUT.WIDTH),
+        vocab_size=cfg.MODEL.TRANSFORMER.VOCAB_SIZE, max_tokens=60,
+        split="test")
+    ckpt = os.path.join(root, "model.pth")
+    save_reference_checkpoint(build_model(cfg, "cpu"), ckpt)  # seeded, f32
+    return root, cfg, cfg_path, ckpt
+
+
+def forward_counts(fn, want, what):
+    """Launches of one forward, which must be exactly ``want``."""
+    import torch
+
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts(want)
+    log(f"{what}: launches of one forward {got}")
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    return out
+
+
+def min_cosine(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=1).min().item()
+
+
+def drive_int8_encoders():
+    """``build_index --int8-encode --quantize --text-calib-out`` then ``serve
+    --int8-text-calib`` on the full-CLIP model at full width, ``/search`` and
+    ``/search_image`` over HTTP.  Gates: the launches of one forward of each
+    int8 tower, the served results against the plain versions on the card,
+    the int8 towers' embeddings against the float towers'."""
+    import torch
+    from textreid_torch.tools import build_index, serve
+
+    root, cfg, cfg_path, ckpt = make_fullclip_workspace(
+        os.path.join(WORK, "fullclip"))
+    height, width = cfg.INPUT.HEIGHT, cfg.INPUT.WIDTH
+    seq = cfg.INPUT.MAX_TEXT_LENGTH
+    index_path = os.path.join(root, "gallery.idx")
+    calib_path = os.path.join(root, "calib.npz")
+    common = ["--root", root, "--config-file", cfg_path, "--checkpoint-file",
+              ckpt, "--device", "cuda", "--quantize"]
+
+    zero_counts()
+    t0 = time.time()
+    built = build_index.main(common + [
+        "--output", index_path, "--int8-encode", "--text-calib-out",
+        calib_path])
+    build_counts = read_counts(INT8_SERVE_ENCODERS)
+    service, server = serve.build_server(common + [
+        "--index-file", index_path, "--int8-text-calib", calib_path,
+        "--port", "0", "--k-buckets", "5,10,100", "--reload-dir", root])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+
+    rng = np.random.RandomState(17)
+    text = []
+    for n, k in [(1, 5), (3, 10), (16, 5), (2, 10), (4, 100)]:
+        lens = rng.randint(1, seq + 1, n).astype(np.int32)
+        ids = np.zeros((n, seq), np.int32)
+        for i, ln in enumerate(lens):
+            ids[i, :ln] = rng.randint(1, cfg.MODEL.TRANSFORMER.VOCAB_SIZE, ln)
+        reply = post(base + "/search", {"token_ids": ids.tolist(),
+                                        "lengths": lens.tolist(), "k": k})
+        text.append((ids, lens, k, reply))
+    images = []
+    for n in (1, 2):
+        pixels = rng.randint(0, 255, (n, height, width, 3), dtype=np.uint8)
+        reply = post(base + "/search_image", {
+            "images_b64": [base64.b64encode(p.tobytes()).decode()
+                           for p in pixels], "k": 10})
+        images.append((pixels, 10, reply))
+    counts = read_counts(INT8_SERVE_ENCODERS)
+    log(f"int8-encoder slice: build_index --int8-encode + serve "
+        f"--int8-text-calib boot + {len(text)} /search + {len(images)} "
+        f"/search_image in {time.time() - t0:.1f} s; launches of build_index "
+        f"{build_counts}; of the whole run {counts}")
+
+    index = service.index
+    meta_ids = set(index.gallery_meta.tolist())
+    for ids, lens, k, reply in text:
+        check_reply(reply, len(ids), k, meta_ids, f"/search n={len(ids)} k={k}")
+    for pixels, k, reply in images:
+        check_reply(reply, len(pixels), k, meta_ids,
+                    f"/search_image n={len(pixels)}")
+    if build_counts["int8_matmul_requant"] < 12 or build_counts["int8_ffn"]:
+        fail(f"build_index --int8-encode launched {build_counts}")
+    for name in ("fused_requant", "int8_matmul_requant", "int8_ffn",
+                 "fused_attention_fwd", "topk_similarity_int8"):
+        if counts[name] < 1:
+            fail(f"the int8-encoder path never launched {name}")
+    if counts["topk_similarity_f32"]:
+        fail("the int8 gallery launched the f32 top-k")
+
+    # one forward of each int8 tower
+    pixels = torch.from_numpy(rng.randint(
+        0, 255, (128, height, width, 3), dtype=np.uint8)).cuda()
+    ids = torch.from_numpy(text[2][0]).cuda().repeat(16, 1)  # [256, T]
+    lens = torch.from_numpy(text[2][1]).cuda().repeat(16)
+    with torch.inference_mode():
+        v8 = forward_counts(lambda: built._embed_images(pixels), VIT_FORWARD,
+                            "int8 ViT tower, B=128")
+        t8 = forward_counts(lambda: index._embed_texts(ids, lens),
+                            TEXT_FORWARD, "int8 text tower, B=256 T=100")
+        model = index.model
+        from textreid_torch.models.losses import l2_normalize
+
+        vf = l2_normalize(model.embed_image(
+            model.encode_image(pixels)).float(), dim=1)
+        tf = l2_normalize(model.embed_text(
+            model.encode_text(ids, lens)).float(), dim=1)
+    cos_v, cos_t = min_cosine(v8, vf), min_cosine(t8, tf)
+    log(f"int8 against float embeddings, seeded weights, 12 layers, bf16: "
+        f"minimum cosine ViT {cos_v:.5f} (128 images), text {cos_t:.5f} (256 "
+        f"queries); bar {INT8_COSINE_BAR}")
+    if not (cos_v >= INT8_COSINE_BAR and cos_t >= INT8_COSINE_BAR):
+        fail("an int8 tower's embeddings miss the cosine bar")
+
+    # the served results through the plain versions
+    worst, swaps = 0.0, 0
+    with plain_int8_kernels():
+        zero_counts()
+        for ids_np, lens_np, k, reply in text:
+            s, m = index.search(ids_np, lens_np, k=k)
+            emb = index.encode_queries(ids_np, lens_np)
+            e, w = agree_with_plain(reply, s, m, emb, index, "/search",
+                                    INT8_SLICE_TOL)
+            worst, swaps = max(worst, e), swaps + w
+        for px, k, reply in images:
+            s, m = index.search_by_image(px, k=k)
+            emb = index.encode_image_queries(px)
+            e, w = agree_with_plain(reply, s, m, emb, index, "/search_image",
+                                    INT8_SLICE_TOL)
+            worst, swaps = max(worst, e), swaps + w
+        with torch.inference_mode():
+            v_plain = built._embed_images(pixels[:32])
+        if any(read_counts().values()):
+            fail(f"the plain int8 run launched a kernel: {read_counts()}")
+    gal_err = (v_plain - v8[:32]).abs().max().item()
+    log(f"int8-encoder slice vs plain versions on the card: max score diff "
+        f"{worst:.3e} (tol {INT8_SLICE_TOL:.0e}), meta swaps within ties "
+        f"{swaps}; int8 ViT embeddings of 32 images within {gal_err:.3e}")
+    if not gal_err <= INT8_SLICE_TOL:
+        fail("the int8 ViT tower disagrees with its plain versions")
+    return service, server, thread, base, built, counts, (cos_v, cos_t)
+
+
+def time_int8_encoders(service, base, built):
+    """Gallery encode img/s (int8 tower against the bf16 float tower), each
+    tower's forward with ``fused_ffn`` on and off beside the float tower,
+    and /search p50 with the int8 text tower against the float one."""
+    import torch
+    from textreid_torch.models.int8_text import int8_text_apply
+    from textreid_torch.models.int8_vit import int8_vit_apply
+    from textreid_torch.models.model import preprocess_pixels
+    from textreid_torch.serving import RetrievalIndex
+
+    out = {}
+    index = service.index
+    model = index.model
+    height, width = service.image_shape
+    rng = np.random.RandomState(19)
+    rows, batch = 1024, 128
+    pixels = rng.randint(0, 255, (rows, height, width, 3), dtype=np.uint8)
+    batches = [pixels[i:i + batch] for i in range(0, rows, batch)]
+    for kind in ("float", "int8", "int8", "float"):
+        idx = RetrievalIndex(model, int8_encode=(kind == "int8"))
+        idx.build_gallery(batches[:4])  # calibrates; warms the shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.build_gallery(batches)
+        torch.cuda.synchronize()
+        out.setdefault(("encode", kind), []).append(
+            rows / (time.perf_counter() - t0))
+    for kind in ("float", "int8"):
+        out[("encode", kind)] = float(np.mean(out[("encode", kind)]))
+    log(f"time gallery encode, ViT-B/16 384x128, {rows} images at batch "
+        f"{batch} (host copies included, two runs each, interleaved): bf16 "
+        f"float tower {out[('encode', 'float')]:.1f} img/s, int8 tower "
+        f"{out[('encode', 'int8')]:.1f} img/s")
+
+    dev = torch.from_numpy(batches[0]).cuda()
+    x = preprocess_pixels(dev, None, model.pixel_mean, model.pixel_std)
+    visual, v_tower = model.visual_model, built._int8_image_tower
+    textual, t_tower = model.textual_model, index._int8_text_tower
+    seq = service.max_text_length
+    lens_np = rng.randint(5, seq + 1, 256).astype(np.int64)
+    ids_np = np.zeros((256, seq), np.int64)
+    for i, n in enumerate(lens_np):
+        ids_np[i, :n] = rng.randint(1, 49408, n)
+    ids, lens = torch.from_numpy(ids_np).cuda(), torch.from_numpy(lens_np).cuda()
+    with torch.inference_mode():
+        cases = {
+            ("vit", "float"): lambda: model.encode_image(x),
+            ("vit", "off"): lambda: int8_vit_apply(visual, v_tower, x,
+                                                   fused_ffn=False),
+            ("vit", "on"): lambda: int8_vit_apply(visual, v_tower, x,
+                                                  fused_ffn=True),
+            ("text", "float"): lambda: model.encode_text(ids, lens),
+            ("text", "on"): lambda: int8_text_apply(textual, t_tower, ids,
+                                                    lens, fused_ffn=True),
+            ("text", "off"): lambda: int8_text_apply(textual, t_tower, ids,
+                                                     lens, fused_ffn=False),
+        }
+        for _ in range(2):  # two rounds, so each case is timed twice apart
+            for key, fn in cases.items():
+                out.setdefault(key, []).append(cuda_ms(fn, 5))
+    for key in cases:
+        out[key] = float(np.mean(out[key]))
+    log(f"time ViT-B/16 tower forward, B=128, 384x128, bf16: float "
+        f"{out[('vit', 'float')]:.2f} ms; int8 with fused_ffn off (K8, the "
+        f"default) {out[('vit', 'off')]:.2f} ms, on (K7) "
+        f"{out[('vit', 'on')]:.2f} ms")
+    log(f"time CLIP text tower forward, B=256, T={seq}, bf16: float "
+        f"{out[('text', 'float')]:.2f} ms; int8 with fused_ffn on (K7, the "
+        f"default) {out[('text', 'on')]:.2f} ms, off (K8) "
+        f"{out[('text', 'off')]:.2f} ms")
+
+    file = "gallery_int8enc_3074.idx"
+    write_unit_index(os.path.join(service.reload_dir, file), 3074)
+    out[("p50", "int8")] = search_latency(service, base, file, 3074)
+    encoder, index._int8_text_encoder = index._int8_text_encoder, None
+    try:  # the same server with the float text tower swapped back in
+        out[("p50", "float")] = search_latency(service, base, file, 3074)
+    finally:
+        index._int8_text_encoder = encoder
+    log(f"time /search p50 (1 query, k=10, 3074 rows, int8 gallery, full-CLIP "
+        f"model): int8 text tower {out[('p50', 'int8')]:.3f} ms, float text "
+        f"tower {out[('p50', 'float')]:.3f} ms")
+    return out
+
+
 # -- phase 4: timings -------------------------------------------------------
 
 def time_kernels():
@@ -824,6 +1322,7 @@ def kernel_bounds():
     q, d, g, k = 256, 256, 3074, 10  # K2, K4: the 3,074-row gallery
     ab, s, w, heads = 128, 193, 768, 12  # K5, K6: ViT-B/16 at 384x128, bf16
     matmul = 2 * ab * heads * s * s * (w // heads)  # one [S,S] x [S,hd]
+    (_, vr, vk, vn), (_, tr, tk, tn) = INT8_SHAPES[:2]  # K8, K9; K7
     return {
         # both directions: x and W read, the pooled [B, 2H] written;
         # T steps of [B, H] x [H, 3H]
@@ -845,6 +1344,20 @@ def kernel_bounds():
         # qkv and g read, dqkv written; S, dP, dV, dQ, dK
         "fused_attention_bwd": bound(2 * ab * s * 7 * w, 5 * matmul,
                                      "bfloat16"),
+        # the text FFN (bf16 out): int8 rows and both weights read, the
+        # output written; two s8 products
+        "int8_ffn": bound(
+            tr * tk + 2 * tk * tn + 2 * tr * tk + 4 * (3 * tn + 2 * tk + tr),
+            2 * tr * tn * (tk + tk), "int8"),
+        # the ViT's c_fc: int8 rows and weight read, int8 rows and f32 row
+        # scales written; one s8 product
+        "int8_matmul_requant": bound(
+            vr * vk + vk * vn + vr * vn + 4 * (3 * vn + 2 * vr),
+            2 * vr * vk * vn, "int8"),
+        # the ViT's ln sites: bf16 rows read, int8 rows and f32 row scales
+        # written; ~10 f32 operations an element
+        "fused_requant": bound(2 * vr * vk + 4 * vk + vr * vk + 4 * vr,
+                               10 * vr * vk, "float32"),
     }
 
 
@@ -1433,12 +1946,19 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
 
+    if sys.argv[1:] == ["--int8-kernels"]:
+        # a development aid: K7-K9 against their plain versions and their
+        # times alone (about 25 s); prints no result line
+        check_k9(), check_k8(), check_k7()
+        time_int8_kernels()
+        return
     k1_err = check_k1()
     k2_err = check_k2()
     k3_err = check_k3()
     k4_err = check_k4()
     attn_err = check_attention()
     check_k1_grad()
+    k9_err, k8_err, k7_err = check_k9(), check_k8(), check_k7()
 
     service, server, thread, base, text, images, counts = drive_slice()
     try:
@@ -1468,6 +1988,18 @@ def main():
     del service
     torch.cuda.empty_cache()
 
+    (service, server, thread, base, built, enc_counts,
+     cosines) = drive_int8_encoders()
+    try:
+        int8_kernel_times = time_int8_kernels()
+        enc_times = time_int8_encoders(service, base, built)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    del service, built
+    torch.cuda.empty_cache()
+
     train_launches, state, meters, ckpt = drive_training()
     check_training(train_launches, state, meters, ckpt)
     del state
@@ -1488,12 +2020,21 @@ def main():
         f"{step_ms:.2f} ms (plain versions {step_plain_ms:.2f} ms), peak "
         f"{peak / 2**30:.2f} GiB, K1 recompute backward {k1_bwd_ms:.2f} ms "
         f"({card})")
+    log(f"summary, int8 encoders of the full-CLIP model: gallery encode "
+        f"{enc_times[('encode', 'int8')]:.1f} img/s (bf16 float tower "
+        f"{enc_times[('encode', 'float')]:.1f}); text encode B=256 "
+        f"{enc_times[('text', 'on')]:.2f} ms (float "
+        f"{enc_times[('text', 'float')]:.2f}); /search p50 "
+        f"{enc_times[('p50', 'int8')]:.3f} ms (float text tower "
+        f"{enc_times[('p50', 'float')]:.3f}); minimum cosine to the float "
+        f"towers {cosines[0]:.5f} (ViT), {cosines[1]:.5f} (text) ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
-        f"{int8_counts}; training {train_launches}")
+        f"{int8_counts}; int8 encoders {enc_counts}; training "
+        f"{train_launches}")
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
-            counts, eval_launches, int8_counts, train_launches))
+            counts, eval_launches, int8_counts, enc_counts, train_launches))
 
     bounds = kernel_bounds()
     rows = [  # (entry point, source, replaces, error, (ms, plain ms), library)
@@ -1511,6 +2052,14 @@ def main():
         ("fused_attention_bwd", "fused_attention.cu",
          "attention_pallas.py:694", attn_err[("K6", "bfloat16")],
          attn_times[("K6", "bfloat16")], attn_times[("K6", "library")]),
+        # K7-K9: max_abs_err is the largest int8 step (K8, K9) or output
+        # difference (K7); no single PyTorch call computes any of the three
+        ("int8_ffn", "int8_mm.cu", "int8_mm_pallas.py:186", k7_err,
+         int8_kernel_times[("K7", "CLIP text")], None),
+        ("int8_matmul_requant", "int8_mm.cu", "int8_mm_pallas.py:100", k8_err,
+         int8_kernel_times[("K8", "ViT-B/16")], None),
+        ("fused_requant", "requant.cu", "quant_pallas.py:102", k9_err,
+         int8_kernel_times[("K9", "ViT-B/16", "ln")], None),
     ]
     for name, *_ in rows:
         if launches(name) < 1:

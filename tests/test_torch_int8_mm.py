@@ -1,0 +1,159 @@
+"""``textreid_torch/ops/int8_mm.py`` against the JAX package, on the CPU.
+
+The plain versions of K8 and K7 (which the wrappers run on CPU tensors)
+against the Pallas kernels ``fused_int8_matmul_requant(..., interpret=True)``
+and ``fused_int8_ffn(..., interpret=True, block_rows=32)``, on the same
+numpy inputs from fixed seeds, and the ``fused_ffn`` gate of the blocks.
+
+Tolerances: int8 values equal, or one step apart on at most 0.1% of the
+elements; row scales rtol 1e-6; K7's f32 output rtol 1e-5 (XLA on the CPU
+may contract ``z * r + b`` into an FMA, one ulp), its bf16 output within one
+bf16 ulp (2^-7 relative).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from textreid_tpu.ops.int8_mm_pallas import (
+    fused_int8_ffn as jax_ffn,
+    fused_int8_matmul_requant as jax_matmul_requant,
+)
+from textreid_torch.models.int8_vit import resolve_fused_ffn
+from textreid_torch.ops import int8_mm
+
+torch.set_num_threads(2)
+
+STEP_SHARE = 1e-3
+SCALE_RTOL = 1e-6
+
+
+def _site(rows, k, n, seed):
+    rng = np.random.RandomState(seed)
+    xq = rng.randint(-127, 128, (rows, k)).astype(np.int8)
+    wq = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    s_w = ((rng.rand(n) + 0.1) * 1e-3).astype(np.float32)
+    b = (rng.randn(n) * 0.05).astype(np.float32)
+    r_row = ((rng.rand(rows, 1) + 0.05) / 127.0).astype(np.float32)
+    s_next = ((rng.rand(n) + 0.05) / 127.0).astype(np.float32)
+    return xq, wq, s_w, b, r_row, s_next
+
+
+def _ffn_site(rows, k, n, seed):
+    site = _site(rows, k, n, seed)
+    rng = np.random.RandomState(seed + 100)
+    w2 = rng.randint(-127, 128, (n, k)).astype(np.int8)
+    s_w2 = ((rng.rand(k) + 0.1) * 1e-3).astype(np.float32)
+    b2 = (rng.randn(k) * 0.05).astype(np.float32)
+    return site + (w2, s_w2, b2)
+
+
+def _torch(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _agree(got, want):
+    q, r = got[0].numpy(), got[1].numpy()
+    wq, wr = np.asarray(want[0]), np.asarray(want[1])
+    assert q.dtype == np.int8 and q.shape == wq.shape and r.shape == wr.shape
+    step = np.abs(q.astype(np.int32) - wq.astype(np.int32))
+    assert step.max() <= 1 and (step > 0).mean() <= STEP_SHARE
+    np.testing.assert_allclose(r, wr, rtol=SCALE_RTOL)
+
+
+@pytest.mark.parametrize("rows", [64, 37])
+@pytest.mark.parametrize("op", ["gelu", "none"])
+def test_matmul_requant_matches_the_pallas_kernel(op, rows):
+    site = _site(rows, 128, 256, seed=rows + len(op))
+    want = jax_matmul_requant(jnp.asarray(site[0]), *site[1:], op=op,
+                              block_rows=32, interpret=True)
+    got = int8_mm.fused_int8_matmul_requant(*_torch(site), op=op)
+    _agree(got, want)
+    assert got[1].shape == (rows, 1)
+
+
+def test_matmul_requant_keeps_the_leading_shape_and_takes_a_transposed_weight():
+    xq, wq, s_w, b, r_row, s_next = _site(12, 128, 128, seed=5)
+    want = jax_matmul_requant(jnp.asarray(xq), wq, s_w, b, r_row, s_next,
+                              block_rows=32, interpret=True)
+    w_t = torch.from_numpy(np.ascontiguousarray(wq.T))  # [N, K], as a tower
+    q, r = int8_mm.fused_int8_matmul_requant(
+        torch.from_numpy(xq).reshape(3, 4, 128), w_t.T, *_torch((s_w, b)),
+        torch.from_numpy(r_row).reshape(3, 4, 1), torch.from_numpy(s_next))
+    assert q.shape == (3, 4, 128) and r.shape == (3, 4, 1)
+    _agree((q.reshape(12, 128), r.reshape(12, 1)), want)
+
+
+@pytest.mark.parametrize("rows", [70, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ffn_matches_the_pallas_kernel(dtype, rows):
+    site = _ffn_site(rows, 128, 256, seed=11 + rows)
+    want = jax_ffn(jnp.asarray(site[0]), *site[1:],
+                   out_dtype=getattr(jnp, dtype), block_rows=32,
+                   interpret=True)
+    got = int8_mm.fused_int8_ffn(*_torch(site),
+                                 out_dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (rows, 128)
+    want = np.asarray(want.astype(jnp.float32))
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=1e-5)
+
+
+def test_int_matmul_is_the_exact_integer_product():
+    xq, wq = _site(9, 128, 64, seed=7)[:2]
+    acc = int8_mm.int_matmul(torch.from_numpy(xq), torch.from_numpy(wq))
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(
+        acc.numpy(), xq.astype(np.int64) @ wq.astype(np.int64))
+
+
+def test_int8_matmul_casts_before_the_bias():
+    xq, wq, s_w, b, r_row, _ = _site(8, 128, 64, seed=8)
+    y = int8_mm.int8_matmul(*_torch((xq, wq, s_w, b, r_row)),
+                            out_dtype=torch.bfloat16)
+    acc = (xq.astype(np.int64) @ wq.astype(np.int64)).astype(np.float32)
+    want = (torch.from_numpy(acc * s_w * r_row).to(torch.bfloat16)
+            + torch.from_numpy(b).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and torch.equal(y, want)
+
+
+def test_unknown_op_raises():
+    site = _site(4, 128, 128, seed=9)
+    with pytest.raises(ValueError, match="op must be one of"):
+        int8_mm.fused_int8_matmul_requant(*_torch(site), op="ln")
+
+
+def test_cpu_tensors_launch_nothing():
+    before = (int8_mm.fused_int8_matmul_requant.launches,
+              int8_mm.fused_int8_ffn.launches)
+    site = _ffn_site(4, 128, 128, seed=10)
+    int8_mm.fused_int8_matmul_requant(*_torch(site[:6]))
+    int8_mm.fused_int8_ffn(*_torch(site))
+    assert (int8_mm.fused_int8_matmul_requant.launches,
+            int8_mm.fused_int8_ffn.launches) == before
+
+
+def test_shared_memory_of_the_towers_fits_the_card():
+    """The kernels' 16-row tile at both towers' FFN shapes."""
+    assert int8_mm.shared_bytes(768, 3072) <= int8_mm.SMEM_MAX
+    assert int8_mm.shared_bytes(512, 2048) <= int8_mm.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        int8_mm._check_dims("fused_int8_ffn", 4096, 4096, 512)
+    with pytest.raises(ValueError, match="K % 64"):
+        int8_mm._check_dims("fused_int8_ffn", 32, 128, 32)
+
+
+@pytest.mark.parametrize("value,default,want", [
+    (None, True, True), (None, False, False), (True, False, True),
+    (False, True, False)])
+def test_fused_ffn_gate_takes_the_default_or_a_bool(value, default, want):
+    assert resolve_fused_ffn(value, default) is want
+
+
+@pytest.mark.parametrize("value", ["on", 1, 0, "off", "auto"])
+def test_fused_ffn_gate_rejects_anything_else(value):
+    with pytest.raises(ValueError, match="fused_ffn must be"):
+        resolve_fused_ffn(value, True)

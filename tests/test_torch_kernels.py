@@ -301,3 +301,126 @@ def test_bigru_function_gradients_on_the_card(cuda):
     want = torch.autograd.grad(ref, ref_leaves, g)
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+# -- K7-K9: the int8 encoders' kernels --------------------------------------
+
+def _int8_site(rows, k, n, device, seed=0, m_out=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+    site = [ints(rows, k), ints(n, k).t(),
+            (torch.rand(n, generator=g) + 0.1) * 1e-3,
+            torch.randn(n, generator=g) * 0.05,
+            (torch.rand(rows, 1, generator=g) + 0.05) / 127.0,
+            (torch.rand(n, generator=g) + 0.05) / 127.0]
+    if m_out:
+        site += [ints(m_out, n).t(),
+                 (torch.rand(m_out, generator=g) + 0.1) * 1e-3,
+                 torch.randn(m_out, generator=g) * 0.05]
+    return [t.to(device) for t in site]
+
+
+def _int8_agree(got, want, share=1e-3):
+    """int8 values equal but for one step on at most ``share`` of the
+    elements; row scales rtol 1e-6."""
+    step = (got[0].int() - want[0].int()).abs()
+    assert got[0].dtype == torch.int8 and step.max().item() <= 1
+    assert (step > 0).float().mean().item() <= share
+    assert ((got[1] - want[1]).abs() / want[1].abs()).max().item() <= 1e-6
+
+
+def test_cpu_tensors_of_the_int8_kernels_launch_nothing():
+    from textreid_torch.ops import int8_mm, requant
+
+    before = (requant.fused_requant.launches,
+              int8_mm.fused_int8_matmul_requant.launches,
+              int8_mm.fused_int8_ffn.launches)
+    site = _int8_site(5, 64, 64, "cpu", m_out=64)
+    q, r = requant.fused_requant(torch.randn(5, 64), site[5], "ln")
+    assert q.dtype == torch.int8 and r.shape == (5, 1)
+    q, r = int8_mm.fused_int8_matmul_requant(*site[:6])
+    assert q.shape == (5, 64) and r.shape == (5, 1)
+    assert int8_mm.fused_int8_ffn(*site).shape == (5, 64)
+    assert (requant.fused_requant.launches,
+            int8_mm.fused_int8_matmul_requant.launches,
+            int8_mm.fused_int8_ffn.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["ln", "none", "gelu"])
+@pytest.mark.parametrize("rows,c", [(37, 512), (256, 768), (64, 3072)])
+def test_requant_kernel_matches_plain(cuda, rows, c, op, dtype):
+    from textreid_torch.ops import requant
+
+    g = torch.Generator().manual_seed(rows)
+    x = (torch.randn(2, rows, c, generator=g) * 1.5 + 0.2).to(cuda, dtype)
+    s = ((torch.rand(c, generator=g) + 0.05) / 127.0).to(cuda)
+    before = requant.fused_requant.launches
+    got = requant.fused_requant(x, s, op)
+    want = requant.requant_plain(x, s, op)
+    torch.cuda.synchronize()
+    assert requant.fused_requant.launches == before + 1
+    assert got[0].shape == (2, rows, c) and got[1].shape == (2, rows, 1)
+    _int8_agree(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["gelu", "none"])
+@pytest.mark.parametrize("rows,k,n", [(37, 512, 2048), (256, 768, 3072),
+                                      (5, 64, 64)])
+def test_int8_matmul_requant_kernel_matches_plain(cuda, rows, k, n, op):
+    from textreid_torch.ops import int8_mm
+
+    site = _int8_site(rows, k, n, cuda, seed=rows)
+    before = int8_mm.fused_int8_matmul_requant.launches
+    got = int8_mm.fused_int8_matmul_requant(*site, op=op)
+    want = int8_mm.int8_matmul_requant_plain(*site, op=op)
+    torch.cuda.synchronize()
+    assert int8_mm.fused_int8_matmul_requant.launches == before + 1
+    _int8_agree(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [(37, 512, 2048), (256, 768, 3072),
+                                      (5, 64, 64)])
+def test_int8_ffn_kernel_matches_plain(cuda, rows, k, n, dtype):
+    """Within four one-step flips of the middle a row (each moves an output
+    by at most 127 s_w2 r) plus one rounding of the output dtype."""
+    from textreid_torch.ops import int8_mm
+
+    site = _int8_site(rows, k, n, cuda, seed=rows, m_out=k)
+    before = int8_mm.fused_int8_ffn.launches
+    got = int8_mm.fused_int8_ffn(*site, out_dtype=dtype)
+    want = int8_mm.int8_ffn_plain(*site, out_dtype=dtype)
+    _, r_mid = int8_mm.int8_matmul_requant_plain(*site[:6], op="gelu")
+    torch.cuda.synchronize()
+    assert int8_mm.fused_int8_ffn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (rows, k)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    allowed = 4 * 127.0 * site[7][None, :] * r_mid + ulp * want.float().abs()
+    assert ((got.float() - want.float()).abs() <= allowed).all()
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    from textreid_torch.ops import int8_mm, requant
+
+    with pytest.raises(ValueError, match="C % 4"):
+        requant.fused_requant(torch.randn(3, 30, device=cuda),
+                              torch.ones(30, device=cuda))
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        requant.fused_requant(torch.randn(3, 32, device=cuda).half(),
+                              torch.ones(32, device=cuda))
+    site = _int8_site(4, 96, 64, cuda)  # K % 64 != 0
+    with pytest.raises(ValueError, match="K % 64"):
+        int8_mm.fused_int8_matmul_requant(*site)
+    site = _int8_site(4, 64, 64, cuda, m_out=64)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        int8_mm.fused_int8_ffn(*site, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="r_row"):
+        int8_mm.fused_int8_matmul_requant(*site[:4], site[4][:2], site[5])

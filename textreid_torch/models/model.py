@@ -22,8 +22,9 @@ from torch import nn
 
 from ..utils.vocab import frozen_table_initializer
 from .common import linear
-from .gru import BiGRUEncoder, build_bigru
+from .gru import build_bigru
 from .m_resnet import build_m_resnet
+from .text_transformer import build_text_transformer
 from .vit import build_vit
 
 M_RESNETS = ("m_resnet", "m_resnet50", "m_resnet101")
@@ -31,6 +32,7 @@ M_RESNETS = ("m_resnet", "m_resnet50", "m_resnet101")
 # statistics in the train step yet
 BN_TOWERS = M_RESNETS + ("resnet18", "resnet34", "resnet50", "resnet101",
                          "resnet152")
+TEXT_TRANSFORMERS = ("transformer", "clip_transformer")
 
 
 def preprocess_pixels(images: torch.Tensor, erase: Optional[torch.Tensor],
@@ -103,7 +105,7 @@ class EmbedHead(nn.Module):
 class TextReIDModel(nn.Module):
     """Two-tower text/image retrieval model (serving half)."""
 
-    def __init__(self, visual: nn.Module, textual: BiGRUEncoder,
+    def __init__(self, visual: nn.Module, textual: nn.Module,
                  feature_size: int,
                  pixel_mean: Sequence[float] = (0.485, 0.456, 0.406),
                  pixel_std: Sequence[float] = (0.229, 0.224, 0.225),
@@ -174,28 +176,41 @@ def build_visual_model(cfg) -> nn.Module:
         "torchvision ResNet)")
 
 
+def build_textual_model(cfg, frozen_table=None) -> nn.Module:
+    """The bi-GRU, or the CLIP text transformer."""
+    name = cfg.MODEL.TEXTUAL_MODEL
+    if name == "bigru":
+        return build_bigru(cfg, frozen_table)
+    if name in TEXT_TRANSFORMERS:
+        return build_text_transformer(cfg)
+    raise NotImplementedError(f"unknown textual tower {name!r}")
+
+
 def build_model(cfg, device="cpu", dtype=torch.float32,
                 compute_dtype: Optional[torch.dtype] = None,
                 train: bool = False) -> TextReIDModel:
     """Seeded (``cfg.SEED``) model for ``cfg`` on ``device``, parameters in
     ``dtype``, towers running in ``compute_dtype`` (default ``dtype``).
     ``train=True`` returns it in train mode and refuses the BatchNorm
-    towers, whose batch statistics no parity test covers yet."""
+    towers, whose batch statistics no parity test covers yet, and the text
+    transformer, whose train step none covers."""
     name = cfg.MODEL.VISUAL_MODEL
     if train and name in BN_TOWERS:
         raise NotImplementedError(
             f"training the BatchNorm tower {name!r} is not ported yet "
             "(ROADMAP Queue A item 3: BN batch statistics in the train step)")
-    if cfg.MODEL.TEXTUAL_MODEL != "bigru":
+    if train and cfg.MODEL.TEXTUAL_MODEL in TEXT_TRANSFORMERS:
         raise NotImplementedError(
-            f"textual tower {cfg.MODEL.TEXTUAL_MODEL!r} is not ported yet "
-            "(ROADMAP Queue A item 7: the CLIP text transformer)")
+            "training the CLIP text transformer is not ported yet (ROADMAP "
+            "Queue A item 7: a two-step parity test of the full-CLIP train "
+            "step); the tower serves and evaluates")
     table_init = frozen_table_initializer(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.SEED)
         model = TextReIDModel(
             visual=build_visual_model(cfg),
-            textual=build_bigru(cfg, table_init() if table_init else None),
+            textual=build_textual_model(
+                cfg, table_init() if table_init else None),
             feature_size=cfg.MODEL.EMBEDDING.FEATURE_SIZE,
             pixel_mean=tuple(cfg.INPUT.PIXEL_MEAN),
             pixel_std=tuple(cfg.INPUT.PIXEL_STD),

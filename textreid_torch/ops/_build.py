@@ -50,6 +50,15 @@ SIGNATURES = {
     "fused_attention_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, g, dqkv, stats, B, S, W, heads, scale, causal, is_bf16, stream
     "fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # x, s, q, r, rows, C, op, eps, is_bf16, stream
+    "fused_requant": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # xq, w_t, s_w, b, r_row, s_next, q, r, rows, K, N, gelu, stream
+    "int8_matmul_requant": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P),
+    # xq, w1_t, s_w1, b1, r_row, s_mid, w2_t, s_w2, b2, out, rows, K, N, M,
+    # out_bf16, stream
+    "int8_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _P),
 }
 
 

@@ -1,0 +1,234 @@
+"""Int8 matmuls with a fused (quickGELU +) requant epilogue, and the whole
+int8 FFN in one kernel.
+
+Counterpart of ``textreid_tpu/ops/int8_mm_pallas.py`` (K8
+:func:`fused_int8_matmul_requant`, K7 :func:`fused_int8_ffn`) and of
+``textreid_tpu/models/int8_vit.py:_int8_matmul`` (:func:`int8_matmul`).
+
+The contract, exact integer accumulation and then f32:
+
+    y  = (f32(xq @ w) * s_w) * r_row + b          [gelu: y * sigmoid(1.702 y)]
+    xn = y * (1 / s_next);  r = max(rowmax |xn|, 1e-6) * (1 / 127)
+    q  = truncate(clip(xn * (1 / r) +- 0.5, +-127))                      (K8)
+    z  = (f32(q @ w2) * s_w2) * r;  out = cast(z) + cast(b2)             (K7)
+
+K8 and K7 keep the first product's output in f32 up to the rounding.  The
+composition they replace (``int8_matmul`` to the tower dtype, then the GELU
+there) rounds it to the tower dtype first; in an f32 tower the two are the
+same function, in a bf16 tower the kernels are the tighter path.  K7 casts
+``z`` to ``out_dtype`` before adding ``b2`` in ``out_dtype``.
+
+On a CUDA tensor the wrappers launch ``csrc/int8_mm.cu`` (products by
+``mma.sync`` s8 in the kernel's own body) or raise on a shape it does not
+take; on a CPU tensor they run :func:`int8_matmul_requant_plain` and
+:func:`int8_ffn_plain`.  Nothing falls back from one to the other.
+
+Weights are ``[K, N]`` as in the JAX package.  The kernels read them with
+each output channel's K values contiguous, so a weight held as the
+transpose of a contiguous ``[N, K]`` tensor (``w_t.t()``, the layout
+``torch._int_mm`` wants too) is used as it is; any other is copied.
+
+The int8 products that the JAX package leaves to XLA outside any Pallas
+kernel (qkv, out_proj, c_proj after K8, the patchify conv) go through
+:func:`int_matmul`: ``torch._int_mm`` on the card, an exact float64 product
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .requant import _check_op, quick_gelu, requant_rowdyn
+
+MM_OPS = ("none", "gelu")
+ROW_TILE = 16  # rows a block owns: one mma.sync row tile
+WARPS = 16  # warps of a block, each with a row-max slot in shared memory
+SMEM_MAX = 232448  # bytes of shared memory a block can take on sm_90
+
+
+def int_matmul(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 ``[..., K]`` x int8 ``[K, N]`` -> the exact int32 accumulator
+    ``[..., N]``."""
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, k)
+    if not x2.is_cuda:
+        # |acc| <= 127^2 K < 2^53: the float64 product is the integer sum
+        acc = (x2.double() @ w_q.double()).to(torch.int32)
+    else:
+        rows = x2.shape[0]
+        if rows <= 16:  # torch._int_mm wants more than 16 rows
+            x2 = torch.cat([x2, x2.new_zeros(32 - rows, k)])
+        acc = torch._int_mm(x2.contiguous(), w_q)[:rows]
+    return acc.reshape(*lead, w_q.shape[1])
+
+
+def int8_matmul(xq, w_q, s_w, b, r_row=None, out_dtype=torch.float32):
+    """int8 x int8 -> int32 -> ``(* s_w [* r_row])`` in f32, cast to
+    ``out_dtype``, ``+ b`` there."""
+    y = int_matmul(xq, w_q) * s_w  # int32 * f32 -> f32, one pass
+    if r_row is not None:
+        y *= r_row
+    return y.to(out_dtype).add_(b.to(out_dtype))
+
+
+def int8_matmul_requant_plain(xq, w_q, s_w, b, r_row, s_next,
+                              op: str = "gelu"):
+    """K8's contract in plain PyTorch (see the module docstring)."""
+    _check_op(op, MM_OPS)
+    y = int_matmul(xq, w_q).float() * s_w
+    y = y * r_row.float() + b
+    if op == "gelu":
+        y = quick_gelu(y)
+    return requant_rowdyn(y, s_next)
+
+
+def int8_ffn_plain(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2,
+                   out_dtype=torch.float32):
+    """K7's contract in plain PyTorch (see the module docstring)."""
+    g, r = int8_matmul_requant_plain(xq, w1_q, s_w1, b1, r_row, s_mid, "gelu")
+    z = int_matmul(g, w2_q).float() * s_w2
+    z = z * r
+    return z.to(out_dtype) + b2.to(out_dtype)
+
+
+def _kernel_weight(name: str, w_q: torch.Tensor, device) -> torch.Tensor:
+    """``w_q [K, N]`` int8 -> contiguous ``[N, K]`` (no copy for ``w_t.t()``)."""
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.device != device:
+        raise ValueError(f"{name} must be int8 [K, N] on {device}; got "
+                         f"{w_q.dtype} {tuple(w_q.shape)} on {w_q.device}")
+    return w_q.t().contiguous()
+
+
+def _vector(name: str, v: torch.Tensor, n: int, device) -> torch.Tensor:
+    if v.shape != (n,) or v.dtype != torch.float32 or v.device != device:
+        raise ValueError(f"{name} must be f32 [{n}] on {device}; got "
+                         f"{v.dtype} {tuple(v.shape)} on {v.device}")
+    return v.contiguous()
+
+
+def _rows(xq: torch.Tensor, r_row: torch.Tensor):
+    if xq.dtype != torch.int8:
+        raise TypeError(f"xq must be int8, not {xq.dtype}")
+    lead, k = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:  # the kernel loads 16 bytes a thread
+        x2 = x2.clone()
+    if r_row.shape != (*lead, 1) or r_row.device != xq.device:
+        raise ValueError(f"r_row must be {(*lead, 1)} on {xq.device}; got "
+                         f"{tuple(r_row.shape)} on {r_row.device}")
+    return lead, x2, r_row.float().reshape(-1).contiguous()
+
+
+def shared_bytes(k: int, n: int) -> int:
+    """Shared memory of one block of ``csrc/int8_mm.cu``: the int8 input
+    tile, the f32 middle ``[ROW_TILE, N]`` (padded against bank conflicts),
+    the reciprocal consumer scales and the row statistics."""
+    x_stride = k + (64 if k % 128 == 0 else 0)
+    return (ROW_TILE * (n + 8) * 4 + ROW_TILE * x_stride + n * 4
+            + (WARPS + 2) * ROW_TILE * 4)
+
+
+def _check_dims(name: str, k: int, n: int, m_out: int = 0) -> None:
+    if k % 64 or n % 64 or m_out % 8 or k < 64 or n < 64 or n > 4096:
+        raise ValueError(
+            f"{name} needs K % 64 == 0, N % 64 == 0 (N <= 4096) and an "
+            f"output width in multiples of 8; got K={k} N={n}"
+            + (f" M={m_out}" if m_out else ""))
+    if shared_bytes(k, n) > SMEM_MAX:
+        raise ValueError(
+            f"{name}: a {ROW_TILE}-row tile at K={k}, N={n} needs "
+            f"{shared_bytes(k, n)} bytes of shared memory, the card has "
+            f"{SMEM_MAX}")
+
+
+def _matmul_requant_cuda(xq, w_q, s_w, b, r_row, s_next, op):
+    dev = xq.device
+    lead, x2, r2 = _rows(xq, r_row)
+    rows, k = x2.shape
+    w_t = _kernel_weight("w_q", w_q, dev)
+    n = w_t.shape[0]
+    if w_t.shape[1] != k:
+        raise ValueError(f"w_q is {tuple(w_q.shape)}, xq has K={k}")
+    _check_dims("fused_int8_matmul_requant", k, n)
+    s_w, b, s_next = (_vector(name, v, n, dev) for name, v in (
+        ("s_w", s_w), ("b", b), ("s_next", s_next)))
+    q = torch.empty(rows, n, dtype=torch.int8, device=dev)
+    r = torch.empty(rows, 1, dtype=torch.float32, device=dev)
+    if rows:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.int8_matmul_requant(
+                x2.data_ptr(), w_t.data_ptr(), s_w.data_ptr(), b.data_ptr(),
+                r2.data_ptr(), s_next.data_ptr(), q.data_ptr(), r.data_ptr(),
+                rows, k, n, int(op == "gelu"), stream)
+        _build.check(err, "int8_matmul_requant")
+        fused_int8_matmul_requant.launches += 1
+    return q.reshape(*lead, n), r.reshape(*lead, 1)
+
+
+def _ffn_cuda(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2, out_dtype):
+    dev = xq.device
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_int8_ffn emits f32 or bf16, not {out_dtype}")
+    lead, x2, r2 = _rows(xq, r_row)
+    rows, k = x2.shape
+    w1_t = _kernel_weight("w1_q", w1_q, dev)
+    w2_t = _kernel_weight("w2_q", w2_q, dev)
+    n, m_out = w1_t.shape[0], w2_t.shape[0]
+    if w1_t.shape[1] != k or w2_t.shape[1] != n:
+        raise ValueError(f"w1_q {tuple(w1_q.shape)} and w2_q "
+                         f"{tuple(w2_q.shape)} do not chain from K={k}")
+    _check_dims("fused_int8_ffn", k, n, m_out)
+    s_w1, b1, s_mid = (_vector(name, v, n, dev) for name, v in (
+        ("s_w1", s_w1), ("b1", b1), ("s_mid", s_mid)))
+    s_w2, b2 = (_vector(name, v, m_out, dev) for name, v in (
+        ("s_w2", s_w2), ("b2", b2)))
+    out = torch.empty(rows, m_out, dtype=out_dtype, device=dev)
+    if rows:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.int8_ffn(
+                x2.data_ptr(), w1_t.data_ptr(), s_w1.data_ptr(),
+                b1.data_ptr(), r2.data_ptr(), s_mid.data_ptr(),
+                w2_t.data_ptr(), s_w2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), rows, k, n, m_out,
+                int(out_dtype == torch.bfloat16), stream)
+        _build.check(err, "int8_ffn")
+        fused_int8_ffn.launches += 1
+    return out.reshape(*lead, m_out)
+
+
+def fused_int8_matmul_requant(xq, w_q, s_w, b, r_row, s_next,
+                              op: str = "gelu"):
+    """K8: ``xq [..., K]`` int8 ``@ w_q [K, N]`` int8 -> decode -> (quickGELU)
+    -> requant for the consumer site.  ``s_w [N]`` decodes the weights,
+    ``b [N]`` is the bias, ``r_row [..., 1]`` the input's row scale,
+    ``s_next [N]`` the consumer's calibrated scale.  Returns (int8
+    ``[..., N]``, f32 ``[..., 1]``).  A CUDA tensor launches
+    ``int8_matmul_requant`` (counted in ``.launches``) or raises; a CPU
+    tensor runs :func:`int8_matmul_requant_plain`."""
+    _check_op(op, MM_OPS)
+    if xq.is_cuda:
+        return _matmul_requant_cuda(xq, w_q, s_w, b, r_row, s_next, op)
+    return int8_matmul_requant_plain(xq, w_q, s_w, b, r_row, s_next, op)
+
+
+def fused_int8_ffn(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2,
+                   out_dtype=torch.float32):
+    """K7: ``c_fc`` -> decode -> quickGELU -> requant -> ``c_proj`` ->
+    decode in one kernel; the ``[rows, N]`` middle never reaches device
+    memory.  Returns ``[..., M]`` in ``out_dtype`` (the residual add is the
+    caller's).  A CUDA tensor launches ``int8_ffn`` (counted in
+    ``.launches``) or raises; a CPU tensor runs :func:`int8_ffn_plain`."""
+    if xq.is_cuda:
+        return _ffn_cuda(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2,
+                         out_dtype)
+    return int8_ffn_plain(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2,
+                          out_dtype)
+
+
+fused_int8_matmul_requant.launches = 0
+fused_int8_ffn.launches = 0

@@ -5,8 +5,12 @@ text queries, or image queries, with the top-k gallery matches.  Ranking
 runs the streaming top-k kernels (``ops/ranking.py``) for k <= 64 and a
 materialising ``torch.matmul`` + ``torch.topk`` beyond, as the JAX package
 leaves k > 64 to XLA.  With ``quantize=True`` the gallery is ranked from its
-int8 form (``ops/quant.py``: a quarter of the bytes).  The index file format
-(npz with ``gallery`` and ``meta``, plus ``quant_values`` and
+int8 form (``ops/quant.py``: a quarter of the bytes).  With
+``int8_encode=True`` a ViT tower encodes the gallery (and image queries)
+through its int8-dataflow form (``models/int8_vit.py``), calibrated on the
+first gallery batches; :meth:`RetrievalIndex.enable_int8_text` does the same
+for a text-transformer query tower (``models/int8_text.py``).  The index
+file format (npz with ``gallery`` and ``meta``, plus ``quant_values`` and
 ``quant_scales`` from a quantized index) is the JAX package's, so an index
 written by either package loads in the other.  The interface (``search``,
 ``search_by_image``, ``load_index``, ``gallery``, ``gallery_meta``) is what
@@ -15,6 +19,7 @@ written by either package loads in the other.  The interface (``search``,
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional
 
@@ -41,12 +46,29 @@ class RetrievalIndex:
         if mesh is not None:
             raise NotImplementedError(
                 "a gallery sharded over devices is not ported yet (ROADMAP "
-                "Queue A: parallel/mesh.py -> torch.distributed)")
-        if int8_encode:
-            raise NotImplementedError(
-                "int8 encoders are not ported yet (ROADMAP Queue A item 6: "
-                "the int8 towers; Queue B K7-K9)")
+                "Queue A item 9: parallel/mesh.py -> torch.distributed)")
         self.model = model
+        # int8_encode: True or "dataflow" runs the int8-dataflow graph of a
+        # ViT tower, calibrated on the first gallery batches
+        self._int8_pending = False
+        # (encode function, prepared tower) of each int8 encoder, once built
+        self._int8_image_encoder = self._int8_image_tower = None
+        self._int8_text_encoder = self._int8_text_tower = None
+        if int8_encode:
+            from .models.vit import VisionTransformer
+
+            mode = "dataflow" if int8_encode is True else int8_encode
+            if mode != "dataflow":
+                raise NotImplementedError(
+                    f"int8_encode={int8_encode!r}: the per-conv interceptor "
+                    "is not ported yet (ROADMAP Queue A item 6: "
+                    "models/quant_tower.py)")
+            if not isinstance(model.visual_model, VisionTransformer):
+                raise NotImplementedError(
+                    f"int8 encode of a {type(model.visual_model).__name__} "
+                    "tower is not ported yet (ROADMAP Queue A item 6: "
+                    "models/int8_tower.py for m_resnet*); ViT towers are")
+            self._int8_pending = True  # calibrate in build_gallery
         # rank from the int8 form of the gallery (ops/quant.py)
         self.quantize = quantize
         self._quant_gallery: Optional[QuantizedGallery] = None
@@ -58,18 +80,50 @@ class RetrievalIndex:
 
     # -- encoders ---------------------------------------------------------
     def _embed_images(self, pixels: torch.Tensor) -> torch.Tensor:
-        model = self.model
+        if self._int8_image_encoder is not None:
+            return self._int8_image_encoder(pixels)
+        model = self.model  # also before an int8 tower's calibration
         emb = model.embed_image(model.encode_image(pixels))
         return l2_normalize(emb.float(), dim=1)
 
     def _embed_texts(self, token_ids: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
+        if self._int8_text_encoder is not None:
+            return self._int8_text_encoder(token_ids, lengths)
         model = self.model
         feat = model.encode_text(token_ids, lengths, pool_mode="always")
         return l2_normalize(model.embed_text(feat).float(), dim=1)
 
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array)).to(self.device)
+
+    @torch.inference_mode()
+    def enable_int8_text(self, calib_batches) -> None:
+        """Swap the query text encoder to the int8-dataflow text transformer
+        (``models/int8_text.py``), calibrated on ``calib_batches``: an
+        iterable of ``(token_ids [B, T], lengths [B])`` with the serving
+        query distribution (e.g. dataset captions).  The textual tower must
+        be a ``TextTransformer`` (``NotImplementedError`` for the
+        bi-GRU)."""
+        from .models.int8_text import build_int8_text_encoder
+
+        self._int8_text_encoder, self._int8_text_tower = \
+            build_int8_text_encoder(self.model, calib_batches)
+
+    def _build_int8_encoder(self, batches):
+        """Calibrate the int8-dataflow tower on the first four gallery
+        batches and swap it in as the image encoder; returns an iterable
+        that replays every batch, the calibration ones included."""
+        from .models.int8_vit import build_int8_vit_encoder
+
+        batches = iter(batches)
+        calib = list(itertools.islice(batches, 4))
+        if not calib:
+            raise ValueError("build_gallery needs at least one batch")
+        self._int8_image_encoder, self._int8_image_tower = \
+            build_int8_vit_encoder(self.model, calib)
+        self._int8_pending = False
+        return itertools.chain(calib, batches)
 
     # -- gallery ----------------------------------------------------------
     @torch.inference_mode()
@@ -78,6 +132,8 @@ class RetrievalIndex:
         normalized float) into the index.  ``valid_rows`` drops trailing
         rows after encoding (a caller's padded last batch), so a pad
         duplicate never enters the index."""
+        if self._int8_pending:
+            batches = self._build_int8_encoder(batches)
         chunks = [self._embed_images(self._to_device(b)) for b in batches]
         gallery = torch.cat(chunks, dim=0)
         if valid_rows is not None:

@@ -8,7 +8,13 @@ and write an atomic index file that serving replicas load with
   python -m textreid_torch.tools.build_index --root $ROOT \
       --config-file configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml \
       --checkpoint-file model.pth --output gallery.idx [--quantize] \
-      [--device cuda]
+      [--int8-encode] [--text-calib-out calib.npz] [--device cuda]
+
+``--int8-encode`` encodes the gallery through the int8-dataflow form of a
+ViT tower (``models/int8_vit.py``), calibrated on the first four gallery
+batches.  ``--text-calib-out`` also writes a sample of the dataset's
+captions for ``tools.serve --int8-text-calib``: replicas boot without the
+dataset, so the calibration sample ships beside the index.
 """
 
 from __future__ import annotations
@@ -27,9 +33,13 @@ def parse_args(argv=None):
                         help="reference-layout .pth")
     parser.add_argument("--output", required=True,
                         help="index file to write (atomic)")
+    parser.add_argument("--int8-encode", action="store_true",
+                        help="encode the gallery with the int8-dataflow "
+                        "visual tower (models/int8_vit.py; ViT towers)")
     parser.add_argument("--text-calib-out", default="",
                         help="also write an npz of dataset captions "
-                        "(token_ids, lengths) beside the index")
+                        "(token_ids, lengths) for serving-side int8 text "
+                        "calibration (tools.serve --int8-text-calib)")
     parser.add_argument("--text-calib-rows", type=int, default=2048,
                         help="caption rows to sample into --text-calib-out")
     parser.add_argument("--quantize", action="store_true",
@@ -63,7 +73,8 @@ def main(argv=None):
     logger = setup_logger("PersonSearch")
     model = build_eval_model(cfg, args.checkpoint_file, args.device,
                              compute_dtype(cfg, args.device))
-    index = RetrievalIndex(model, quantize=args.quantize)
+    index = RetrievalIndex(model, quantize=args.quantize,
+                           int8_encode=args.int8_encode)
     loader = make_data_loader(cfg, is_train=False)[0]
 
     # one gallery row per unique image (the eval protocol's dedupe); meta

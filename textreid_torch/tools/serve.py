@@ -7,7 +7,8 @@ checkpoint, loads a gallery index, and serves JSON search over HTTP through
   python -m textreid_torch.tools.serve --root $ROOT \
       --config-file configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml \
       --checkpoint-file model.pth --index-file gallery.idx \
-      [--vocab-file word2id.json] [--port 8080] [--quantize] [--device cuda]
+      [--vocab-file word2id.json] [--port 8080] [--quantize] \
+      [--int8-text-calib calib.npz] [--device cuda]
 
 Then:
   curl localhost:8080/healthz
@@ -44,10 +45,33 @@ def parse_args(argv=None):
                         "largest is the service's max k")
     parser.add_argument("--quantize", action="store_true",
                         help="rank from the int8 form of the gallery (a quarter of the float gallery's bytes)")
+    parser.add_argument("--int8-text-calib", default="",
+                        help="caption npz (token_ids, lengths) from "
+                        "tools.build_index --text-calib-out; enables the "
+                        "int8-dataflow text transformer for query encode "
+                        "(text-transformer towers only)")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' raises without a card")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
+
+
+def calibration_chunks(path: str, max_len: int, batch: int):
+    """The caption sample at ``path`` as fixed-shape ``(token_ids [batch,
+    max_len], lengths [batch])`` chunks: the captions padded or cut to the
+    service's query length, a ragged tail dropped unless it is all there
+    is."""
+    import numpy as np
+
+    with np.load(path) as calib:
+        ids, lens = calib["token_ids"], calib["lengths"]
+    if ids.shape[1] < max_len:
+        ids = np.pad(ids, ((0, 0), (0, max_len - ids.shape[1])))
+    ids = ids[:, :max_len]
+    lens = np.minimum(lens, max_len)
+    n_full = (len(ids) // batch) * batch or len(ids)
+    return [(ids[s:s + batch], lens[s:s + batch])
+            for s in range(0, n_full, batch)], n_full
 
 
 def build_server(argv=None):
@@ -78,6 +102,13 @@ def build_server(argv=None):
     index.load_index(args.index_file)
     logger.info("Index: %d rows x %d dims", index.gallery.shape[0],
                 index.gallery.shape[1])
+
+    if args.int8_text_calib:
+        chunks, rows = calibration_chunks(
+            args.int8_text_calib, cfg.INPUT.MAX_TEXT_LENGTH, args.query_batch)
+        index.enable_int8_text(chunks)
+        logger.info("int8 text encode enabled (%d calibration captions)",
+                    rows)
 
     tokenizer = (SimpleTokenizer.from_file(args.vocab_file)
                  if args.vocab_file else None)

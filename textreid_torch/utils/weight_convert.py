@@ -11,6 +11,11 @@
   query and key models, queues and pointer.
 * :func:`convert_clip_vit` — a CLIP ViT state dict -> the port's
   ``visual_model`` keys, with the position embedding resized.
+* :func:`convert_clip_text` — the text half of a CLIP state dict -> the
+  port's ``textual_model`` keys, the positional table resampled to the
+  configured context length.
+* :func:`int8_tower_from_jax` — a prepared JAX ``Int8ViT`` / ``Int8Text``
+  (numpy arrays) -> the port's prepared ``Int8Tower``.
 * :func:`load_reference_state_dict` — a reference ``.pth`` state dict ->
   the port's model, refusing any key it does not know.
 
@@ -99,13 +104,9 @@ def _ln(out: dict, prefix: str, p: dict) -> None:
     out[f"{prefix}.bias"] = p["bias"]
 
 
-def _vit(out: dict, prefix: str, params: dict) -> None:
-    """CLIP ViT: the inverse of ``convert_clip_vit``."""
-    out[f"{prefix}conv1.weight"] = _conv(params["patch_embed"]["kernel"])
-    for name in ("class_embedding", "positional_embedding", "proj"):
-        out[f"{prefix}{name}"] = params[name]
-    _ln(out, f"{prefix}ln_pre", params["ln_pre"])
-    _ln(out, f"{prefix}ln_post", params["ln_post"])
+def _blocks(out: dict, prefix: str, params: dict) -> None:
+    """``block_{i}`` -> ``transformer.resblocks.{i}`` (CLIP's names), for
+    the ViT and the text transformer alike."""
     blocks = sorted(int(k.split("_")[1]) for k in params
                     if k.startswith("block_"))
     for i in blocks:
@@ -119,8 +120,31 @@ def _vit(out: dict, prefix: str, params: dict) -> None:
         _dense(out, f"{dst}.mlp.c_proj", bp["c_proj"])
 
 
+def _vit(out: dict, prefix: str, params: dict) -> None:
+    """CLIP ViT: the inverse of ``convert_clip_vit``."""
+    out[f"{prefix}conv1.weight"] = _conv(params["patch_embed"]["kernel"])
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        out[f"{prefix}{name}"] = params[name]
+    _ln(out, f"{prefix}ln_pre", params["ln_pre"])
+    _ln(out, f"{prefix}ln_post", params["ln_post"])
+    _blocks(out, prefix, params)
+
+
+def _text_transformer(out: dict, prefix: str, params: dict) -> None:
+    """CLIP text transformer: the inverse of the JAX package's
+    ``convert_clip_text``."""
+    out[f"{prefix}token_embedding.weight"] = params["token_embedding"]
+    out[f"{prefix}positional_embedding"] = params["positional_embedding"]
+    out[f"{prefix}text_projection"] = params["text_projection"]
+    _ln(out, f"{prefix}ln_final", params["ln_final"])
+    _blocks(out, prefix, params)
+
+
 def _textual(out: dict, prefix: str, params: dict) -> None:
-    """bi-GRU: the inverse of ``convert_gru``."""
+    """The text transformer, or the bi-GRU (the inverse of
+    ``convert_gru``)."""
+    if "text_projection" in params:
+        return _text_transformer(out, prefix, params)
     if "token_embedding" in params:
         table = params["token_embedding"].copy()
         table[0] = 0.0  # nn.Embedding(padding_idx=0): the pad row is zero
@@ -243,6 +267,63 @@ def convert_clip_vit(sd: Mapping, layers: int, final_grid=None,
         if f"{prefix}transformer.resblocks.{i}.attn.in_proj_weight" not in out:
             raise KeyError(f"CLIP ViT state dict has no block {i}")
     return out
+
+
+def convert_clip_text(sd: Mapping, layers: int, context_length=None,
+                      prefix: str = "textual_model.") -> dict:
+    """The text half of a CLIP state dict -> the port's ``textual_model``
+    keys (numpy values) for the first ``layers`` blocks.  A CLIP archive
+    holds the text tower at the top level (``token_embedding.weight``,
+    ``positional_embedding``, ``transformer.resblocks.*``, ``ln_final``,
+    ``text_projection``) beside the ``visual.*`` subtree: pass the whole
+    dict, the visual keys are ignored.  When ``context_length`` differs
+    from the checkpoint's (77), the positional table is resampled linearly
+    along the sequence (half-pixel centres, no antialiasing).  The port's
+    text transformer keeps CLIP's names, so this is a filter and the
+    resize."""
+    sd = {k: np.asarray(v) for k, v in sd.items()
+          if not k.startswith("visual.")}
+    pos = sd["positional_embedding"]
+    if context_length is not None and len(pos) != context_length:
+        sd["positional_embedding"] = _bilinear_axis(pos, context_length,
+                                                    axis=0)
+    keep = re.compile(r"^(token_embedding\.weight|positional_embedding|"
+                      r"ln_final\.|text_projection$|transformer\.resblocks\.)")
+    block = re.compile(r"^transformer\.resblocks\.(\d+)\.")
+    out = {prefix + k: v for k, v in sd.items() if keep.match(k) and not (
+        block.match(k) and int(block.match(k).group(1)) >= layers)}
+    for i in range(layers):
+        if f"{prefix}transformer.resblocks.{i}.attn.in_proj_weight" not in out:
+            raise KeyError(f"CLIP text state dict has no block {i}")
+    return out
+
+
+def int8_tower_from_jax(units: Mapping, scales: Mapping, consts: Mapping,
+                        dtype: torch.dtype = torch.float32, device="cpu"):
+    """A prepared JAX ``Int8ViT`` or ``Int8Text`` (its ``units``, ``scales``
+    and ``consts`` as numpy arrays) -> the port's ``Int8Tower`` on
+    ``device``, so that the two ``int8_*_apply`` run on identical quantized
+    weights.  The patchify conv's ``[kh, kw, ci, co]`` weight becomes the
+    product's ``[kh kw ci, co]``; every ``w_q`` is held as the transpose of
+    a contiguous ``[co, ci]``; the projection stays bf16 and the token table
+    takes the tower ``dtype``, as in the JAX package."""
+    from ..models.int8_vit import Int8Tower
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    out_units = {}
+    for site, u in units.items():
+        w_q = np.asarray(u["w_q"], np.int8)
+        w_q = torch.from_numpy(w_q.reshape(-1, w_q.shape[-1]).copy())
+        out_units[site] = {"w_q": w_q.T.contiguous().to(device).T,
+                           "s_w": f32(u["s_w"]), "b": f32(u["b"])}
+    casts = {"proj": torch.bfloat16, "token": dtype}
+    return Int8Tower(
+        units=out_units, scales={s: f32(a) for s, a in scales.items()},
+        consts={k: f32(a).to(casts.get(k, torch.float32))
+                for k, a in consts.items()},
+        dtype=dtype)
 
 
 def load_reference_state_dict(model: torch.nn.Module, sd: Mapping) -> None:
