@@ -19,9 +19,12 @@ before the result line:
    the serving shapes; K3 (the one-direction GRU scan) at T=105, H=512 and
    B=256, 128 and a ragged 37, with a non-zero h0 and both scan orders; K4
    (the int8 streaming top-k) at Q=256, D=256, G=3,074 and 98,304, k=10
-   and 64, with duplicated rows; K5 and K6 at the ViT-B/16 shape (B=128,
-   S=193, W=768, 12 heads) in bf16 and f32 and at the causal CLIP-text
-   shape (B=128, S=77, W=512, 8 heads); K1's and K3's autograd paths
+   and 64, with duplicated rows; K2 also with its bf16 compute option at
+   G=3,074 and 98,304; K5 and K6 in bf16 (tensor cores) and f32 (FP32
+   cores) at the ViT-B/16 shape (B=128, S=193, W=768, 12 heads), the causal
+   CLIP-text shapes (B=128, S=77 and the served B=256, S=100; W=512, 8
+   heads), S=288 causal and not, S=257 and a ragged S=45 at head_dim 32,
+   one token and one sample; K1's and K3's autograd paths
    (kernel forward, plain recompute backward) against autograd through the
    plain versions.
 3. The serving slice through its entry points at the flagship width
@@ -69,8 +72,11 @@ before the result line:
 9. One f32 step with the kernels against one with their plain versions,
    from the same state and batch: loss dicts and every parameter's update.
 10. Step time (median, bf16, after warmup) with the kernels and with their
-   plain versions, peak device memory, and the share of K1's plain
-   recompute backward.
+   plain versions, peak device memory, the share of K1's plain recompute
+   backward, and a ``torch.profiler`` split of the step's device time by
+   kernel family.  Then K5 and K6 alone at the ViT-B/16 shape and the
+   served causal text shape, beside their plain versions and the library
+   call.
 11. The ``kernels`` line: for each of the nine kernels its launches on the
     driven paths, its error, its time beside its plain version's, its
     roofline bound computed from the timed shapes (bytes over 3.35 TB/s
@@ -273,23 +279,29 @@ def k2_inputs(n_g, seed, n_q=256, dim=256, duplicates=False):
 
 
 def check_k2():
+    """K2 against its plain version; returns the worst score error of the
+    f32 cases (the row of the ``kernels`` line).  The bf16 cases round both
+    operands to bf16 before the products (``compute_dtype``)."""
     import torch
     from textreid_torch.ops import ranking
 
-    cases = [(3074, k, 0, False) for k in (1, 10, 64)]
-    cases += [(98304, k, 0, False) for k in (1, 10, 64)]
-    cases += [(1001, 10, 990, False),   # ragged G, masked tail
-              (40, 64, 0, False),       # k > G: sentinel slots
-              (3074, 10, 0, True)]      # duplicated rows: exact ties
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(3074, k, 0, False, f32) for k in (1, 10, 64)]
+    cases += [(98304, k, 0, False, f32) for k in (1, 10, 64)]
+    cases += [(1001, 10, 990, False, f32),   # ragged G, masked tail
+              (40, 64, 0, False, f32),       # k > G: sentinel slots
+              (3074, 10, 0, True, f32),      # duplicated rows: exact ties
+              (3074, 10, 0, False, bf16), (98304, 10, 0, False, bf16),
+              (3074, 64, 0, True, bf16), (1001, 10, 990, False, bf16)]
     worst = 0.0
-    for n_g, k, valid, dup in cases:
+    for n_g, k, valid, dup, dtype in cases:
         q, gal = k2_inputs(n_g, seed=n_g + k, duplicates=dup)
-        vals, idx = ranking.topk_similarity(q, gal, k, valid)
-        pv, pi = ranking.topk_similarity_plain(q, gal, k, valid)
+        vals, idx = ranking.topk_similarity(q, gal, k, valid, dtype)
+        pv, pi = ranking.topk_similarity_plain(q, gal, k, valid, dtype)
         torch.cuda.synchronize()
         err = (vals - pv).abs().max().item()
         n_valid = valid or n_g
-        scores = q @ gal[:n_valid].T
+        scores = q.to(dtype).float() @ gal[:n_valid].to(dtype).float().T
         swapped = (idx != pi)
         bad = 0
         for r, j in swapped.nonzero().tolist():
@@ -301,13 +313,16 @@ def check_k2():
         if dup:  # rows 3 and n_g-1 hold one vector: n_g-1 must come first
             row3 = idx[3].tolist()
             ties_ok = row3.index(n_g - 1) < row3.index(3)
+        dname = str(dtype).split(".")[1]
         log(f"K2 topk_similarity_f32 Q=256 D=256 G={n_g} k={k} "
-            f"valid={n_valid}{' dup' if dup else ''}: max_abs_err={err:.3e} "
+            f"valid={n_valid}{' dup' if dup else ''} compute {dname}: "
+            f"max_abs_err={err:.3e} "
             f"(tol {K2_TOL:.0e}), index mismatches={int(swapped.sum())} "
             f"(non-tie {bad}), tie order ok={ties_ok}")
         if not math.isfinite(err) or err > K2_TOL or bad or not ties_ok:
-            fail(f"K2 G={n_g} k={k} disagrees with its plain version")
-        worst = max(worst, err)
+            fail(f"K2 G={n_g} k={k} {dname} disagrees with its plain version")
+        if dtype == f32:
+            worst = max(worst, err)
     return worst
 
 
@@ -323,7 +338,18 @@ def attn_inputs(batch, seq, width, dtype, seed):
 ATTN_CASES = [  # (name, batch, seq, width, heads, causal)
     ("ViT-B/16", 128, 193, 768, 12, False),
     ("CLIP text", 128, 77, 512, 8, True),
+    ("CLIP text, served bucket", 256, 100, 512, 8, True),
+    ("longest S", 16, 288, 768, 12, False),
+    ("longest S, causal", 16, 288, 768, 12, True),
+    ("ViT-L/14 length, head_dim 32", 8, 257, 256, 8, False),
+    ("one token", 4, 1, 128, 2, False),
+    ("one token, causal, head_dim 32", 4, 1, 64, 2, True),
+    ("ragged S, head_dim 32", 8, 45, 256, 8, True),
+    ("ragged S, head_dim 32, full", 8, 45, 256, 8, False),
+    ("one sample", 1, 193, 768, 12, False),
 ]
+# the shapes time_attention times: (key, batch, seq, width, heads, causal)
+ATTN_TIMED = [("vit",) + ATTN_CASES[0][1:], ("text",) + ATTN_CASES[2][1:]]
 
 
 def check_attention():
@@ -1821,6 +1847,53 @@ def compare_steps():
     return loss_err, worst
 
 
+def profile_steps(step, state, batch, steps=2):
+    """Device time of a train step by kernel family, from ``torch.profiler``
+    over ``steps`` bf16 steps: {family: ms a step}, with "total" and
+    "launches" (kernels a step).  None when the trace holds no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    families = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
+                ("K1", ("bigru_pooled",)),
+                ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
+                                     "nvjet", "wgmma")))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in families}
+    out.update({"other": 0.0, "total": 0.0, "launches": 0})
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
+            family = "other"
+        else:
+            family = next((name for name, keys in families
+                           if any(k in evt.name.lower() for k in keys)),
+                          "other")
+            out["launches"] += 1
+        out[family] += us / 1e3 / steps
+        out["total"] += us / 1e3 / steps
+    out["launches"] //= steps
+    if out["total"] == 0.0:
+        log("profile of the train step: the trace holds no device events")
+        return None
+    log("profile of the bf16 train step (torch.profiler, device time a step): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()
+                    if k != "launches")
+        + f"; {out['launches']} kernels a step")
+    return out
+
+
 def time_training(reps=8):
     """Median ms per bf16 step (kernels, then plain versions, then kernels
     again), peak memory, and K1's recompute backward at the step's shape."""
@@ -1849,6 +1922,7 @@ def time_training(reps=8):
         plain = timed(reps)
     kernel += timed(reps)
     ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
+    profile_steps(step, state, batch)
 
     # K1 at the step's shape: forward (kernel) and forward + backward
     # (plain recompute), bf16, B=128, T=105, H=512
@@ -1879,45 +1953,59 @@ def time_training(reps=8):
 
 
 def time_attention():
-    """K5 and K6 at the ViT-B/16 shape, kernel and plain version
-    interleaved, and the library call's time beside them."""
+    """K5 and K6 at the ViT-B/16 shape (bf16 and f32) and at the served
+    causal CLIP-text shape (bf16), kernel and plain version interleaved,
+    and the library call's time beside each bf16 pair.  Keys: (kernel,
+    dtype or "library") for the ViT shape, (kernel, "text", ...) for the
+    text shape."""
     import torch
+    import torch.nn.functional as F
     from textreid_torch.ops import attention as A
 
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        qkv, g = attn_inputs(128, 193, 768, dtype, seed=1)
-        dname = str(dtype).split(".")[1]
-        out[("K5", dname)] = interleaved_ms(
-            lambda: A.fused_attention(qkv, 12),
-            lambda: A.fused_attention_plain(qkv, 12), 10, 5)
-        out[("K6", dname)] = interleaved_ms(
-            lambda: A.fused_attention_bwd(qkv, g, 12),
-            lambda: A.fused_attention_bwd_plain(qkv, g, 12), 10, 5)
-        for k in ("K5", "K6"):
-            ms, plain_ms = out[(k, dname)]
-            log(f"time {k} B=128 S=193 W=768 H=12 {dname}: kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    for shape, batch, seq, width, heads, causal in ATTN_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            if shape == "text" and dtype == torch.float32:
+                continue  # no path runs the text tower's attention in f32
+            qkv, g = attn_inputs(batch, seq, width, dtype, seed=1)
+            dname = str(dtype).split(".")[1]
+            times = {
+                "K5": interleaved_ms(
+                    lambda: A.fused_attention(qkv, heads, causal),
+                    lambda: A.fused_attention_plain(qkv, heads, causal),
+                    20, 5),
+                "K6": interleaved_ms(
+                    lambda: A.fused_attention_bwd(qkv, g, heads, causal),
+                    lambda: A.fused_attention_bwd_plain(qkv, g, heads,
+                                                        causal), 20, 5)}
+            for k, (ms, plain_ms) in times.items():
+                out[(k, dname) if shape == "vit" else (k, "text", dname)] = (
+                    ms, plain_ms)
+                log(f"time {k} B={batch} S={seq} W={width} H={heads} "
+                    f"causal={causal} {dname}: kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms")
 
-    # The library's yardstick, timed here and called nowhere in the port:
-    # scaled_dot_product_attention on the split bf16 slab, and autograd's
-    # backward of that call.
-    import torch.nn.functional as F
-
-    qkv, g = attn_inputs(128, 193, 768, torch.bfloat16, seed=1)
-    heads = qkv.view(128, 193, 3, 12, 64).permute(2, 0, 3, 1, 4)
-    q, k, v = (t.contiguous().requires_grad_(True) for t in heads)
-    g_heads = g.view(128, 193, 12, 64).transpose(1, 2).contiguous()
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
-    y = F.scaled_dot_product_attention(q, k, v)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, (q, k, v), g_heads,
-                                                 retain_graph=True), 10)
-    out[("K5", "library")] = fwd_ms
-    out[("K6", "library")] = bwd_ms
-    log(f"time library yardstick bf16 B=128 S=193 12 heads x 64: "
-        f"scaled_dot_product_attention {fwd_ms:.3f} ms, its autograd "
-        f"backward {bwd_ms:.3f} ms")
+        # The library's yardstick, timed here and called nowhere in the
+        # port: scaled_dot_product_attention on the split bf16 slab, and
+        # autograd's backward of that call.
+        qkv, g = attn_inputs(batch, seq, width, torch.bfloat16, seed=1)
+        split = qkv.view(batch, seq, 3, heads, width // heads).permute(
+            2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous().requires_grad_(True) for t in split)
+        g_heads = g.view(batch, seq, heads, -1).transpose(1, 2).contiguous()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), 20)
+        y = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            y, (q, k, v), g_heads, retain_graph=True), 20)
+        out[("K5", "library") if shape == "vit" else
+            ("K5", "text", "library")] = fwd_ms
+        out[("K6", "library") if shape == "vit" else
+            ("K6", "text", "library")] = bwd_ms
+        log(f"time library yardstick bf16 B={batch} S={seq} {heads} heads x "
+            f"{width // heads} causal={causal}: scaled_dot_product_attention "
+            f"{fwd_ms:.3f} ms, its autograd backward {bwd_ms:.3f} ms")
     return out
 
 
@@ -1951,6 +2039,12 @@ def main():
         # times alone (about 25 s); prints no result line
         check_k9(), check_k8(), check_k7()
         time_int8_kernels()
+        return
+    if sys.argv[1:] == ["--attention-kernels"]:
+        # a development aid: K5 and K6 against their plain versions and
+        # their times alone (about 40 s); prints no result line
+        check_attention()
+        time_attention()
         return
     k1_err = check_k1()
     k2_err = check_k2()

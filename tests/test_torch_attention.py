@@ -118,3 +118,191 @@ def test_misaligned_qkv_raises():
         A.fused_attention_plain(qkv, 4)
     with pytest.raises(ValueError, match="3\\*heads"):
         A.attention(qkv, 4)
+
+
+# -- the launch plan: what csrc/fused_attention.cu launches for a shape -------
+
+PLAN_SEQS = [1, 16, 77, 100, 193, 257, 288]
+
+
+@pytest.mark.parametrize("head_dim", A.HEAD_DIMS)
+@pytest.mark.parametrize("seq", PLAN_SEQS)
+def test_bf16_launch_plan(seq, head_dim):
+    """bf16: one block per (head, sample), one launch each way, no scratch
+    in device memory, whole groups of 16-key tiles staged, and every
+    kernel within the shared memory a block may use."""
+    batch, heads = 5, 3
+    plan = A.launch_plan(batch, seq, heads, head_dim, torch.bfloat16)
+    live = -(-seq // 16)
+    assert plan["key_tiles"] == min(n for n in (7, 13, 18) if n >= live)
+    assert plan["s_pad"] % 16 == 0 and plan["s_pad"] >= seq
+    assert plan["s_pad"] // 16 <= plan["key_tiles"]
+    assert plan["s_pad"] // 16 - live < A.TILE_GROUP
+    assert plan["s_pad"] // 16 % A.TILE_GROUP == 0 or (
+        plan["s_pad"] // 16 == plan["key_tiles"])
+    assert plan["scratch_floats"] == 0
+    (fwd,), (bwd,) = plan["fwd"], plan["bwd"]
+    assert fwd["grid"] == bwd["grid"] == (heads, batch)
+    assert fwd["smem"] == 3 * plan["s_pad"] * head_dim * 2
+    assert bwd["smem"] == 4 * plan["s_pad"] * head_dim * 2 + 12 * plan["s_pad"]
+    assert fwd["threads"] == 128
+    assert bwd["threads"] == (256 if plan["key_tiles"] == 18 else 128)
+    for launch in (fwd, bwd):
+        assert launch["smem"] <= A.SMEM_LIMIT == 232_448
+
+
+def test_bf16_plan_fits_two_blocks_an_sm_at_the_vit_shape():
+    """S=193, head_dim 64: 80 KB forward and 109 KB backward, so two blocks
+    share an SM's 228 KB (1 KB of it reserved per block)."""
+    plan = A.launch_plan(128, 193, 12, 64, torch.bfloat16)
+    assert plan["s_pad"] == 208 and plan["key_tiles"] == 13
+    assert plan["fwd"][0]["smem"] == 79_872
+    assert plan["bwd"][0]["smem"] == 108_992
+    for launch in (plan["fwd"][0], plan["bwd"][0]):
+        assert 2 * (launch["smem"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("head_dim", A.HEAD_DIMS)
+@pytest.mark.parametrize("seq", PLAN_SEQS)
+def test_f32_launch_plan_is_the_first_version(seq, head_dim):
+    """f32 keeps the FP32-core kernels: a block per 64-row query tile, rows
+    padded to 32 at an odd-word stride, two backward launches that share a
+    [B, H, S, 4] scratch."""
+    batch, heads = 5, 3
+    plan = A.launch_plan(batch, seq, heads, head_dim, torch.float32)
+    s_pad = -(-seq // 32) * 32
+    staged = 2 * s_pad * (head_dim + 1) * 4
+    grid = (-(-seq // 64), heads, batch)
+    assert plan["s_pad"] == s_pad
+    assert plan["scratch_floats"] == batch * heads * seq * 4
+    assert plan["fwd"] == [{"grid": grid, "threads": 256,
+                            "smem": staged + 64 * head_dim * 4}]
+    assert [b["smem"] for b in plan["bwd"]] == [
+        staged + 2 * 64 * head_dim * 4,
+        staged + 2 * 64 * head_dim * 4 + 3 * s_pad * 4]
+    assert all(b["grid"] == grid and b["smem"] <= A.SMEM_LIMIT
+               for b in plan["bwd"])
+
+
+def test_launch_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        A.launch_plan(1, 8, 1, 32, torch.float16)
+
+
+def test_plan_constants_match_the_cuda_source():
+    """The plan mirrors constants of the .cu file; hold them together."""
+    import re
+    from pathlib import Path
+
+    src = (Path(A.__file__).parent.parent / "csrc"
+           / "fused_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kKeyTile") == A.KEY_TILE
+    assert const("kTileGroup") == A.TILE_GROUP
+    assert const("kChunks") * 32 == A.S_MAX == A.KEY_TILE_COUNTS[-1] * 16
+    for tiles in A.KEY_TILE_COUNTS:
+        assert f"launch_fwd_mma<D, {tiles}>" in src
+        assert f"launch_bwd_mma<D, {tiles}, " in src
+    # every bf16 product is an mma on the tensor cores, every copy async
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "cp.async.cg.shared.global" in src
+    assert "<__nv_bfloat16, 64>" not in src  # no second bf16 path
+
+
+class _FakeLibrary:
+    """Records the arguments of the C entry points; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_attention_fwd(self, *args):
+        self.calls.append(("fwd", args))
+        return 0
+
+    def fused_attention_bwd(self, *args):
+        self.calls.append(("bwd", args))
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The CUDA-side wrappers on CPU tensors: the checks that need a card
+    are bypassed and the library is a recorder."""
+    import contextlib
+    import types
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(A, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(A._build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    counts = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    yield lib
+    A.fused_attention.launches, A.fused_attention_bwd.launches = counts
+
+
+def test_bf16_backward_allocates_no_stats(fake_card, monkeypatch):
+    """K6 in bf16 hands the library a null scratch pointer and allocates
+    one tensor, the gradient; in f32 the two launches still share one."""
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a) or
+                        real_empty(*a, **k))
+    qkv = torch.zeros(2, 20, 3 * 64, dtype=torch.bfloat16)
+    g = torch.zeros(2, 20, 64, dtype=torch.bfloat16)
+    out = A._fused_attention_bwd_cuda(qkv, g, 2, True, None)
+    (name, args), = fake_card.calls
+    assert name == "bwd" and args[3] is None and made == []
+    assert args[:3] == (qkv.data_ptr(), g.data_ptr(), out.data_ptr())
+    assert args[4:11] == (2, 20, 64, 2, 32 ** -0.5, 1, 1)
+    assert out.shape == qkv.shape and out.dtype == torch.bfloat16
+
+    fake_card.calls.clear()
+    A._fused_attention_bwd_cuda(qkv.float(), g.float(), 2, False, 0.5)
+    (name, args), = fake_card.calls
+    assert args[3] is not None and made == [(2 * 2 * 20 * 4,)]
+    assert args[8:11] == (0.5, 0, 0)
+
+
+def test_each_wrapper_call_is_one_counted_launch(fake_card):
+    qkv = torch.zeros(1, 5, 3 * 32, dtype=torch.bfloat16)
+    g = torch.zeros(1, 5, 32, dtype=torch.bfloat16)
+    before = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    A._fused_attention_cuda(qkv, 1, False, None)
+    A._fused_attention_bwd_cuda(qkv, g, 1, False, None)
+    assert [name for name, _ in fake_card.calls] == ["fwd", "bwd"]
+    assert (A.fused_attention.launches,
+            A.fused_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("shape,heads,dtype,error,match", [
+    ((1, 289, 3 * 64), 1, torch.bfloat16, ValueError, "S <= 288"),
+    ((2, 5, 3 * 96), 2, torch.bfloat16, ValueError, "head_dim"),
+    ((2, 5, 3 * 96), 2, torch.float32, ValueError, "head_dim"),
+    ((2, 5, 3 * 64), 2, torch.float16, TypeError, "f32 or bf16"),
+    ((2, 5, 64), 2, torch.bfloat16, ValueError, "3\\*heads"),
+    ((5, 3 * 64), 2, torch.bfloat16, ValueError, "qkv \\[B, S, 3W\\]"),
+])
+def test_check_refuses_what_the_kernels_do_not_take(shape, heads, dtype,
+                                                    error, match):
+    with pytest.raises(error, match=match):
+        A._check("fused_attention_fwd", torch.zeros(shape, dtype=dtype),
+                 heads)
+
+
+def test_check_refuses_a_cpu_tensor_and_mixed_dtypes():
+    qkv = torch.zeros(2, 5, 3 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be on"):
+        A._check("fused_attention_fwd", qkv, 2)
+    g = torch.zeros(2, 5, 64)
+    with pytest.raises(TypeError, match="g is torch.float32"):
+        A._fused_attention_bwd_cuda(qkv, g, 2, False, None)
+    with pytest.raises(ValueError, match="g must be"):
+        A._fused_attention_bwd_cuda(qkv, g.bfloat16()[:, :4], 2, False, None)
+    with pytest.raises(ValueError, match="must be on"):
+        A._fused_attention_bwd_cuda(qkv, g.bfloat16(), 2, False, None)

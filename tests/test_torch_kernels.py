@@ -132,6 +132,26 @@ def test_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_q,n_g,k,valid", [
+    (13, 200, 7, 0), (17, 300, 10, 250), (9, 5000, 64, 4321)])
+def test_topk_kernel_bf16_compute_matches_plain(cuda, n_q, n_g, k, valid):
+    """``compute_dtype=bfloat16``: the kernel rounds both operands as it
+    stages them; scores within 1e-5 of the plain version's, and other than
+    the f32 scores."""
+    q, gal = _k2_args(n_q, n_g, cuda)
+    vals, idx = ranking.topk_similarity(q, gal, k, valid, torch.bfloat16)
+    pv, pi = ranking.topk_similarity_plain(q, gal, k, valid, torch.bfloat16)
+    fv, _ = ranking.topk_similarity(q, gal, k, valid)
+    torch.cuda.synchronize()
+    assert (vals - pv).abs().max().item() <= 1e-5
+    assert (vals[idx != pi] - pv[idx != pi]).abs().max().item() <= 1e-5 \
+        if (idx != pi).any() else True
+    assert (vals - fv).abs().max().item() > 1e-5
+    with pytest.raises(TypeError, match="compute_dtype"):
+        ranking.topk_similarity(q, gal, k, valid, torch.float16)
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
     args = _k1_args(2, 3, 48, torch.float32, cuda)  # H % 32 != 0
     with pytest.raises(ValueError, match="H % 32"):
@@ -237,7 +257,13 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,seq,width,heads,causal", [
     (3, 17, 64, 2, False), (2, 33, 128, 4, True), (4, 193, 768, 12, False),
-    (2, 77, 512, 8, True), (1, 288, 128, 2, True), (2, 1, 64, 1, False)])
+    (2, 77, 512, 8, True), (1, 288, 128, 2, True), (2, 1, 64, 1, False),
+    # the shapes that stress the tensor-core tiling: the served text bucket,
+    # the longest S, one token, a ragged S at head_dim 32, one sample
+    (256, 100, 512, 8, True), (16, 288, 768, 12, False),
+    (16, 288, 768, 12, True), (8, 257, 256, 8, False), (4, 1, 128, 2, False),
+    (4, 1, 64, 2, True), (8, 45, 256, 8, True), (8, 45, 256, 8, False),
+    (1, 193, 768, 12, False)])
 def test_attention_kernels_match_plain(cuda, dtype, batch, seq, width,
                                        heads, causal):
     qkv, g = _qkv_args(batch, seq, width, dtype, cuda)
@@ -266,6 +292,30 @@ def test_attention_function_on_the_card(cuda):
     want = attention.fused_attention_bwd_plain(qkv.detach(), g, 2)
     assert (got - want).abs().max().item() <= 1e-5 * max(
         1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_attention_function_bf16_vit_shape_on_the_card(cuda):
+    """``attention.attention`` under autograd at S=193 in bf16: the output
+    is K5's, the gradient K6's, both within the bf16 tolerance of the plain
+    versions, one launch each."""
+    qkv, g = _qkv_args(4, 193, 768, torch.bfloat16, cuda, seed=2)
+    qkv.requires_grad_(True)
+    before = (attention.fused_attention.launches,
+              attention.fused_attention_bwd.launches)
+    out = attention.attention(qkv, 12)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert (attention.fused_attention.launches,
+            attention.fused_attention_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    pairs = ((out.detach(), attention.fused_attention_plain(qkv.detach(), 12)),
+             (got, attention.fused_attention_bwd_plain(qkv.detach(), g, 12)))
+    for have, want in pairs:
+        assert have.dtype == torch.bfloat16 and have.shape == want.shape
+        err = (have.float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[torch.bfloat16] * max(
+            1.0, want.float().abs().max().item())
 
 
 @pytest.mark.gpu

@@ -93,3 +93,67 @@ def test_plain_matches_a_full_sort():
     np.testing.assert_array_equal(idx.numpy(), want)
     np.testing.assert_allclose(vals.numpy(),
                                np.take_along_axis(sim, want, 1), atol=1e-6)
+
+
+def _bf16_both(q, g, k, valid_gallery=0):
+    """(port plain version, JAX kernel in interpret mode), both with the
+    bf16 compute option on the same float32 inputs."""
+    from textreid_tpu.ops.ranking_pallas import topk_similarity as jax_topk
+
+    jv, ji = jax_topk(jnp.asarray(q), jnp.asarray(g), k=k, query_tile=8,
+                      gallery_tile=8, valid_gallery=valid_gallery,
+                      interpret=True, compute_dtype=jnp.bfloat16)
+    pv, pi = topk_similarity(torch.from_numpy(q), torch.from_numpy(g), k=k,
+                             valid_gallery=valid_gallery,
+                             compute_dtype=torch.bfloat16)
+    return (pv.numpy(), pi.numpy()), (np.asarray(jv), np.asarray(ji))
+
+
+@pytest.mark.parametrize("n_q,n_g,k,valid,seed", [
+    (8, 32, 4, 0, 6), (16, 64, 10, 0, 7), (8, 40, 1, 0, 8),
+    (8, 48, 6, 37, 9), (24, 24, 24, 0, 10)])
+def test_bf16_compute_matches_the_pallas_kernel(n_q, n_g, k, valid, seed):
+    """``compute_dtype=bfloat16``: both operands rounded to bf16, products
+    summed in f32.  Scores within 1e-5 of the JAX kernel's; indices equal
+    outside exact ties (two rows whose bf16 scores are the same float)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(n_q, 16).astype(np.float32)
+    g = rng.randn(n_g, 16).astype(np.float32)
+    (pv, pi), (jv, ji) = _bf16_both(q, g, k, valid)
+    np.testing.assert_allclose(pv, jv, atol=1e-5)
+    assert pi.dtype == np.int32 and pv.dtype == np.float32
+    differ = pi != ji
+    assert np.all(np.abs(pv[differ] - jv[differ]) <= 1e-5)
+    # the rounding is real: the f32 scores differ from the bf16 ones
+    fv, _ = topk_similarity(torch.from_numpy(q), torch.from_numpy(g), k=k,
+                            valid_gallery=valid)
+    assert np.abs(fv.numpy() - pv).max() > 1e-4
+    if valid:
+        assert pi.max() < valid
+
+
+def test_bf16_compute_keeps_the_tie_rule_and_the_mask():
+    """Duplicated gallery rows tie exactly after the rounding too: the
+    larger row comes first; rows past ``valid_gallery`` never rank."""
+    rng = np.random.RandomState(11)
+    q = rng.randn(4, 16).astype(np.float32)
+    g = rng.randn(20, 16).astype(np.float32)
+    g[17] = g[2]
+    g[19] = g[5]  # masked below
+    vals, idx = topk_similarity_plain(torch.from_numpy(q),
+                                      torch.from_numpy(g), 18, 18,
+                                      torch.bfloat16)
+    for row in idx.tolist():
+        assert row.index(17) < row.index(2) and 19 not in row
+    want = (torch.from_numpy(q).bfloat16().float()
+            @ torch.from_numpy(g[:18]).bfloat16().float().T)
+    assert torch.equal(vals, want.sort(dim=1, descending=True).values)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_compute_dtype_must_be_f32_or_bf16(dtype):
+    q = torch.zeros(3, 8)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        topk_similarity(q, q, k=2, compute_dtype=dtype)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        topk_similarity_plain(q, q, 2, compute_dtype=dtype)

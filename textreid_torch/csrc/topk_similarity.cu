@@ -2,7 +2,11 @@
 // without materialising the [Q, G] score matrix.
 //
 // Replaces: textreid_tpu/ops/ranking_pallas.py:topk_similarity (Pallas
-// kernel from _make_kernel, merge _fold_tile), f32 compute.  Contract:
+// kernel from _make_kernel, merge _fold_tile), f32 compute, and its
+// compute_dtype=bfloat16 option: with round_bf16 both operands are rounded
+// to bf16 as they are staged (a bf16 x bf16 product is exact in f32, and
+// the sums stay f32, so this is the bf16-inputs / f32-accumulate dot).
+// Contract:
 //   vals[q, :], idx[q, :] = the k best (score, row) pairs of row q of
 //   Q @ G^T over gallery rows < valid_gallery, sorted under the order
 //   (score desc, row desc): on an exact tie the larger row wins.  Slots
@@ -137,9 +141,22 @@ __device__ __forceinline__ void write_list(float* vrow, int* irow, int k,
   }
 }
 
+// v, or v rounded to bf16 and widened again
+template <bool kRoundBf16>
+__device__ __forceinline__ float4 staged(float4 v) {
+  if (kRoundBf16) {
+    v.x = __bfloat162float(__float2bfloat16(v.x));
+    v.y = __bfloat162float(__float2bfloat16(v.y));
+    v.z = __bfloat162float(__float2bfloat16(v.z));
+    v.w = __bfloat162float(__float2bfloat16(v.w));
+  }
+  return v;
+}
+
 // Block (query tile, split): the top-k of 8 queries over gallery rows
 // [split * rows_per_split, ...) below n_rows, into list (q, split) of
 // vals/idx ([n_q, splits, k]; with one split that is the output).
+template <bool kRoundBf16>
 __global__ void __launch_bounds__(kThreads)
 topk_similarity_kernel(const float* __restrict__ q,
                        const float* __restrict__ g, float* __restrict__ vals,
@@ -168,7 +185,7 @@ topk_similarity_kernel(const float* __restrict__ q,
     if (q0 + r < n_q) {
       v = *reinterpret_cast<const float4*>(q + static_cast<size_t>(q0 + r) * dim + c);
     }
-    *reinterpret_cast<float4*>(q_s + r * dim + c) = v;
+    *reinterpret_cast<float4*>(q_s + r * dim + c) = staged<kRoundBf16>(v);
   }
 
   // running top-k of query `warp`
@@ -187,7 +204,7 @@ topk_similarity_kernel(const float* __restrict__ q,
         v = *reinterpret_cast<const float4*>(
             g + static_cast<size_t>(base + r) * dim + c);
       }
-      *reinterpret_cast<float4*>(g_s + r * ld + c) = v;
+      *reinterpret_cast<float4*>(g_s + r * ld + c) = staged<kRoundBf16>(v);
     }
     __syncthreads();  // tile staged; previous tile's merge is done
 
@@ -373,18 +390,20 @@ topk_int8_kernel(const float* __restrict__ q,
 // Plain C entry point (bound with ctypes).  The Python wrapper checks
 // dtype, shape, contiguity, k <= 64 and D % 4 == 0, and allocates the
 // [n_q, splits, k] partial lists when splits > 1 (they are unused with one
-// split).  Rows at or past valid_gallery are never scored.  Returns
-// cudaError_t.
+// split).  Rows at or past valid_gallery are never scored.  round_bf16
+// rounds both operands to bf16 before the products.  Returns cudaError_t.
 extern "C" int topk_similarity_f32(const void* q, const void* g, void* vals,
                                    void* idx, void* part_vals, void* part_idx,
                                    int n_q, int n_g, int dim, int k,
                                    int valid_gallery, int splits,
-                                   void* stream) {
+                                   int round_bf16, void* stream) {
   const size_t smem = sizeof(float) * (kQueries * dim +
                                        kRowsTile * (dim + 4) +
                                        kQueries * kRowsTile);
+  const auto kernel = round_bf16 ? topk_similarity_kernel<true>
+                                 : topk_similarity_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_similarity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_rows = valid_gallery < n_g ? valid_gallery : n_g;
@@ -395,7 +414,7 @@ extern "C" int topk_similarity_f32(const void* q, const void* g, void* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* first_vals = static_cast<float*>(splits > 1 ? part_vals : vals);
   int* first_idx = static_cast<int*>(splits > 1 ? part_idx : idx);
-  topk_similarity_kernel<<<dim3(q_tiles, splits), kThreads, smem, s>>>(
+  kernel<<<dim3(q_tiles, splits), kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(g), first_vals,
       first_idx, n_q, n_rows, dim, k, rows_per_split);
   err = cudaGetLastError();

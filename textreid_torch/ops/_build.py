@@ -37,9 +37,9 @@ SIGNATURES = {
     # xf, xb, w_f, w_b, lengths, out, B, T, H, is_bf16, stream
     "bigru_pooled_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, g, vals, idx, part_vals, part_idx, Q, G, D, k, valid_gallery,
-    # splits, stream
+    # splits, round_bf16, stream
     "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _P),
     # x, w, h0, out, B, T, H, reverse, is_bf16, stream
     "gru_scan_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, g_int8, scales, vals, idx, part_vals, part_idx, Q, G, D, k,
@@ -48,7 +48,8 @@ SIGNATURES = {
                              _I, _P),
     # qkv, out, B, S, W, heads, scale, causal, is_bf16, stream
     "fused_attention_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # qkv, g, dqkv, stats, B, S, W, heads, scale, causal, is_bf16, stream
+    # qkv, g, dqkv, stats (f32 only, else null), B, S, W, heads, scale,
+    # causal, is_bf16, stream
     "fused_attention_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, s, q, r, rows, C, op, eps, is_bf16, stream
     "fused_requant": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),

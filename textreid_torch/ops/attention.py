@@ -3,7 +3,10 @@
 Counterpart of ``textreid_tpu/ops/attention_pallas.py``: K5
 :func:`fused_attention` (forward) and K6 :func:`fused_attention_bwd`
 (backward, scores recomputed).  On a CUDA tensor each launches its
-hand-written kernel in ``csrc/fused_attention.cu``; on a CPU tensor each
+hand-written kernel in ``csrc/fused_attention.cu`` (bf16 on the tensor
+cores, one launch each way; f32 on the FP32 cores, the backward in two
+launches that share a scratch; :func:`launch_plan` says what is launched
+for a shape); on a CPU tensor each
 runs its plain version (:func:`fused_attention_plain`,
 :func:`fused_attention_bwd_plain`), the kernel's contract written in torch
 with the same casts.  Nothing falls back from one to the other.
@@ -23,10 +26,63 @@ import torch
 
 from . import _build
 
-# The kernels keep a row's scores in registers, 32 keys per lane-chunk and
-# at most 9 chunks; ViT-L/14 at 224 (S=257) fits.
+# The kernels keep a row's scores in registers (bf16: 16-key mma tiles, at
+# most 18; f32: 32 keys per lane-chunk, at most 9); ViT-L/14 at 224 (S=257)
+# fits.
 S_MAX = 288
 HEAD_DIMS = (32, 64)
+SMEM_LIMIT = 232_448          # bytes of shared memory a block may use
+KEY_TILE = 16                 # bf16: rows and keys per mma tile
+KEY_TILE_COUNTS = (7, 13, 18)  # ... and the tile counts instantiated
+TILE_GROUP = 4                # key tiles the kernels walk under one guard
+F32_TILE = 64                 # f32: query rows per block
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def launch_plan(batch: int, seq: int, heads: int, head_dim: int,
+                dtype: torch.dtype) -> dict:
+    """What ``csrc/fused_attention.cu`` launches for this shape, computed
+    the way its host code does: per kernel the grid, the threads and the
+    dynamic shared-memory bytes; the padded ``S``; and the f32 scratch
+    elements the backward needs in device memory (none in bf16).
+
+    bf16: one block per (head, sample) on the tensor cores, Q, K, V (and G)
+    staged whole, rows padded with zeros to whole groups of four 16-key
+    tiles; instantiated for 7, 13 or 18 key tiles.  f32: one block per
+    (64-row query tile, head, sample) on the FP32 cores, rows padded to 32
+    at an odd-word stride; the backward is two launches that share a
+    ``[B, H, S, 4]`` scratch."""
+    if dtype == torch.bfloat16:
+        live = -(-seq // KEY_TILE)
+        tiles = next(n for n in KEY_TILE_COUNTS if live <= n)
+        # whole groups of key tiles are staged (zero rows past S)
+        s_pad = min(tiles, _ceil_to(live, TILE_GROUP)) * KEY_TILE
+        operand = s_pad * head_dim * 2
+        bwd_threads = 128 if tiles < KEY_TILE_COUNTS[-1] else 256
+        return {
+            "s_pad": s_pad, "key_tiles": tiles, "scratch_floats": 0,
+            "fwd": [{"grid": (heads, batch), "threads": 128,
+                     "smem": 3 * operand}],
+            "bwd": [{"grid": (heads, batch), "threads": bwd_threads,
+                     "smem": 4 * operand + 3 * s_pad * 4}],
+        }
+    if dtype != torch.float32:
+        raise TypeError(f"fused attention takes f32 or bf16, not {dtype}")
+    s_pad = _ceil_to(seq, 32)
+    grid = (-(-seq // F32_TILE), heads, batch)
+    staged = 2 * s_pad * (head_dim + 1) * 4
+    tile = F32_TILE * head_dim * 4
+    return {
+        "s_pad": s_pad, "key_tiles": s_pad // 32,
+        "scratch_floats": batch * heads * seq * 4,
+        "fwd": [{"grid": grid, "threads": 256, "smem": staged + tile}],
+        "bwd": [{"grid": grid, "threads": 256, "smem": staged + 2 * tile},
+                {"grid": grid, "threads": 256,
+                 "smem": staged + 2 * tile + 3 * s_pad * 4}],
+    }
 
 
 def _dims(qkv: torch.Tensor, heads: int):
@@ -114,14 +170,16 @@ def _check(name: str, qkv: torch.Tensor, heads: int, *others) -> None:
                          f"head_dim={head_dim}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} takes f32 or bf16, not {qkv.dtype}")
-    for label, t, shape in (("qkv", qkv, qkv.shape), *others):
+    tensors = (("qkv", qkv, qkv.shape), *others)
+    for label, t, shape in tensors:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{label} must be {tuple(shape)}; got "
                              f"{tuple(t.shape)}")
-        if not t.is_cuda or t.device != qkv.device:
-            raise ValueError(f"{label} must be on {qkv.device}")
         if t.dtype != qkv.dtype:
             raise TypeError(f"{label} is {t.dtype}, qkv is {qkv.dtype}")
+    for label, t, _ in tensors:
+        if not t.is_cuda or t.device != qkv.device:
+            raise ValueError(f"{label} must be on {qkv.device}")
         if not t.is_contiguous():
             raise ValueError(f"{label} must be contiguous")
 
@@ -148,16 +206,19 @@ def _fused_attention_bwd_cuda(qkv, g, heads, causal, scale) -> torch.Tensor:
            ("g", g, (batch, seq, three_w // 3)))
     _, _, width, head_dim = _dims(qkv, heads)
     dqkv = torch.empty_like(qkv)
-    # per-row (max, sum, rowsum(dp p)) handed from the dq pass to the dk/dv
-    # pass
-    stats = torch.empty(batch, heads, seq, 4, dtype=torch.float32,
-                        device=qkv.device)
+    # f32 only: per-row (max, sum, rowsum(dp p)) handed from the dq launch
+    # to the dk/dv launch; the bf16 kernel keeps them in shared memory
+    floats = launch_plan(batch, seq, heads, head_dim,
+                         qkv.dtype)["scratch_floats"]
+    stats = torch.empty(floats, dtype=torch.float32,
+                        device=qkv.device) if floats else None
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_attention_bwd(
-            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            batch, seq, width, heads, _scale(head_dim, scale), int(causal),
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            None if stats is None else stats.data_ptr(), batch, seq, width,
+            heads, _scale(head_dim, scale), int(causal),
             int(qkv.dtype == torch.bfloat16), stream)
     _build.check(err, "fused_attention_bwd")
     fused_attention_bwd.launches += 1

@@ -43,14 +43,29 @@ def _stable_topk(scores: torch.Tensor, k: int):
     return vals, idx
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be torch.float32 or "
+                        f"torch.bfloat16, not {compute_dtype}")
+
+
 def topk_similarity_plain(queries: torch.Tensor, gallery: torch.Tensor,
-                          k: int, valid_gallery: int = 0):
+                          k: int, valid_gallery: int = 0,
+                          compute_dtype: torch.dtype = torch.float32):
     """float32 ``queries @ gallery.T``, then the stable top-k.  Rows
-    ``>= valid_gallery`` (0 = all) never rank.  Returns ``([Q, k] f32,
-    [Q, k] int32)``."""
+    ``>= valid_gallery`` (0 = all) never rank.  With
+    ``compute_dtype=torch.bfloat16`` both operands are rounded to bf16
+    first; the products (exact in f32) are still summed in f32.  Returns
+    ``([Q, k] f32, [Q, k] int32)``."""
+    _check_compute_dtype(compute_dtype)
     n_g = gallery.shape[0]
     valid = min(valid_gallery or n_g, n_g)
-    return _stable_topk(queries.float() @ gallery[:valid].float().T, k)
+    q = queries.to(compute_dtype).float()
+    g = gallery[:valid].to(compute_dtype).float()
+    return _stable_topk(q @ g.T, k)
 
 
 def topk_similarity_quantized_plain(queries: torch.Tensor,
@@ -95,7 +110,9 @@ def gallery_splits(n_q: int, n_rows: int, sm_count: int,
                       -(-n_rows // tile_rows) // 4))
 
 
-def _topk_cuda(queries, gallery, k, valid_gallery):
+def _topk_cuda(queries, gallery, k, valid_gallery,
+               compute_dtype=torch.float32):
+    _check_compute_dtype(compute_dtype)
     _check_inputs(queries, gallery, k)
     n_q, dim = queries.shape
     n_g = gallery.shape[0]
@@ -116,23 +133,29 @@ def _topk_cuda(queries, gallery, k, valid_gallery):
         err = lib.topk_similarity_f32(
             queries.data_ptr(), gallery.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), part_vals.data_ptr(), part_idx.data_ptr(), n_q,
-            n_g, dim, k, valid, splits, stream)
+            n_g, dim, k, valid, splits,
+            int(compute_dtype == torch.bfloat16), stream)
     _build.check(err, "topk_similarity_f32")
     topk_similarity.launches += 1
     return vals, idx
 
 
 def topk_similarity(queries: torch.Tensor, gallery: torch.Tensor,
-                    k: int = 10, valid_gallery: int = 0):
+                    k: int = 10, valid_gallery: int = 0,
+                    compute_dtype: torch.dtype = torch.float32):
     """Top-k of ``queries @ gallery.T`` without materialising it on CUDA.
 
-    ``valid_gallery`` (0 = all rows) masks trailing gallery rows.  Returns
+    ``valid_gallery`` (0 = all rows) masks trailing gallery rows.
+    ``compute_dtype=torch.bfloat16`` rounds both (float32) operands to bf16
+    before the products, which are still summed in f32; scores then match a
+    bf16-inputs / f32-accumulate product, not the f32 one.  Returns
     ``([Q, k] f32 scores, [Q, k] int32 rows)``, rows sorted descending.  A
     CUDA tensor launches ``topk_similarity_f32`` (counted in
     ``topk_similarity.launches``); a CPU tensor runs the plain version."""
     if queries.is_cuda:
-        return _topk_cuda(queries, gallery, k, valid_gallery)
-    return topk_similarity_plain(queries, gallery, k, valid_gallery)
+        return _topk_cuda(queries, gallery, k, valid_gallery, compute_dtype)
+    return topk_similarity_plain(queries, gallery, k, valid_gallery,
+                                 compute_dtype)
 
 
 topk_similarity.launches = 0
