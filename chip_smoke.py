@@ -24,9 +24,11 @@ before the result line:
    cores) at the ViT-B/16 shape (B=128, S=193, W=768, 12 heads), the causal
    CLIP-text shapes (B=128, S=77 and the served B=256, S=100; W=512, 8
    heads), S=288 causal and not, S=257 and a ragged S=45 at head_dim 32,
-   one token and one sample; K1's and K3's autograd paths
-   (kernel forward, plain recompute backward) against autograd through the
-   plain versions.
+   one token and one sample; K1's training forward and backward kernels at
+   the train step's shape (B=128, T=105, H=512, ragged lengths, f32 and
+   bf16) against their plain versions, and K1's and K3's autograd paths
+   (K1: kernel forward and backward; K3: kernel forward, plain recompute
+   backward) against autograd through the plain versions.
 3. The serving slice through its entry points at the flagship width
    (``flagship_cfg("")``: CLIP RN50 at 384x128, bi-GRU H=512, T=105,
    seeded weights): ``textreid_torch.tools.build_index`` on a synthetic
@@ -66,18 +68,20 @@ before the result line:
    ViT-B/16 at 384x128 + bi-GRU H=512, MoCo K=2048, batch 128, bf16
    towers, seeded weights, random frozen token table) on a synthetic
    CUHK-PEDES train split, for a few steps.  Launch counters are zeroed
-   just before and read just after: K1 2, K5 24 and K6 12 per step.
+   just before and read just after: K1's forward 2 (the query tower's
+   training forward, the key tower's pooled-only one), K1's backward 1, K5
+   24 and K6 12 per step.
    Losses must be finite, the queue pointer advanced, the checkpoint
    written.
 9. One f32 step with the kernels against one with their plain versions,
    from the same state and batch: loss dicts and every parameter's update.
 10. Step time (median, bf16, after warmup) with the kernels and with their
-   plain versions, peak device memory, the share of K1's plain recompute
-   backward, and a ``torch.profiler`` split of the step's device time by
-   kernel family.  Then K5 and K6 alone at the ViT-B/16 shape and the
-   served causal text shape, beside their plain versions and the library
-   call.
-11. The ``kernels`` line: for each of the nine kernels its launches on the
+   plain versions, peak device memory, and a ``torch.profiler`` split of
+   the step's device time by kernel family, both ways.  Then K1's backward
+   at the step's shape beside its plain version and the plain recompute it
+   replaced, and K5 and K6 alone at the ViT-B/16 shape and the served
+   causal text shape, beside their plain versions and the library call.
+11. The ``kernels`` line: for each of the ten kernels its launches on the
     driven paths, its error, its time beside its plain version's, its
     roofline bound computed from the timed shapes (bytes over 3.35 TB/s
     against operations over the peak rate of the input type), and the time
@@ -122,8 +126,21 @@ ATTN_TOL = {"float32": 1e-5,   # same f32 math, another summation order
                                # the same points; a last-bit difference of
                                # an f32 sum moves one rounding by one ulp
                                # (2^-8 relative), so 2 ulp
-K1_GRAD_TOL = 1e-5           # f32: the backward IS the plain recompute;
-                             # only the forward differs, by <= 1e-5
+K1_GRAD_TOL = 1e-5           # f32 gradients through K1 or K3's Function
+                             # against autograd through the plain version,
+                             # over max(1, the largest |gradient|): the same
+                             # f32 math, another summation order
+# K1's backward kernel against bigru_pooled_bwd_plain on the same saved
+# state, over the plain gradient's largest magnitude.  f32 dx: each step's
+# dh carries a sum of 3H = 1536 products in another order, and the chain of
+# 105 steps contracts it (dh z); f32 dW: then summed over B T = 13,440 rows
+# of mixed sign, so the error relative to the largest entry grows with the
+# cancellation.  bf16: f32 inside, one rounding of each result, which may
+# land one ulp (2^-8 relative) apart: 2 ulp, as K1_TOL
+K1_BWD_TOL = {"float32": {"dx": 1e-5, "dw": 1e-4},
+              "bfloat16": {"dx": 8e-3, "dw": 8e-3}}
+K1_STATE_TOL = 1e-5          # the training forward's saved f32 state (h and
+                             # gates) against the plain training forward's
 STEP_LOSS_RTOL = 1e-4        # f32 step, kernels vs plain: loss values
 # f32 step, kernels vs plain: ||update_kernel - update_plain|| over
 # ||update_plain|| per parameter, over the entries whose gradient (weight
@@ -385,32 +402,130 @@ def check_attention():
     return worst
 
 
+def hidden_states(hp, gates):
+    """Every ``h_t`` [2, B, T, H] from a training forward's saved state:
+    ``hp`` holds ``h_{t-1}``, and the last step is rebuilt from its gates
+    as the plain scan computes it."""
+    import torch
+
+    _, z, n, _ = gates[:, :, -1].unbind(2)
+    last = (1.0 - z) * n + z * hp[:, :, -1]
+    return torch.cat([hp[:, :, 1:], last[:, :, None]], dim=2)
+
+
+def exact_ties(hp, gates, lengths):
+    """(direction, row, unit) maxima over ``t < len`` reached at more than
+    one step, per direction and row: [2, B] counts."""
+    import torch
+
+    h = hidden_states(hp, gates)
+    seq = h.shape[2]
+    valid = (torch.arange(seq, device=h.device)[None, :]
+             < lengths[:, None])[None, :, :, None]
+    h = torch.where(valid, h, float("-inf"))
+    top = h.max(dim=2, keepdim=True).values
+    hits = ((h == top) & valid).sum(dim=2)  # [2, B, H]
+    return (hits > 1).sum(dim=2)
+
+
 def check_k1_grad():
-    """K1's autograd Function (kernel forward, plain recompute backward)
-    against autograd through the plain version, f32, training shapes."""
+    """K1's training forward and backward kernels at the train step's shape
+    (B=128, T=105, H=512, ragged lengths), f32 and bf16.  The training
+    forward's pooled output equals the pooled-only kernel's and its saved
+    state is within K1_STATE_TOL of the plain training forward's; the
+    backward kernel on that state against ``bigru_pooled_bwd_plain``
+    (K1_BWD_TOL); then the Function (kernel forward, kernel backward)
+    against autograd through ``bigru_pooled_scan_plain``, f32 at
+    K1_GRAD_TOL and bf16 at K1_BWD_TOL, on the (direction, row) pairs where
+    the two forwards chose the same step for every unit and hold no exact
+    tie (where one forward's f32 state crossed the other's at a near-tie,
+    the pool gradient lands on another step: both are gradients of the max;
+    autograd splits an exact tie).  Returns the worst absolute error of the
+    backward kernel against its plain version, per dtype."""
     import torch
     from textreid_torch.ops import gru
 
-    args = k1_inputs(128, torch.float32, seed=9)
-    g = torch.randn(128, 1024, device="cuda")
-    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
-    out = gru.bigru_pooled_scan(*leaves, args[4], pool_mode="batch")
-    got = torch.autograd.grad(out, leaves, g)
-    ref_leaves = [t.clone().requires_grad_(True) for t in args[:4]]
-    ref = gru.zero_participation(
-        gru.bigru_pooled_scan_plain(*ref_leaves, args[4]), args[4], 105,
-        "batch")
-    want = torch.autograd.grad(ref, ref_leaves, g)
-    worst = 0.0
-    for name, a, b in zip(("xf", "xb", "w_f", "w_b"), got, want):
-        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-        worst = max(worst, err)
-        if a.grad_fn is not None or not math.isfinite(err) or (
-                err > K1_GRAD_TOL) or b.abs().max().item() == 0:
-            fail(f"K1 autograd: d/d{name} off by {err:.3e}")
-    log(f"K1 autograd B=128 T=105 H=512 f32: gradients of xf, xb, w_f, w_b "
-        f"within {worst:.3e} of autograd through the plain version "
-        f"(tol {K1_GRAD_TOL:.0e})")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        args = k1_inputs(128, dtype, seed=9)
+        lengths = args[4]
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        g = torch.randn(128, 1024, device="cuda", generator=gen).to(dtype)
+        pooled, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+        _, p_hp, p_gates, p_argmax = gru.bigru_pooled_fwd_train_plain(*args)
+        state_err = max((hp - p_hp).abs().max().item(),
+                        (gates - p_gates).abs().max().item())
+        only = gru._bigru_pooled_cuda(*args)
+        same_pool = torch.equal(pooled, only)
+        pool_err = (pooled.float() - only.float()).abs().max().item()
+        flips = (argmax != p_argmax).view(128, 2, -1).sum(2).T  # [2, B]
+        ties = exact_ties(p_hp, p_gates, lengths)
+        log(f"K1 bigru_pooled_fwd_train B=128 T=105 H=512 {name}: pooled "
+            f"output equal to the pooled-only kernel's: {same_pool} (within "
+            f"{pool_err:.3e}, tol {K1_TOL[name]:.0e}); saved "
+            f"state within {state_err:.3e} of the plain training forward's "
+            f"(tol {K1_STATE_TOL:.0e}); argmax differs at {int(flips.sum())} "
+            f"of {128 * 1024} (row, unit) maxima (near-ties); exact ties in "
+            f"the plain states: {int(ties.sum())}")
+        if not pool_err <= K1_TOL[name] or not state_err <= K1_STATE_TOL:
+            fail(f"K1 training forward {name} disagrees with the pooled-only "
+                 "kernel or with its plain version")
+
+        got = gru.bigru_pooled_bwd(g, args[2], args[3], lengths, hp, gates,
+                                   argmax)
+        want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], lengths, hp,
+                                          gates, argmax)
+        torch.cuda.synchronize()
+        errs = []
+        for gname, key, a, b in zip(("xf", "xb", "w_f", "w_b"),
+                                    ("dx", "dx", "dw", "dw"), got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"K1 backward d/d{gname} {name}: {a.shape}/{a.dtype} vs "
+                     f"{b.shape}/{b.dtype}")
+            err = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            errs.append(f"d{gname} {err:.3e} ({err / scale:.2e} of "
+                        f"{scale:.3e})")
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not math.isfinite(err) or scale == 0 or (
+                    err > K1_BWD_TOL[name][key] * scale):
+                fail(f"K1 backward {name}: d/d{gname} off by {err:.3e} of "
+                     f"{scale:.3e}")
+        log(f"K1 bigru_pooled_bwd B=128 T=105 H=512 {name} against "
+            f"bigru_pooled_bwd_plain on the same state: {', '.join(errs)} "
+            f"(tol dx {K1_BWD_TOL[name]['dx']:.0e}, dW "
+            f"{K1_BWD_TOL[name]['dw']:.0e} of the largest)")
+
+        leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        out = gru.bigru_pooled_scan(*leaves, lengths, pool_mode="batch")
+        grads = torch.autograd.grad(out, leaves, g)
+        ref_leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        ref = gru.zero_participation(
+            gru.bigru_pooled_scan_plain(*ref_leaves, lengths), lengths, 105,
+            "batch")
+        ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+        clean = (flips == 0) & (ties == 0)  # [2, B]
+        if any(t.grad_fn is not None for t in grads):
+            fail("K1's gradient carries a graph")
+        pairs = [(grads[d][clean[d]], ref_grads[d][clean[d]])
+                 for d in (0, 1)]  # dxf, dxb on the clean rows
+        w_dirs = [d for d in (0, 1) if bool(clean[d].all())]
+        pairs += [(grads[2 + d], ref_grads[2 + d]) for d in w_dirs]
+        err = 0.0
+        for a, b in pairs:
+            e = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            err = max(err, e / (max(1.0, top) if dtype == torch.float32
+                                else top))
+        tol = K1_GRAD_TOL if dtype == torch.float32 else \
+            K1_BWD_TOL[name]["dx"]
+        log(f"K1 autograd B=128 T=105 H=512 {name}: the Function's "
+            f"gradients within {err:.3e} of autograd through the plain "
+            f"version (tol {tol:.0e}) on {int(clean.sum())} of 256 "
+            f"(direction, row) pairs; dW of {len(w_dirs)} of 2 directions")
+        if not math.isfinite(err) or err > tol or int(clean.sum()) < 128:
+            fail(f"K1 autograd {name}: gradients off by {err:.3e}")
     return worst
 
 
@@ -716,6 +831,7 @@ def wrappers():
             "int8_matmul_requant": int8_mm.fused_int8_matmul_requant,
             "int8_ffn": int8_mm.fused_int8_ffn,
             "bigru_pooled_fwd": gru.bigru_pooled_scan,
+            "bigru_pooled_bwd": gru.bigru_pooled_bwd,
             "gru_scan_fwd": gru.gru_scan,
             "topk_similarity_f32": ranking.topk_similarity,
             "topk_similarity_int8": ranking.topk_similarity_quantized,
@@ -737,8 +853,13 @@ SERVE_KERNELS = ("bigru_pooled_fwd", "topk_similarity_f32")
 INT8_SERVE_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd",
                       "topk_similarity_int8", "topk_similarity_f32")
 EVAL_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd")
-TRAIN_KERNELS = ("bigru_pooled_fwd", "fused_attention_fwd",
-                 "fused_attention_bwd")
+TRAIN_KERNELS = ("bigru_pooled_fwd", "bigru_pooled_bwd",
+                 "fused_attention_fwd", "fused_attention_bwd")
+# launches of one MoCo step of the ViT-B/16 + bi-GRU model: K1's forward in
+# the query tower (training forward) and in the key tower (no_grad), its
+# backward once; K5 in 12 blocks of each tower, K6 in the query tower's
+TRAIN_STEP = {"bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
+              "fused_attention_fwd": 24, "fused_attention_bwd": 12}
 
 
 # -- phase 3: the slice through its entry points ---------------------------
@@ -1304,13 +1425,19 @@ def time_kernels():
                 f"plain {plain_ms:.3f} ms")
     # one dependent step's latency: the slope of the time over T with one
     # cluster's worth of rows (B=8), where nothing but the chain waits
-    for kname in ("K1", "K3"):
+    for kname in ("K1", "K1 bwd", "K3"):
         ms_t = {}
         for seq in (5, 105):
             if kname == "K1":
                 args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: gru.bigru_pooled_scan(
                     *args, pool_mode="always"), 20)
+            elif kname == "K1 bwd":  # row 0 has the full length
+                args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
+                saved = gru.bigru_pooled_fwd_train(*args)[1:]
+                g = torch.ones(8, 1024, device="cuda", dtype=torch.bfloat16)
+                ms_t[seq] = cuda_ms(lambda: gru.bigru_pooled_bwd(
+                    g, args[2], args[3], args[4], *saved), 20)
             else:
                 args = k3_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: gru.gru_scan(*args), 20)
@@ -1340,11 +1467,14 @@ def time_kernels():
     return out
 
 
-def kernel_bounds():
+def kernel_bounds(bwd_steps):
     """Roofline bound (ms, what binds) of each kernel at the shape its row
     of the ``kernels`` line is timed at: every input read once, every
-    output written once, against the operations of the function."""
+    output written once, against the operations of the function.
+    ``bwd_steps``: the (row, step) pairs with ``t < len`` of K1's timed
+    backward inputs, the steps whose gradient its data needs."""
     b, t, h = 256, 105, 512  # K1, K3: the /search bucket, bf16
+    tb = 128  # K1's backward: the train step's batch, bf16
     q, d, g, k = 256, 256, 3074, 10  # K2, K4: the 3,074-row gallery
     ab, s, w, heads = 128, 193, 768, 12  # K5, K6: ViT-B/16 at 384x128, bf16
     matmul = 2 * ab * heads * s * s * (w // heads)  # one [S,S] x [S,hd]
@@ -1355,6 +1485,14 @@ def kernel_bounds():
         "bigru_pooled_fwd": bound(
             2 * (2 * b * t * 3 * h + 2 * h * 3 * h + b * 2 * h),
             2 * t * 2 * b * h * 3 * h, "bfloat16"),
+        # both directions: g, W^T, lengths, the saved f32 state (h_{t-1}, 4
+        # gates) and argmax read, dx and dW written; per valid (row, step)
+        # the serial [3H] x [3H, H] product and its share of dW, in f32
+        "bigru_pooled_bwd": bound(
+            2 * tb * 2 * h + 2 * 2 * 3 * h * h + 4 * tb
+            + 4 * 2 * tb * t * 5 * h + 4 * tb * 2 * h
+            + 2 * 2 * tb * t * 3 * h + 2 * 2 * h * 3 * h,
+            2 * 2 * bwd_steps * 2 * 3 * h * h, "float32"),
         # one direction: x, W and h0 read, every h_t written
         "gru_scan_fwd": bound(
             2 * (b * t * 3 * h + h * 3 * h + b * h + b * t * h),
@@ -1714,8 +1852,7 @@ def check_training(counts, state, meters, ckpt):
     steps = state.step
     if steps != TRAIN_STEPS:
         fail(f"training slice ran {steps} steps, not {TRAIN_STEPS}")
-    want = {"bigru_pooled_fwd": 2 * steps, "fused_attention_fwd": 24 * steps,
-            "fused_attention_bwd": 12 * steps}
+    want = {name: n * steps for name, n in TRAIN_STEP.items()}
     if counts != want:
         fail(f"training slice launches {counts}, expected {want}")
     losses = list(meters.loss.deque)
@@ -1799,18 +1936,36 @@ def compare_steps():
 
     import torch
 
+    import textreid_torch.models.gru as gru_model
+    from textreid_torch.ops import gru
+
     cfg, model, state_of, step, batch = train_setup("float32")
     states = [state_of(model), state_of(copy.deepcopy(model))]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    scan, query_gates = gru_model.bigru_pooled_scan, []
+
+    def keep_query_gates(*args):  # the query tower's scan inputs
+        if args[0].requires_grad:
+            query_gates.append([t.detach().clone() for t in args[:5]])
+        return scan(*args)
+
     zero_counts()
-    got = step(states[0], batch)
+    with mock.patch.object(gru_model, "bigru_pooled_scan", keep_query_gates):
+        got = step(states[0], batch)
     counts = read_counts(TRAIN_KERNELS)
     with plain_train_kernels():
         want = step(states[1], batch)
     torch.cuda.synchronize()
-    if counts != {"bigru_pooled_fwd": 2, "fused_attention_fwd": 24,
-                  "fused_attention_bwd": 12} or read_counts(TRAIN_KERNELS) != counts:
+    if counts != TRAIN_STEP or read_counts(TRAIN_KERNELS) != counts:
         fail(f"f32 step launches {counts}, then {read_counts(TRAIN_KERNELS)}")
+    # where the kernel's and the plain forward's f32 states cross at a
+    # near-tie, the two steps' pool gradients go to different steps
+    (args,) = query_gates
+    flips = int((gru.bigru_pooled_fwd_train(*args)[3]
+                 != gru.bigru_pooled_fwd_train_plain(*args)[3]).sum())
+    log(f"f32 step, text tower: the kernel's and the plain forward's argmax "
+        f"differ at {flips} of {args[4].numel() * 2 * args[2].shape[0]} "
+        f"(row, unit) maxima")
     loss_err = 0.0
     for name in want:
         a, b = float(got[name]), float(want[name])
@@ -1837,7 +1992,8 @@ def compare_steps():
         if err > worst:
             worst, worst_name = err, name
         if not math.isfinite(err) or err > STEP_UPDATE_RTOL:
-            fail(f"f32 step: the update of {name} differs by {err:.3e}")
+            fail(f"f32 step: the update of {name} differs by {err:.3e} "
+                 f"({flips} argmax flips in the text tower)")
     log(f"f32 step, kernels vs plain: losses within {loss_err:.3e} "
         f"(rtol {STEP_LOSS_RTOL:.0e}); worst update error {worst:.3e} at "
         f"{worst_name} (bound {STEP_UPDATE_RTOL:.0e}; {masked} of {total} "
@@ -1857,7 +2013,9 @@ def profile_steps(step, state, batch, steps=2):
     from torch.profiler import ProfilerActivity, profile
 
     families = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
-                ("K1", ("bigru_pooled",)),
+                ("K1 fwd", ("bigru_pooled_kernel",
+                            "bigru_pooled_train_kernel")),
+                ("K1 bwd", ("bigru_pooled_bwd_kernel",)),
                 ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
                                      "nvjet", "wgmma")))
     torch.cuda.synchronize()
@@ -1896,9 +2054,9 @@ def profile_steps(step, state, batch, steps=2):
 
 def time_training(reps=8):
     """Median ms per bf16 step (kernels, then plain versions, then kernels
-    again), peak memory, and K1's recompute backward at the step's shape."""
+    again), peak memory, and the profile of the step's device time with
+    the kernels and with the plain versions."""
     import torch
-    from textreid_torch.ops import gru
 
     cfg, model, state_of, step, batch = train_setup("bfloat16")
     state = state_of(model)
@@ -1920,36 +2078,77 @@ def time_training(reps=8):
     with plain_train_kernels():
         timed(2)
         plain = timed(reps)
+        plain_profile = profile_steps(step, state, batch)
     kernel += timed(reps)
     ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
-    profile_steps(step, state, batch)
+    profile = profile_steps(step, state, batch)
 
-    # K1 at the step's shape: forward (kernel) and forward + backward
-    # (plain recompute), bf16, B=128, T=105, H=512
-    args = k1_inputs(128, torch.bfloat16, seed=4)
-    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
-    g = torch.randn(128, 1024, device="cuda", dtype=torch.bfloat16)
-
-    def fwd():
-        with torch.no_grad():
-            gru.bigru_pooled_scan(*leaves, args[4])
-
-    def fwd_bwd():
-        torch.autograd.backward(
-            gru.bigru_pooled_scan(*leaves, args[4]), g)
-
-    k1_fwd = cuda_ms(fwd, 10)
-    k1_both = cuda_ms(fwd_bwd, 3)
     log(f"time train step bf16 B=128 (ViT-B/16 384x128 + bi-GRU T=105, "
         f"K=2048): median {ms:.2f} ms with the kernels "
         f"({len(kernel)} steps), {plain_ms:.2f} ms with the plain versions "
-        f"({len(plain)} steps); peak memory "
-        f"{peak / 2**30:.2f} GiB ({card_line()})")
-    log(f"time K1 at the step's shape bf16: forward (kernel) {k1_fwd:.3f} ms, "
-        f"backward (plain recompute, autograd) {k1_both - k1_fwd:.3f} ms")
+        f"({len(plain)} steps); device time a step "
+        f"{profile['total'] if profile else float('nan'):.2f} ms in "
+        f"{profile['launches'] if profile else -1} kernels (plain versions "
+        f"{plain_profile['total'] if plain_profile else float('nan'):.2f} "
+        f"ms in {plain_profile['launches'] if plain_profile else -1}); peak "
+        f"memory {peak / 2**30:.2f} GiB ({card_line()})")
     del state, model
     torch.cuda.empty_cache()
-    return ms, plain_ms, peak, k1_fwd, k1_both - k1_fwd
+    return dict(ms=ms, plain_ms=plain_ms, peak=peak, profile=profile,
+                plain_profile=plain_profile)
+
+
+def time_k1_backward():
+    """K1 at the train step's shape (B=128, T=105, H=512), bf16 and f32:
+    the backward kernel (with its dW product) against its plain version and
+    against the plain recompute that was K1's backward before it (autograd
+    through ``bigru_pooled_scan_plain``), interleaved; the training forward
+    against the pooled-only one; and how many of the backward's clusters
+    the card holds at once.  Keys (what, dtype name); ("steps",) is the
+    number of (row, step) pairs with t < len of the timed inputs."""
+    import ctypes
+
+    import torch
+    from textreid_torch.ops import _build, gru
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        args = k1_inputs(128, dtype, seed=4)
+        leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        g = torch.randn(128, 1024, device="cuda").to(dtype)
+        _, *saved = gru.bigru_pooled_fwd_train(*args)
+
+        def kernel():
+            gru.bigru_pooled_bwd(g, args[2], args[3], args[4], *saved)
+
+        def recompute():
+            with torch.enable_grad():
+                torch.autograd.grad(gru.bigru_pooled_scan_plain(
+                    *leaves, args[4]), leaves, g)
+
+        out[("bwd", name)], out[("bwd plain", name)] = interleaved_ms(
+            kernel, lambda: gru.bigru_pooled_bwd_plain(
+                g, args[2], args[3], args[4], *saved), 10, 3)
+        _, out[("recompute", name)] = interleaved_ms(kernel, recompute, 10, 3)
+        with torch.no_grad():
+            out[("fwd", name)], out[("fwd train", name)] = interleaved_ms(
+                lambda: gru.bigru_pooled_scan(*args),
+                lambda: gru.bigru_pooled_fwd_train(*args), 10, 10)
+        clusters = ctypes.c_int(0)
+        _build.check(_build.library().bigru_pooled_bwd_clusters(
+            128, 512, int(dtype == torch.bfloat16), ctypes.byref(clusters)),
+            "bigru_pooled_bwd_clusters")
+        log(f"time K1 B=128 T=105 H=512 {name}: backward kernel (with its dW "
+            f"product) {out[('bwd', name)]:.3f} ms, its plain version "
+            f"{out[('bwd plain', name)]:.3f} ms, the plain recompute "
+            f"(autograd through the plain scan) "
+            f"{out[('recompute', name)]:.3f} ms; forward pooled-only "
+            f"{out[('fwd', name)]:.3f} ms, training forward "
+            f"{out[('fwd train', name)]:.3f} ms; the card holds "
+            f"{clusters.value} of the backward's 32 clusters at once")
+        out[("steps",)] = int(args[4].clamp(max=105).sum())
+    return out
 
 
 def time_attention():
@@ -2040,6 +2239,14 @@ def main():
         check_k9(), check_k8(), check_k7()
         time_int8_kernels()
         return
+    if sys.argv[1:] == ["--gru-kernels"]:
+        # a development aid: K1 (pooled-only and training forward, backward)
+        # and K3 against their plain versions, then their times alone
+        # (about 60 s); prints no result line
+        check_k1(), check_k3(), check_k1_grad()
+        time_kernels()
+        time_k1_backward()
+        return
     if sys.argv[1:] == ["--attention-kernels"]:
         # a development aid: K5 and K6 against their plain versions and
         # their times alone (about 40 s); prints no result line
@@ -2051,7 +2258,7 @@ def main():
     k3_err = check_k3()
     k4_err = check_k4()
     attn_err = check_attention()
-    check_k1_grad()
+    k1_bwd_err = check_k1_grad()
     k9_err, k8_err, k7_err = check_k9(), check_k8(), check_k7()
 
     service, server, thread, base, text, images, counts = drive_slice()
@@ -2098,7 +2305,8 @@ def main():
     check_training(train_launches, state, meters, ckpt)
     del state
     compare_steps()
-    step_ms, step_plain_ms, peak, k1_fwd_ms, k1_bwd_ms = time_training()
+    train_times = time_training()
+    k1_times = time_k1_backward()
     attn_times = time_attention()
 
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(
@@ -2111,9 +2319,11 @@ def main():
         f"6156 x 3074 {rank_s[True]:.3f} s; int8 /search p50 "
         f"{int8_times[('p50', 3074)]:.3f} ms at 3074 rows, "
         f"{int8_times[('p50', 98304)]:.3f} ms at 98304; train step bf16 "
-        f"{step_ms:.2f} ms (plain versions {step_plain_ms:.2f} ms), peak "
-        f"{peak / 2**30:.2f} GiB, K1 recompute backward {k1_bwd_ms:.2f} ms "
-        f"({card})")
+        f"{train_times['ms']:.2f} ms (plain versions "
+        f"{train_times['plain_ms']:.2f} ms), peak "
+        f"{train_times['peak'] / 2**30:.2f} GiB, K1 backward kernel "
+        f"{k1_times[('bwd', 'bfloat16')]:.3f} ms (the plain recompute it "
+        f"replaced {k1_times[('recompute', 'bfloat16')]:.2f} ms) ({card})")
     log(f"summary, int8 encoders of the full-CLIP model: gallery encode "
         f"{enc_times[('encode', 'int8')]:.1f} img/s (bf16 float tower "
         f"{enc_times[('encode', 'float')]:.1f}); text encode B=256 "
@@ -2130,10 +2340,16 @@ def main():
         return sum(run.get(name, 0) for run in (
             counts, eval_launches, int8_counts, enc_counts, train_launches))
 
-    bounds = kernel_bounds()
+    bounds = kernel_bounds(k1_times[("steps",)])
     rows = [  # (entry point, source, replaces, error, (ms, plain ms), library)
         ("bigru_pooled_fwd", "bigru_pooled.cu", "gru_pallas.py:396",
          k1_err["bfloat16"], times[("K1", 256, "bfloat16")], None),
+        # K1's backward replaces the custom VJP's bwd, which differentiates
+        # the XLA scan; no single PyTorch call computes it (nn.GRU has
+        # biases and another layout)
+        ("bigru_pooled_bwd", "bigru_pooled_bwd.cu", "gru_pallas.py:421",
+         k1_bwd_err["bfloat16"], (k1_times[("bwd", "bfloat16")],
+                                  k1_times[("bwd plain", "bfloat16")]), None),
         ("gru_scan_fwd", "gru_scan.cu", "gru_pallas.py:107",
          k3_err["bfloat16"], times[("K3", 256, "bfloat16")], None),
         ("topk_similarity_f32", "topk_similarity.cu", "ranking_pallas.py:211",

@@ -336,14 +336,19 @@ def test_attention_wrappers_refuse_bad_inputs_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_bigru_function_gradients_on_the_card(cuda):
-    """K1's autograd Function: gradients equal autograd through the plain
-    version (f32, 1e-5: the same recompute, another summation order in the
-    forward only)."""
+    """K1's autograd Function: the training forward and the backward kernel
+    once each; gradients equal autograd through the plain version (f32,
+    1e-5: the same f32 math in another summation order; 6 x 128 (row,
+    unit) maxima, so no near-tie between the two forwards)."""
     args = _k1_args(6, 12, 64, torch.float32, cuda)
     g = torch.randn(6, 128, device=cuda)
     leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    before = (gru.bigru_pooled_scan.launches, gru.bigru_pooled_bwd.launches)
     out = gru.bigru_pooled_scan(*leaves, args[4], pool_mode="batch")
     got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (gru.bigru_pooled_scan.launches,
+            gru.bigru_pooled_bwd.launches) == (before[0] + 1, before[1] + 1)
     ref_leaves = [t.clone().requires_grad_(True) for t in args[:4]]
     ref = gru.zero_participation(
         gru.bigru_pooled_scan_plain(*ref_leaves, args[4]), args[4], 12,
@@ -351,6 +356,81 @@ def test_bigru_function_gradients_on_the_card(cuda):
     want = torch.autograd.grad(ref, ref_leaves, g)
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+# K1's backward against its plain version on the same saved state, over the
+# plain gradient's largest magnitude: f32 sums of 3H products a step in
+# another order (dW: then summed over B T rows); bf16 one rounding of each
+# result, which may land one ulp (2^-8 relative) apart
+K1_BWD_TOL = {torch.float32: {"dx": 1e-5, "dw": 1e-4},
+              torch.bfloat16: {"dx": 8e-3, "dw": 8e-3}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq", [105, 7])
+@pytest.mark.parametrize("batch", [128, 37, 8])
+def test_bigru_backward_kernel_matches_plain(cuda, dtype, batch, seq):
+    """The training forward keeps the plain training forward's state (its
+    pooled output the pooled-only kernel's); the backward kernel on that
+    state gives the plain backward's gradients.  Ragged
+    lengths with a full row; a length-0 row gets zero."""
+    hidden = 512
+    args = _k1_args(batch, seq, hidden, dtype, cuda, seed=batch + seq)
+    args[4][-1] = 0
+    g = torch.randn(batch, 2 * hidden,
+                    generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    before = (gru.bigru_pooled_scan.launches, gru.bigru_pooled_bwd.launches)
+    pooled, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+    got = gru.bigru_pooled_bwd(g, args[2], args[3], args[4], hp, gates,
+                               argmax)
+    torch.cuda.synchronize()
+    assert (gru.bigru_pooled_scan.launches,
+            gru.bigru_pooled_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(  # -inf on the length-0 row in both
+        pooled.float(), gru._bigru_pooled_cuda(*args).float(), rtol=0,
+        atol=1e-5 if dtype == torch.float32 else 8e-3)
+    plain = gru.bigru_pooled_fwd_train_plain(*args)
+    for have, want in zip((hp, gates), plain[1:3]):
+        assert (have - want).abs().max().item() <= 1e-5  # f32 states
+    assert (argmax[-1] == -1).all()
+    want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], args[4], hp, gates,
+                                      argmax)
+    for key, a, b in zip(("dx", "dx", "dw", "dw"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K1_BWD_TOL[dtype][key] * b.float().abs().max().item()
+    for dx in got[:2]:
+        assert torch.count_nonzero(dx[-1]) == 0  # the length-0 row
+        for b, n in enumerate(args[4].tolist()):
+            assert torch.count_nonzero(dx[b, n:]) == 0
+
+
+@pytest.mark.gpu
+def test_bigru_training_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    args = _k1_args(2, 3, 544, torch.float32, cuda)  # H > 512
+    with pytest.raises(ValueError, match="H <= 512"):
+        gru.bigru_pooled_fwd_train(*args)
+    args = _k1_args(4, 5, 64, torch.float32, cuda)
+    _, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+    g = torch.randn(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="gates must be"):
+        gru.bigru_pooled_bwd(g, args[2], args[3], args[4], hp,
+                             gates.bfloat16(), argmax)
+    with pytest.raises(ValueError, match="w_f must be"):
+        gru.bigru_pooled_bwd(g, args[2].bfloat16(), args[3], args[4], hp,
+                             gates, argmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru.bigru_pooled_bwd(g, args[2], args[3], args[4],
+                             hp.transpose(2, 3).contiguous().transpose(2, 3),
+                             gates, argmax)
+    with pytest.raises(ValueError, match="must be on"):
+        gru.bigru_pooled_bwd(g, args[2], args[3], args[4].cpu(), hp, gates,
+                             argmax)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        gru.bigru_pooled_bwd(g.half(), args[2].half(), args[3].half(),
+                             args[4], hp, gates, argmax)
 
 
 # -- K7-K9: the int8 encoders' kernels --------------------------------------

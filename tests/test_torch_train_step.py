@@ -297,21 +297,39 @@ def _k1_inputs(seed=0, batch=3, seq=6, hidden=8, embed=5):
     return x, w_ih, w_ih_r, w_f, w_b, g, lengths
 
 
+def _counting_launchers(monkeypatch):
+    """Stand-ins for the CUDA launchers of K1's training forward and its
+    backward: each counts as the real one does and returns the plain
+    version's result (which carries no graph, like a ctypes-filled
+    tensor).  The wrappers' counters stay where they were."""
+    launched = []
+    real_bwd = gru.bigru_pooled_bwd
+
+    def fwd_train(*args):
+        gru.bigru_pooled_scan.launches += 1
+        out = gru.bigru_pooled_fwd_train_plain(*args)
+        launched.append(("fwd", out[0].grad_fn))
+        return out
+
+    def bwd(*args):
+        real_bwd.launches += 1
+        launched.append(("bwd", None))
+        return gru.bigru_pooled_bwd_plain(*args)
+
+    monkeypatch.setattr(gru, "bigru_pooled_fwd_train", fwd_train)
+    monkeypatch.setattr(gru, "bigru_pooled_bwd", bwd)
+    return launched, real_bwd
+
+
 def test_k1_function_has_the_plain_gradient(monkeypatch):
     """The fault: K1's CUDA wrapper filled a ``torch.empty`` output through
     ctypes, which carries no ``grad_fn``, so nothing upstream of the text
-    tower's scan got a gradient.  The fix, an autograd Function, runs here
-    on the CPU with its launcher swapped for the plain forward: every GRU
-    weight, the input gates and the projection that makes them get the
-    gradients of autograd through the plain version."""
-    launched = []
-
-    def launcher(*args):
-        out = gru.bigru_pooled_scan_plain(*args)
-        launched.append(out.grad_fn)
-        return out
-
-    monkeypatch.setattr(gru, "_bigru_pooled_cuda", launcher)
+    tower's scan got a gradient.  The fix, an autograd Function whose
+    forward and backward are launchers, runs here on the CPU with both
+    launchers swapped for their plain versions: every GRU weight, the input
+    gates and the projection that makes them get the gradients of autograd
+    through the plain scan."""
+    launched, _ = _counting_launchers(monkeypatch)
     x, w_ih, w_ih_r, w_f, w_b, g, lengths = _k1_inputs()
     lens = torch.from_numpy(lengths)
 
@@ -326,10 +344,9 @@ def test_k1_function_has_the_plain_gradient(monkeypatch):
                                     leaves)
         return out, grads
 
-    out, got = run(gru._BigruPooled.apply)
-    # what the launcher hands back (and all the old wrapper returned) has
-    # no graph; the Function's output has one
-    assert launched == [None]
+    out, got = run(lambda *a: gru._BigruPooled.apply(*a, True))
+    # what the launchers hand back has no graph; the Function's output has
+    assert launched == [("fwd", None), ("bwd", None)]
     assert out.grad_fn is not None
     ref_out, want = run(gru.bigru_pooled_scan_plain)
     torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
@@ -340,19 +357,24 @@ def test_k1_function_has_the_plain_gradient(monkeypatch):
 
 
 def test_k1_function_counts_forward_launches_only(monkeypatch):
-    """The backward recomputes with the plain version: it launches (and
-    counts) nothing."""
-    def launcher(*args):
-        gru.bigru_pooled_scan.launches += 1  # as the real launcher counts
-        return gru.bigru_pooled_scan_plain(*args)
-
-    monkeypatch.setattr(gru, "_bigru_pooled_cuda", launcher)
+    """``bigru_pooled_scan.launches`` counts the forward's launches only:
+    one training forward under autograd; the backward's launch is counted
+    apart, in ``bigru_pooled_bwd.launches``.  Under ``no_grad`` the
+    training forward is not called and nothing is kept for a backward."""
+    launched, bwd = _counting_launchers(monkeypatch)
     x, w_ih, _, w_f, w_b, _, lengths = _k1_inputs(seed=1)
     xf = torch.from_numpy(x @ w_ih.T).requires_grad_(True)
-    before = gru.bigru_pooled_scan.launches
-    out = gru._BigruPooled.apply(xf, xf.detach(), torch.from_numpy(w_f),
-                                 torch.from_numpy(w_b),
-                                 torch.from_numpy(lengths))
+    args = (xf, xf.detach(), torch.from_numpy(w_f), torch.from_numpy(w_b),
+            torch.from_numpy(lengths))
+    before = (gru.bigru_pooled_scan.launches, bwd.launches)
+    out = gru.bigru_pooled_scan(*args)
+    assert (gru.bigru_pooled_scan.launches, bwd.launches) == (
+        before[0] + 1, before[1])
     out.sum().backward()
-    assert gru.bigru_pooled_scan.launches == before + 1
+    assert (gru.bigru_pooled_scan.launches, bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     assert xf.grad is not None and xf.grad.abs().sum() > 0
+    with torch.no_grad():
+        keyed = gru.bigru_pooled_scan(*args)
+    assert keyed.grad_fn is None
+    assert launched == [("fwd", None), ("bwd", None)]

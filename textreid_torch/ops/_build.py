@@ -36,6 +36,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     # xf, xb, w_f, w_b, lengths, out, B, T, H, is_bf16, stream
     "bigru_pooled_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xf, xb, w_f, w_b, lengths, out, hp, gates, argmax, B, T, H, is_bf16,
+    # stream
+    "bigru_pooled_fwd_train": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _P),
+    # g, wt_f, wt_b, lengths, hp, gates, argmax, dxf, dxb, dhg, B, T, H,
+    # is_bf16, stream
+    "bigru_pooled_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P),
     # q, g, vals, idx, part_vals, part_idx, Q, G, D, k, valid_gallery,
     # splits, round_bf16, stream
     "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -144,6 +152,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    # B, H, is_bf16, out: clusters of bigru_pooled_bwd the card holds at once
+    lib.bigru_pooled_bwd_clusters.argtypes = [_I, _I, _I,
+                                              ctypes.POINTER(_I)]
+    lib.bigru_pooled_bwd_clusters.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib

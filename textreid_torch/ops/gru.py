@@ -6,10 +6,13 @@ Counterpart of ``textreid_tpu/ops/gru_pallas.py``: :func:`bigru_pooled_scan`
 of ``bigru_pooled_scan`` there, :func:`gru_scan` of ``gru_scan_pallas``
 behind ``gru_scan_auto``.  On a CUDA tensor each launches its hand-written
 kernel (``csrc/bigru_pooled.cu``, ``csrc/gru_scan.cu``) through an autograd
-Function whose backward differentiates the plain scan (the JAX package's
-custom VJPs do the same; it has no backward kernel either); on a CPU tensor
-each runs its plain version (``*_plain``), the kernel's contract.  Nothing
-falls back from one to the other.
+Function.  The fused scan's backward is a kernel too
+(``csrc/bigru_pooled_bwd.cu``), fed by a training forward that keeps each
+step's state (the JAX package's custom VJP differentiates its XLA scan
+instead: it has no backward kernel); the one-direction scan's backward
+differentiates its plain version, as the JAX package's does.  On a CPU
+tensor each runs its plain versions (``*_plain``), the kernels' contracts.
+Nothing falls back from one to the other.
 
 Layouts are the JAX package's: input gates ``[B, T, 3H]`` (gate order r, z,
 n; the backward direction's gates already reversed per sample, see
@@ -24,6 +27,10 @@ import torch
 
 from . import _build
 
+# The backward kernel's blocks run H / 2 threads, at most 256 so that two
+# fit an SM (csrc/bigru_pooled_bwd.cu); the training forward feeds only it
+MAX_TRAIN_HIDDEN = 512
+
 
 def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
                             w_f: torch.Tensor, w_b: torch.Tensor,
@@ -32,12 +39,12 @@ def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
     (``-inf`` where a row has no valid step).  Returns ``[B, 2H]`` in the
     input dtype.  The kernel computes exactly this.
 
-    It is also the backward's recompute (autograd through it), so it is
-    written for that: the two directions run as one batched loop (``bmm``
-    over a leading axis of 2), and the steps and gates are taken with
-    ``unbind`` and ``chunk``, whose backward assembles the input gradient
-    once, where indexing would fill and add a zero tensor of the input's
-    size at every step."""
+    It is also the plain path of the training step, differentiated by
+    autograd, so it is written for that: the two directions run as one
+    batched loop (``bmm`` over a leading axis of 2), and the steps and
+    gates are taken with ``unbind`` and ``chunk``, whose backward assembles
+    the input gradient once, where indexing would fill and add a zero
+    tensor of the input's size at every step."""
     batch, seq, _ = xf.shape
     valid = (torch.arange(seq, device=xf.device)[None, :]
              < lengths.to(xf.device)[:, None]).unbind(1)  # T x [B]
@@ -56,7 +63,93 @@ def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
     return torch.cat([m[0], m[1]], dim=1).to(xf.dtype)
 
 
-def _check_inputs(xf, xb, w_f, w_b, lengths) -> None:
+def bigru_pooled_fwd_train_plain(xf: torch.Tensor, xb: torch.Tensor,
+                                 w_f: torch.Tensor, w_b: torch.Tensor,
+                                 lengths: torch.Tensor):
+    """The training forward: the pooled ``[B, 2H]`` of
+    :func:`bigru_pooled_scan_plain` (the same arithmetic) and what the
+    backward needs, in float32: ``hp [2, B, T, H]`` (``h_{t-1}`` of step
+    ``t``, ``h_{-1} = 0``), ``gates [2, B, T, 4, H]`` (``r, z, n`` and
+    ``h_n = (h_{t-1} W)_n``), and ``argmax [B, 2H]`` int32: per (row, unit)
+    the first step ``t < len`` whose ``h_t`` reached the max, ``-1`` where
+    the row has no valid step.  The kernel's training mode computes exactly
+    this."""
+    batch, seq, _ = xf.shape
+    valid = (torch.arange(seq, device=xf.device)[None, :]
+             < lengths.to(xf.device)[:, None])  # [B, T]
+    x = torch.stack([xf, xb]).float()  # [2, B, T, 3H]
+    w = torch.stack([w_f, w_b]).float()  # [2, H, 3H]
+    hidden = w.shape[1]
+    hp = x.new_empty(2, batch, seq, hidden)
+    gates = x.new_empty(2, batch, seq, 4, hidden)
+    h = x.new_zeros(2, batch, hidden)
+    m = torch.full_like(h, float("-inf"))
+    am = torch.full(h.shape, -1, dtype=torch.int32, device=xf.device)
+    for t in range(seq):
+        x_r, x_z, x_n = x[:, :, t].chunk(3, dim=-1)
+        h_r, h_z, h_n = torch.bmm(h, w).chunk(3, dim=-1)
+        r = torch.sigmoid(x_r + h_r)
+        z = torch.sigmoid(x_z + h_z)
+        n = torch.tanh(x_n + r * h_n)
+        hp[:, :, t] = h
+        gates[:, :, t] = torch.stack([r, z, n, h_n], dim=2)
+        h = (1.0 - z) * n + z * h
+        up = valid[None, :, t, None] & (h > m)  # strictly greater: first max
+        m = torch.where(up, h, m)
+        am.masked_fill_(up, t)
+    pooled = torch.cat([m[0], m[1]], dim=1).to(xf.dtype)
+    return pooled, hp, gates, torch.cat([am[0], am[1]], dim=1)
+
+
+def bigru_pooled_bwd_plain(g: torch.Tensor, w_f: torch.Tensor,
+                           w_b: torch.Tensor, lengths: torch.Tensor,
+                           hp: torch.Tensor, gates: torch.Tensor,
+                           argmax: torch.Tensor):
+    """The gradient of the pooled scan (before the zero-participation rule)
+    from the training forward's saved state: ``g [B, 2H]`` ->
+    ``(dxf, dxb, dw_f, dw_b)``, ``dx`` in ``g``'s dtype and ``dw`` in the
+    weights', computed in float32.  Per direction and row, for ``t = T-1 ..
+    0``::
+
+        dh   += [t == argmax] g
+        a_z   = dh (h_{t-1} - n) z (1 - z),  a_n = dh (1 - z) (1 - n^2)
+        a_r   = a_n h_n r (1 - r)
+        dx_t  = [a_r, a_z, a_n],  dhg_t = [a_r, a_z, a_n r]
+        dh    = dh z + dhg_t W^T
+        dW    = sum_t h_{t-1}^T dhg_t
+
+    Steps at ``t >= len`` get exactly zero, and so does a row with no valid
+    step.  Ties: the whole pool gradient goes to the first step ``t < len``
+    at the max (``argmax``).  Autograd through
+    :func:`bigru_pooled_scan_plain` splits an exact tie 0.5/0.5 at each
+    ``torch.maximum``, and JAX's ``jnp.max`` (``_xla_pooled_forward``, the
+    VJP of ``bigru_pooled_scan``) splits it evenly; all three agree wherever
+    no two valid steps hold exactly the same maximum.  Not autograd: this is
+    the backward kernel's contract and the backward of the CPU path."""
+    _, batch, seq, hidden = hp.shape
+    wt = torch.stack([w_f, w_b]).float().transpose(1, 2)  # [2, 3H, H]
+    pool_g = g.float().view(batch, 2, hidden).transpose(0, 1)  # [2, B, H]
+    hit = argmax.view(batch, 2, hidden).transpose(0, 1)
+    dx = hp.new_zeros(2, batch, seq, 3 * hidden)
+    dhg = hp.new_zeros(2, batch, seq, 3 * hidden)
+    dh = hp.new_zeros(2, batch, hidden)
+    top = min(seq, int(lengths.max())) if batch else 0  # later steps: zero
+    for t in range(top - 1, -1, -1):
+        dh = dh + torch.where(hit == t, pool_g, 0.0)
+        r, z, n, h_n = gates[:, :, t].unbind(2)
+        a_z = dh * (hp[:, :, t] - n) * z * (1.0 - z)
+        a_n = dh * (1.0 - z) * (1.0 - n * n)
+        a_r = a_n * h_n * r * (1.0 - r)
+        dx[:, :, t] = torch.cat([a_r, a_z, a_n], dim=-1)
+        dhg[:, :, t] = torch.cat([a_r, a_z, a_n * r], dim=-1)
+        dh = dh * z + torch.bmm(dhg[:, :, t], wt)
+    dw = torch.bmm(hp.view(2, -1, hidden).transpose(1, 2),
+                   dhg.view(2, -1, 3 * hidden))
+    return (dx[0].to(g.dtype), dx[1].to(g.dtype), dw[0].to(w_f.dtype),
+            dw[1].to(w_b.dtype))
+
+
+def _check_inputs(xf, xb, w_f, w_b, lengths, train=False) -> None:
     if xf.dim() != 3 or xf.shape != xb.shape:
         raise ValueError(f"xf/xb must be equal [B, T, 3H]; got "
                          f"{tuple(xf.shape)} and {tuple(xb.shape)}")
@@ -66,6 +159,9 @@ def _check_inputs(xf, xb, w_f, w_b, lengths) -> None:
             or batch < 1):
         raise ValueError(f"bigru_pooled_fwd needs H % 32 == 0, H <= 2048, "
                          f"T >= 1, B >= 1; got {tuple(xf.shape)}")
+    if train and hidden > MAX_TRAIN_HIDDEN:
+        raise ValueError(f"bigru_pooled_bwd needs H <= {MAX_TRAIN_HIDDEN} "
+                         f"(H / 2 threads a block); got H={hidden}")
     for name, w in (("w_f", w_f), ("w_b", w_b)):
         if tuple(w.shape) != (hidden, three_h):
             raise ValueError(f"{name} must be [{hidden}, {three_h}]; got "
@@ -75,14 +171,33 @@ def _check_inputs(xf, xb, w_f, w_b, lengths) -> None:
                          f"{lengths.dtype} {tuple(lengths.shape)}")
     if xf.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bigru_pooled_fwd takes f32 or bf16, not {xf.dtype}")
-    for name, t in (("xf", xf), ("xb", xb), ("w_f", w_f), ("w_b", w_b),
-                    ("lengths", lengths)):
-        if not t.is_cuda or t.device != xf.device:
-            raise ValueError(f"{name} must be on {xf.device}")
-        if t is not lengths and t.dtype != xf.dtype:
-            raise TypeError(f"{name} is {t.dtype}, xf is {xf.dtype}")
+    _check_on_card(xf, (("xf", xf), ("xb", xb), ("w_f", w_f), ("w_b", w_b)),
+                   (("lengths", lengths),))
+
+
+def _check_on_card(ref, same_dtype, other) -> None:
+    """Each tensor on ``ref``'s CUDA device and contiguous; those of
+    ``same_dtype`` in ``ref``'s dtype."""
+    for name, t in (*same_dtype, *other):
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{name} must be on {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in same_dtype:
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name} is {t.dtype}, {same_dtype[0][0]} is "
+                            f"{ref.dtype}")
+
+
+def _launch(name, *args):
+    """Call the C entry point ``name`` on the current stream of the first
+    tensor's device (tensors pass as pointers); raise on a launch error."""
+    lib = _build.library()
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*(a.data_ptr() if isinstance(
+            a, torch.Tensor) else a for a in args), stream)
+    _build.check(err, name)
 
 
 def _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths) -> torch.Tensor:
@@ -90,39 +205,108 @@ def _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths) -> torch.Tensor:
     batch, seq, three_h = xf.shape
     hidden = three_h // 3
     out = torch.empty(batch, 2 * hidden, dtype=xf.dtype, device=xf.device)
-    lib = _build.library()
-    with torch.cuda.device(xf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bigru_pooled_fwd(
-            xf.data_ptr(), xb.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), batch, seq, hidden,
-            int(xf.dtype == torch.bfloat16), stream)
-    _build.check(err, "bigru_pooled_fwd")
+    _launch("bigru_pooled_fwd", xf, xb, w_f, w_b, lengths, out, batch, seq,
+            hidden, int(xf.dtype == torch.bfloat16))
     bigru_pooled_scan.launches += 1
     return out
 
 
+def bigru_pooled_fwd_train(xf: torch.Tensor, xb: torch.Tensor,
+                           w_f: torch.Tensor, w_b: torch.Tensor,
+                           lengths: torch.Tensor):
+    """The training forward: ``(pooled, hp, gates, argmax)`` as
+    :func:`bigru_pooled_fwd_train_plain` returns them.  A CUDA tensor
+    launches ``bigru_pooled_fwd_train`` (counted in
+    ``bigru_pooled_scan.launches``, with the pooled-only forward); a CPU
+    tensor runs the plain version."""
+    if not xf.is_cuda:
+        return bigru_pooled_fwd_train_plain(xf, xb, w_f, w_b, lengths)
+    _check_inputs(xf, xb, w_f, w_b, lengths, train=True)
+    batch, seq, three_h = xf.shape
+    hidden = three_h // 3
+    f32 = dict(dtype=torch.float32, device=xf.device)
+    out = torch.empty(batch, 2 * hidden, dtype=xf.dtype, device=xf.device)
+    hp = torch.empty(2, batch, seq, hidden, **f32)
+    gates = torch.empty(2, batch, seq, 4, hidden, **f32)
+    argmax = torch.empty(batch, 2 * hidden, dtype=torch.int32,
+                         device=xf.device)
+    _launch("bigru_pooled_fwd_train", xf, xb, w_f, w_b, lengths, out, hp,
+            gates, argmax, batch, seq, hidden, int(xf.dtype == torch.bfloat16))
+    bigru_pooled_scan.launches += 1
+    return out, hp, gates, argmax
+
+
+def bigru_pooled_bwd(g: torch.Tensor, w_f: torch.Tensor, w_b: torch.Tensor,
+                     lengths: torch.Tensor, hp: torch.Tensor,
+                     gates: torch.Tensor, argmax: torch.Tensor):
+    """The gradient of the pooled scan from the training forward's state:
+    ``(dxf, dxb, dw_f, dw_b)`` as :func:`bigru_pooled_bwd_plain` returns
+    them.  A CUDA tensor launches ``bigru_pooled_bwd`` (counted in
+    ``bigru_pooled_bwd.launches``), which writes ``dx`` and the f32 ``dhg``;
+    ``dW = hp^T dhg`` is then one f32 product over ``B T`` rows, as the JAX
+    package leaves it to XLA.  A CPU tensor runs the plain version."""
+    if not g.is_cuda:
+        return bigru_pooled_bwd_plain(g, w_f, w_b, lengths, hp, gates, argmax)
+    two, batch, seq, hidden = hp.shape
+    if (g.dim() != 2 or two != 2 or tuple(g.shape) != (batch, 2 * hidden)
+            or hidden % 32 or hidden > MAX_TRAIN_HIDDEN or seq < 1):
+        raise ValueError(f"bigru_pooled_bwd needs g [B, 2H] and hp "
+                         f"[2, B, T, H] with H % 32 == 0, H <= "
+                         f"{MAX_TRAIN_HIDDEN}; got {tuple(g.shape)} and "
+                         f"{tuple(hp.shape)}")
+    for name, t, shape, dtype in (
+            ("w_f", w_f, (hidden, 3 * hidden), g.dtype),
+            ("w_b", w_b, (hidden, 3 * hidden), g.dtype),
+            ("lengths", lengths, (batch,), torch.int32),
+            ("hp", hp, (2, batch, seq, hidden), torch.float32),
+            ("gates", gates, (2, batch, seq, 4, hidden), torch.float32),
+            ("argmax", argmax, (batch, 2 * hidden), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {list(shape)}; got "
+                             f"{t.dtype} {list(t.shape)}")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bigru_pooled_bwd takes f32 or bf16, not {g.dtype}")
+    _check_on_card(g, (("g", g),), (("w_f", w_f), ("w_b", w_b),
+                                    ("lengths", lengths), ("hp", hp),
+                                    ("gates", gates), ("argmax", argmax)))
+    dxf = torch.empty(batch, seq, 3 * hidden, dtype=g.dtype, device=g.device)
+    dxb = torch.empty_like(dxf)
+    dhg = torch.empty(2, batch, seq, 3 * hidden, dtype=torch.float32,
+                      device=g.device)
+    _launch("bigru_pooled_bwd", g, w_f.t().contiguous(),
+            w_b.t().contiguous(), lengths, hp, gates, argmax, dxf, dxb, dhg,
+            batch, seq, hidden, int(g.dtype == torch.bfloat16))
+    bigru_pooled_bwd.launches += 1
+    dw = torch.bmm(hp.view(2, -1, hidden).transpose(1, 2),
+                   dhg.view(2, -1, 3 * hidden))
+    return dxf, dxb, dw[0].to(w_f.dtype), dw[1].to(w_b.dtype)
+
+
 class _BigruPooled(torch.autograd.Function):
-    """Kernel forward; the backward reruns :func:`bigru_pooled_scan_plain`
-    on the saved inputs with autograd on and backpropagates through it,
-    the recompute VJP of ``bigru_pooled_scan`` in ``gru_pallas.py`` (its
-    ``bwd``).  The recompute runs in f32, as the plain version does (JAX
-    recomputes in the input dtype); each gradient comes back in its
-    input's dtype."""
+    """The fused scan with its hand-written gradient.  With ``train`` set
+    (grad mode on and an input that needs a gradient) the forward keeps
+    what the backward needs (:func:`bigru_pooled_fwd_train`) and the
+    backward is :func:`bigru_pooled_bwd`; otherwise the forward is the
+    pooled-only scan and saves nothing.  On CUDA tensors both launch
+    kernels, on CPU tensors both run the plain versions.  The JAX package
+    has no backward kernel: its custom VJP differentiates the XLA scan
+    (``gru_pallas.py``, ``bwd``); this computes the same gradient but at
+    exact ties (:func:`bigru_pooled_bwd_plain`)."""
 
     @staticmethod
-    def forward(ctx, xf, xb, w_f, w_b, lengths):
-        ctx.save_for_backward(xf, xb, w_f, w_b, lengths)
-        return _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths)
+    def forward(ctx, xf, xb, w_f, w_b, lengths, train):
+        if not train:
+            if xf.is_cuda:
+                return _bigru_pooled_cuda(xf, xb, w_f, w_b, lengths)
+            return bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
+        pooled, *state = bigru_pooled_fwd_train(xf, xb, w_f, w_b, lengths)
+        ctx.save_for_backward(w_f, w_b, lengths, *state)
+        return pooled
 
     @staticmethod
     def backward(ctx, g):
-        *inputs, lengths = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(True) for t in inputs]
-            out = bigru_pooled_scan_plain(*inputs, lengths)
-            grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None)
+        return (*bigru_pooled_bwd(g.contiguous(), *ctx.saved_tensors), None,
+                None)
 
 
 def bigru_pooled_scan(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
@@ -133,14 +317,14 @@ def bigru_pooled_scan(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     ``models.gru.masked_max_pool`` (``pool_mode`` "batch" or "always").
     Returns ``[B, 2H]`` in the input dtype; differentiable on both paths.
 
-    A CUDA tensor launches ``bigru_pooled_fwd`` (counted in
-    ``bigru_pooled_scan.launches``, forward launches only); a CPU tensor
-    runs the plain version.
+    A CUDA tensor launches ``bigru_pooled_fwd``, or under autograd
+    ``bigru_pooled_fwd_train`` (both counted in
+    ``bigru_pooled_scan.launches``) and later ``bigru_pooled_bwd``; a CPU
+    tensor runs their plain versions.
     """
-    if xf.is_cuda:
-        pooled = _BigruPooled.apply(xf, xb, w_f, w_b, lengths)
-    else:
-        pooled = bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xf, xb, w_f, w_b))
+    pooled = _BigruPooled.apply(xf, xb, w_f, w_b, lengths, train)
     return zero_participation(pooled, lengths, xf.shape[1], pool_mode)
 
 
@@ -159,6 +343,7 @@ def zero_participation(pooled: torch.Tensor, lengths: torch.Tensor, seq: int,
 
 
 bigru_pooled_scan.launches = 0
+bigru_pooled_bwd.launches = 0
 
 
 # -- the one-direction scan --------------------------------------------------
@@ -221,14 +406,8 @@ def _gru_scan_cuda(x_gates, w_h, h0, reverse) -> torch.Tensor:
     hidden = three_h // 3
     out = torch.empty(batch, seq, hidden, dtype=x_gates.dtype,
                       device=x_gates.device)
-    lib = _build.library()
-    with torch.cuda.device(x_gates.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_scan_fwd(
-            x_gates.data_ptr(), w_h.data_ptr(), h0.data_ptr(), out.data_ptr(),
-            batch, seq, hidden, int(bool(reverse)),
-            int(x_gates.dtype == torch.bfloat16), stream)
-    _build.check(err, "gru_scan_fwd")
+    _launch("gru_scan_fwd", x_gates, w_h, h0, out, batch, seq, hidden,
+            int(bool(reverse)), int(x_gates.dtype == torch.bfloat16))
     gru_scan.launches += 1
     return out
 
