@@ -24,11 +24,15 @@ before the result line:
    cores) at the ViT-B/16 shape (B=128, S=193, W=768, 12 heads), the causal
    CLIP-text shapes (B=128, S=77 and the served B=256, S=100; W=512, 8
    heads), S=288 causal and not, S=257 and a ragged S=45 at head_dim 32,
-   one token and one sample; K1's training forward and backward kernels at
-   the train step's shape (B=128, T=105, H=512, ragged lengths, f32 and
-   bf16) against their plain versions, and K1's and K3's autograd paths
-   (K1: kernel forward and backward; K3: kernel forward, plain recompute
-   backward) against autograd through the plain versions.
+   one token and one sample; K1's forwards (bf16: the W-resident kernel,
+   f32: the streamed one), pooled-only and training, at B=1, 37, 128 and
+   256 (T=105, H=512, ragged lengths and two empty rows), with the bf16
+   launch plan of the library held against ``ops/gru.py:resident_plan``;
+   K1's training forward and backward kernels at the train step's shape
+   (B=128, f32 and bf16) against their plain versions, and K1's and K3's
+   autograd paths (K1: kernel forward and backward; K3: kernel forward,
+   plain recompute backward) against autograd through the plain
+   versions.
 3. The serving slice through its entry points at the flagship width
    (``flagship_cfg("")``: CLIP RN50 at 384x128, bi-GRU H=512, T=105,
    seeded weights): ``textreid_torch.tools.build_index`` on a synthetic
@@ -64,20 +68,29 @@ before the result line:
    K7-K9's times, gallery encode and text encode (int8 against float, each
    tower with ``fused_ffn`` on and off) and ``/search`` latency.
 8. The training slice through ``textreid_torch.train_net.main`` at full
-   width (``configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_2048.yaml``:
-   ViT-B/16 at 384x128 + bi-GRU H=512, MoCo K=2048, batch 128, bf16
-   towers, seeded weights, random frozen token table) on a synthetic
-   CUHK-PEDES train split, for a few steps.  Launch counters are zeroed
-   just before and read just after: K1's forward 2 (the query tower's
-   training forward, the key tower's pooled-only one), K1's backward 1, K5
-   24 and K6 12 per step.
-   Losses must be finite, the queue pointer advanced, the checkpoint
-   written.
+   width, for a few steps each, on a synthetic CUHK-PEDES train split
+   (bf16 towers, seeded weights, random frozen token table, MoCo K=2048,
+   batch 128, 384x128): ``configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_
+   2048.yaml`` (ViT-B/16 + bi-GRU H=512), then the flagship,
+   ``moco_gru_cliprn50_ls_bs128_2048.yaml`` (CLIP RN50, res5 stride 1,
+   BatchNorm on batch statistics in both towers, + bi-GRU H=512).  Launch
+   counters are zeroed just before and read just after each: K1's forward
+   2 (the query tower's training forward, the key tower's pooled-only
+   one) and K1's backward 1 per step; K5 24 and K6 12 per ViT step, none
+   per flagship step.  Losses must be finite, the queue pointer advanced,
+   the checkpoint written; the flagship's holds both models' BatchNorm
+   running statistics, moved and apart.  The step's wait on the loader is
+   logged.
 9. One f32 step with the kernels against one with their plain versions,
-   from the same state and batch: loss dicts and every parameter's update.
+   from the same state and batch, for each model (cuDNN deterministic and
+   without TF32 for this comparison only): loss dicts, every parameter's
+   gradient and its update (see STEP_UPDATE_RTOL).
 10. Step time (median, bf16, after warmup) with the kernels and with their
    plain versions, peak device memory, and a ``torch.profiler`` split of
-   the step's device time by kernel family, both ways.  Then K1's backward
+   the step's device time by kernel family (convolutions, BatchNorm, K1
+   forward and backward, K5, K6, matrix products, the rest), both ways,
+   for each model; the flagship's is the port's
+   ``moco_train_step_ms_bs128``.  Then K1's backward
    at the step's shape beside its plain version and the plain recompute it
    replaced, and K5 and K6 alone at the ViT-B/16 shape and the served
    causal text shape, beside their plain versions and the library call.
@@ -142,13 +155,20 @@ K1_BWD_TOL = {"float32": {"dx": 1e-5, "dw": 1e-4},
 K1_STATE_TOL = 1e-5          # the training forward's saved f32 state (h and
                              # gates) against the plain training forward's
 STEP_LOSS_RTOL = 1e-4        # f32 step, kernels vs plain: loss values
-# f32 step, kernels vs plain: ||update_kernel - update_plain|| over
-# ||update_plain|| per parameter, over the entries whose gradient (weight
-# decay included) is above 1e-6; below it Adam's g / (|g| + 1e-8) follows
-# rounding noise (the attention's key bias has an exactly zero gradient)
+# f32 step, kernels vs plain, per parameter: ||grad_kernel - grad_plain||
+# over ||grad_plain|| (for every parameter whose plain gradient norm is at
+# least 1e-6 of the model's largest: below that it is rounding noise of an
+# exactly zero gradient, as the attention's key bias has), and
+# ||update_kernel - update_plain|| over ||update_plain|| on the entries
+# whose gradient (weight decay included) is above 1e-6 and above twice the
+# tensor's largest |grad_kernel - grad_plain|; below either, Adam's first
+# step g / (|g| + 1e-8), a sign, follows rounding noise (a BatchNorm
+# trunk's weight gradients are sums of ~10^5 cancelling terms, whose f32
+# rounding passes 1e-6)
 STEP_UPDATE_RTOL = 1e-3
 NOISE_FLOOR = 1e-6
 VIT_YAML = "configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_2048.yaml"
+FLAGSHIP_YAML = "configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml"
 TRAIN_STEPS = 3
 SPLIT_IDS, SPLIT_IMAGES_PER_ID = 64, 4  # the synthetic test splits
 GRU2L_YAML = "configs/cuhkpedes/moco_gru2l_freeze_cliprn50_ls_bs128_2048.yaml"
@@ -252,14 +272,51 @@ def k1_inputs(batch, dtype, seed, seq=105, hidden=512):
     return gates(), gates(), weight(), weight(), lengths
 
 
+def with_empty_rows(args):
+    """K1's inputs with rows 1 and B - 2 (where B > 2) of length 0: no valid
+    step, so their pooled output is -inf before the zero-participation
+    rule."""
+    lengths = args[4].clone()
+    if len(lengths) > 2:
+        lengths[[1, len(lengths) - 2]] = 0
+    return (*args[:4], lengths)
+
+
+def k1_plan(batch):
+    """The bf16 forward's launch plan for ``batch`` rows, from the library
+    and from ``ops/gru.py:resident_plan``: (rows, clusters, capacity),
+    failing if they differ."""
+    import ctypes
+
+    from textreid_torch.ops import _build, gru
+
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().bigru_resident_plan(
+        batch, 512, *map(ctypes.byref, out)), "bigru_resident_plan")
+    rows, clusters, cap32, cap16 = (v.value for v in out)
+    capacity = {32: cap32, 16: cap16}
+    want = gru.resident_plan(batch, capacity)
+    if (rows, clusters) != want[:2]:
+        fail(f"K1 bf16 plan at B={batch}: the library's {(rows, clusters)}, "
+             f"resident_plan's {want[:2]}")
+    return rows, clusters, capacity
+
+
 def check_k1():
+    """K1's forward against its plain version at the served, evaluated and
+    trained batches and a ragged one, f32 (the streamed kernel) and bf16
+    (the W-resident kernel), ragged lengths with empty rows."""
     import torch
     from textreid_torch.ops import gru
 
     worst = {}
-    for batch in (64, 256):
+    for batch in (1, 37, 128, 256):
+        rows, clusters, capacity = k1_plan(batch)
+        log(f"K1 bf16 plan B={batch}: {rows} rows a cluster of 16 blocks, "
+            f"{clusters} clusters (the card holds {capacity[32]} of 32 rows, "
+            f"{capacity[16]} of 16 at once)")
         for dtype in (torch.float32, torch.bfloat16):
-            args = k1_inputs(batch, dtype, seed=batch)
+            args = with_empty_rows(k1_inputs(batch, dtype, seed=batch))
             # the wrapper with serving's pool rule; the plain scan + the rule
             got = gru.bigru_pooled_scan(*args, pool_mode="always")
             want = gru.zero_participation(gru.bigru_pooled_scan_plain(*args),
@@ -275,7 +332,40 @@ def check_k1():
             if not math.isfinite(err) or err > K1_TOL[name]:
                 fail(f"K1 B={batch} {name} disagrees with its plain version")
             worst[name] = max(worst.get(name, 0.0), err)
+            check_k1_train_state(batch, args, name)
     return worst
+
+
+def check_k1_train_state(batch, args, name):
+    """K1's training forward on the same inputs against its plain version:
+    the pooled output within K1_TOL, the saved f32 state (h_{t-1} and the
+    gates at every step) within K1_STATE_TOL, the argmax -1 exactly on the
+    empty rows; argmax flips (near-ties the two f32 states cross) are
+    counted."""
+    import torch
+    from textreid_torch.ops import gru
+
+    pooled, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+    p_pooled, p_hp, p_gates, p_argmax = gru.bigru_pooled_fwd_train_plain(
+        *args)
+    torch.cuda.synchronize()
+    pool_err = (pooled.float() - p_pooled.float()).abs().nan_to_num(
+        0.0).max().item()
+    same_inf = torch.equal(torch.isinf(pooled), torch.isinf(p_pooled))
+    state_err = max((hp - p_hp).abs().max().item(),
+                    (gates - p_gates).abs().max().item())
+    empty = args[4] == 0
+    empty_ok = bool((argmax[empty] == -1).all())
+    flips = int((argmax != p_argmax).sum())
+    log(f"K1 bigru_pooled_fwd_train B={batch} T=105 H=512 {name}: pooled "
+        f"within {pool_err:.3e} (tol {K1_TOL[name]:.0e}), -inf on the same "
+        f"entries: {same_inf}; saved state within {state_err:.3e} (tol "
+        f"{K1_STATE_TOL:.0e}); argmax -1 on the {int(empty.sum())} empty "
+        f"rows: {empty_ok}, differs at {flips} of {argmax.numel()} maxima")
+    if not (pool_err <= K1_TOL[name] and same_inf and empty_ok
+            and state_err <= K1_STATE_TOL):
+        fail(f"K1 training forward B={batch} {name} disagrees with its plain "
+             "version")
 
 
 def k2_inputs(n_g, seed, n_q=256, dim=256, duplicates=False):
@@ -857,9 +947,17 @@ TRAIN_KERNELS = ("bigru_pooled_fwd", "bigru_pooled_bwd",
                  "fused_attention_fwd", "fused_attention_bwd")
 # launches of one MoCo step of the ViT-B/16 + bi-GRU model: K1's forward in
 # the query tower (training forward) and in the key tower (no_grad), its
-# backward once; K5 in 12 blocks of each tower, K6 in the query tower's
-TRAIN_STEP = {"bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
-              "fused_attention_fwd": 24, "fused_attention_bwd": 12}
+# backward once; K5 in 12 blocks of each tower, K6 in the query tower's.
+# The flagship (CLIP RN50 + bi-GRU): K1 the same, no attention kernel (its
+# convolutions and BatchNorms are cuDNN's and PyTorch's)
+TRAIN_MODELS = {  # name: (yaml, launches of one step)
+    "ViT-B/16 + bi-GRU": (VIT_YAML, {
+        "bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
+        "fused_attention_fwd": 24, "fused_attention_bwd": 12}),
+    "CLIP RN50 + bi-GRU (flagship)": (FLAGSHIP_YAML, {
+        "bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
+        "fused_attention_fwd": 0, "fused_attention_bwd": 0}),
+}
 
 
 # -- phase 3: the slice through its entry points ---------------------------
@@ -1399,9 +1497,28 @@ def time_int8_encoders(service, base, built):
 def time_kernels():
     import torch
     from textreid_torch.ops import gru, ranking
+    from textreid_torch.tools.gru_variants import streamed_forward
 
     out = {}
-    for batch in (256, 64):  # the search bucket; encode_queries' chunk
+    # K1's bf16 forward: the W-resident kernel against the streamed one it
+    # replaced, interleaved (streamed, resident, resident, streamed)
+    for batch in (256, 128):  # the search bucket; the train step's batch
+        args = k1_inputs(batch, torch.bfloat16, seed=1)
+        with torch.no_grad():
+            new_ms, old_ms = interleaved_ms(
+                lambda: gru.bigru_pooled_scan(*args, pool_mode="always"),
+                lambda: streamed_forward(*args), 10, 10)
+            old_err = (gru.zero_participation(streamed_forward(*args),
+                                              args[4], 105, "always").float()
+                       - gru.zero_participation(
+                           gru.bigru_pooled_scan_plain(*args), args[4], 105,
+                           "always").float()).abs().max().item()
+        out[("K1 streamed", batch)] = old_ms
+        log(f"time K1 B={batch} T=105 H=512 bfloat16: W-resident kernel "
+            f"{new_ms:.3f} ms, the streamed kernel it replaced {old_ms:.3f} "
+            f"ms (its max_abs_err {old_err:.3e})")
+    for batch in (256, 128, 64):  # the search bucket; the train step's
+        # batch; encode_queries' chunk
         for dtype in (torch.bfloat16, torch.float32):
             args = k1_inputs(batch, dtype, seed=1)
             ms, plain_ms = interleaved_ms(
@@ -1424,14 +1541,19 @@ def time_kernels():
             log(f"time K3 B={batch} T=105 H=512 {name}: kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms")
     # one dependent step's latency: the slope of the time over T with one
-    # cluster's worth of rows (B=8), where nothing but the chain waits
-    for kname in ("K1", "K1 bwd", "K3"):
+    # cluster's worth of rows (B=8), where nothing but the chain waits; from
+    # T=55, where even a 2 us step keeps a call longer than the host takes
+    # to issue it (from T=5 the host would set the short call's time)
+    for kname in ("K1", "K1 streamed", "K1 bwd", "K3"):
         ms_t = {}
-        for seq in (5, 105):
+        for seq in (55, 105):
             if kname == "K1":
                 args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: gru.bigru_pooled_scan(
                     *args, pool_mode="always"), 20)
+            elif kname == "K1 streamed":
+                args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
+                ms_t[seq] = cuda_ms(lambda: streamed_forward(*args), 20)
             elif kname == "K1 bwd":  # row 0 has the full length
                 args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 saved = gru.bigru_pooled_fwd_train(*args)[1:]
@@ -1441,9 +1563,9 @@ def time_kernels():
             else:
                 args = k3_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: gru.gru_scan(*args), 20)
-        step_us = (ms_t[105] - ms_t[5]) / 100 * 1e3
+        step_us = (ms_t[105] - ms_t[55]) / 50 * 1e3
         out[(kname, "step_us")] = step_us
-        log(f"time {kname} one dependent step (B=8, bf16, slope of T=5 -> "
+        log(f"time {kname} one dependent step (B=8, bf16, slope of T=55 -> "
             f"105): {step_us:.2f} us; the chain of 105 steps: "
             f"{105 * step_us / 1e3:.3f} ms")
     for n_g in (3074, 98304):
@@ -1817,19 +1939,23 @@ def time_eval(workspace, rows=3072, batch=128):
 
 # -- the training slice ------------------------------------------
 
-def drive_training():
+def drive_training(model_name):
     """``textreid_torch.train_net.main`` on a synthetic train split of
-    TRAIN_STEPS batches.  Returns the counts, the state and meters."""
+    TRAIN_STEPS batches, for one of TRAIN_MODELS.  Returns the counts, the
+    state, the meters and the checkpoint's path."""
     import torch
     from textreid_torch import train_net
     from textreid_torch.data import make_synthetic_dataset
 
+    yaml = TRAIN_MODELS[model_name][0]
     root = os.path.join(WORK, "train")
-    make_synthetic_dataset(
-        os.path.join(root, "datasets", "cuhkpedes"),
-        num_identities=32 * TRAIN_STEPS, images_per_id=4,
-        image_size=(384, 128), vocab_size=512, max_tokens=60, split="train")
-    argv = ["--root", root, "--config-file", os.path.join(REPO, VIT_YAML),
+    if not os.path.isdir(os.path.join(root, "datasets", "cuhkpedes")):
+        make_synthetic_dataset(
+            os.path.join(root, "datasets", "cuhkpedes"),
+            num_identities=32 * TRAIN_STEPS, images_per_id=4,
+            image_size=(384, 128), vocab_size=512, max_tokens=60,
+            split="train")
+    argv = ["--root", root, "--config-file", os.path.join(REPO, yaml),
             "--device", "cuda", "SOLVER.EVALUATE_PERIOD", "0",
             "SOLVER.NUM_EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
             "SOLVER.LOG_PERIOD", "1", "TPU.DEBUG_NANS", "True",
@@ -1839,22 +1965,28 @@ def drive_training():
     state, meters = train_net.main(argv)
     torch.cuda.synchronize()
     counts = read_counts(TRAIN_KERNELS)
-    log(f"training slice: train_net.main, {state.step} steps in "
-        f"{time.time() - t0:.1f} s; launches {counts}")
+    waits = list(meters.data.deque)
+    log(f"training slice, {model_name}: train_net.main, {state.step} steps "
+        f"in {time.time() - t0:.1f} s; launches {counts}; the step waited "
+        f"on the loader {', '.join(f'{w * 1e3:.1f}' for w in waits)} ms "
+        f"(step times {', '.join(f'{v * 1e3:.1f}' for v in meters.time.deque)}"
+        f" ms, the first with the tower's warmup)")
     ckpt = os.path.join(root, "output", "cuhkpedes",
-                        "moco_gru_clipvitb16_ls_bs128_2048", "epoch_1.pth")
+                        os.path.splitext(os.path.basename(yaml))[0],
+                        "epoch_1.pth")
     return counts, state, meters, ckpt
 
 
-def check_training(counts, state, meters, ckpt):
+def check_training(model_name, counts, state, meters, ckpt):
     import torch
 
     steps = state.step
     if steps != TRAIN_STEPS:
         fail(f"training slice ran {steps} steps, not {TRAIN_STEPS}")
-    want = {name: n * steps for name, n in TRAIN_STEP.items()}
+    want = {name: n * steps for name, n in TRAIN_MODELS[model_name][1].items()}
     if counts != want:
-        fail(f"training slice launches {counts}, expected {want}")
+        fail(f"training slice, {model_name}: launches {counts}, expected "
+             f"{want}")
     losses = list(meters.loss.deque)
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         fail(f"training losses {losses}")
@@ -1866,9 +1998,27 @@ def check_training(counts, state, meters, ckpt):
     if saved["queue_ptr"] != state.queue_ptr or saved["meta"]["iteration"] \
             != steps or not torch.isfinite(saved["v_queue"]).all():
         fail("the checkpoint does not hold the run's state")
-    log(f"training slice: losses {[round(v, 4) for v in losses]}, "
-        f"queue_ptr {state.queue_ptr}, checkpoint "
-        f"{os.path.relpath(ckpt, REPO)} ({os.path.getsize(ckpt) >> 20} MB)")
+    # BatchNorm towers: both models' running statistics are in the
+    # checkpoint, finite, moved off their start (mean 0, var 1) by the
+    # batches, and apart (the key encoders' come from the key forward)
+    stats = [k for k in saved["model"] if k.endswith(
+        (".running_mean", ".running_var"))]
+    if stats:
+        for k in stats:
+            q, key = saved["model"][k], saved["key_model"].get(k)
+            if key is None or not (torch.isfinite(q).all()
+                                   and torch.isfinite(key).all()):
+                fail(f"the checkpoint's BatchNorm statistic {k} is missing "
+                     "or not finite")
+        name = "visual_model.layer4.0.bn3.running_var"
+        q, key = saved["model"][name], saved["key_model"][name]
+        if torch.equal(q, torch.ones_like(q)) or torch.equal(q, key):
+            fail(f"{name} did not move, or equals the key model's")
+    log(f"training slice, {model_name}: losses "
+        f"{[round(v, 4) for v in losses]}, queue_ptr {state.queue_ptr}, "
+        f"checkpoint {os.path.relpath(ckpt, REPO)} "
+        f"({os.path.getsize(ckpt) >> 20} MB; {len(stats)} BatchNorm "
+        "statistics in each of the query and key models)")
     return losses
 
 
@@ -1892,9 +2042,9 @@ def plain_train_kernels():
         yield
 
 
-def train_setup(compute_dtype_name):
-    """Full-width ViT-B/16 + bi-GRU MoCo state on the card and one device
-    batch of 32 identities x 4."""
+def train_setup(model_name, compute_dtype_name):
+    """Full-width MoCo state of one of TRAIN_MODELS on the card and one
+    device batch of 32 identities x 4."""
     import torch
     from textreid_torch.config import get_default_cfg
     from textreid_torch.engine import create_train_state, make_train_step
@@ -1903,7 +2053,7 @@ def train_setup(compute_dtype_name):
     from textreid_torch.utils.platform import compute_dtype
 
     cfg = get_default_cfg()
-    cfg.merge_from_file(os.path.join(REPO, VIT_YAML))
+    cfg.merge_from_file(os.path.join(REPO, TRAIN_MODELS[model_name][0]))
     cfg.TPU.ALLOW_RANDOM_VOCAB = True
     cfg.TPU.COMPUTE_DTYPE = compute_dtype_name
     model = build_model(cfg, "cuda", torch.float32,
@@ -1929,9 +2079,30 @@ def train_setup(compute_dtype_name):
     return cfg, model, state_of, make_train_step(cfg), batch
 
 
-def compare_steps():
+def compare_steps(model_name):
     """One f32 step with the kernels and one with their plain versions,
-    from the same state and batch."""
+    from the same state and batch.  cuDNN is held to deterministic
+    algorithms and full f32 (no TF32) for this comparison only, so that the
+    two steps' convolutions compute the same sums and the steps differ by
+    the kernels alone."""
+    with cudnn_exact():
+        return _compare_steps(model_name)
+
+
+@contextmanager
+def cudnn_exact():
+    import torch
+
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark, flags.allow_tf32
+    flags.deterministic, flags.benchmark, flags.allow_tf32 = True, False, False
+    try:
+        yield
+    finally:
+        flags.deterministic, flags.benchmark, flags.allow_tf32 = saved
+
+
+def _compare_steps(model_name):
     import copy
 
     import torch
@@ -1939,8 +2110,12 @@ def compare_steps():
     import textreid_torch.models.gru as gru_model
     from textreid_torch.ops import gru
 
-    cfg, model, state_of, step, batch = train_setup("float32")
-    states = [state_of(model), state_of(copy.deepcopy(model))]
+    want_counts = TRAIN_MODELS[model_name][1]
+    cfg, model, state_of, step, batch = train_setup(model_name, "float32")
+    # the third takes the plain step again: how far two identical steps
+    # land apart (a diagnostic, logged)
+    states = [state_of(model), state_of(copy.deepcopy(model)),
+              state_of(copy.deepcopy(model))]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     scan, query_gates = gru_model.bigru_pooled_scan, []
 
@@ -1955,15 +2130,18 @@ def compare_steps():
     counts = read_counts(TRAIN_KERNELS)
     with plain_train_kernels():
         want = step(states[1], batch)
+        step(states[2], batch)
     torch.cuda.synchronize()
-    if counts != TRAIN_STEP or read_counts(TRAIN_KERNELS) != counts:
-        fail(f"f32 step launches {counts}, then {read_counts(TRAIN_KERNELS)}")
+    if counts != want_counts or read_counts(TRAIN_KERNELS) != counts:
+        fail(f"f32 step, {model_name}: launches {counts}, then "
+             f"{read_counts(TRAIN_KERNELS)}")
     # where the kernel's and the plain forward's f32 states cross at a
     # near-tie, the two steps' pool gradients go to different steps
     (args,) = query_gates
     flips = int((gru.bigru_pooled_fwd_train(*args)[3]
                  != gru.bigru_pooled_fwd_train_plain(*args)[3]).sum())
-    log(f"f32 step, text tower: the kernel's and the plain forward's argmax "
+    log(f"f32 step, {model_name}, text tower: the kernel's and the plain "
+        f"forward's argmax "
         f"differ at {flips} of {args[4].numel() * 2 * args[2].shape[0]} "
         f"(row, unit) maxima")
     loss_err = 0.0
@@ -1971,36 +2149,63 @@ def compare_steps():
         a, b = float(got[name]), float(want[name])
         err = abs(a - b) / max(abs(b), 1e-12)
         loss_err = max(loss_err, err)
-        log(f"f32 step {name}: kernels {a:.6f}, plain {b:.6f}")
+        log(f"f32 step, {model_name}, {name}: kernels {a:.6f}, plain "
+            f"{b:.6f}")
         if not math.isfinite(a) or err > STEP_LOSS_RTOL:
-            fail(f"f32 step {name} differs by {err:.3e} (rtol "
+            fail(f"f32 step, {model_name}, {name} differs by {err:.3e} (rtol "
                  f"{STEP_LOSS_RTOL:.0e})")
     decay = {id(p): g["weight_decay"]
              for g in states[1].optimizer.param_groups for p in g["params"]}
-    worst, worst_name, masked, total = 0.0, "", 0, 0
+    worst, worst_name, masked, total, again = 0.0, "", 0, 0, 0.0
+    grad_worst, grad_name, bad, zero = 0.0, "", [], []
     plain_params = dict(states[1].model.named_parameters())
+    again_params = dict(states[2].model.named_parameters())
+    top_norm = max(q.grad.norm().item() for q in plain_params.values())
     for name, p in states[0].model.named_parameters():
         q = plain_params[name]
-        keep = (q.grad + decay[id(q)] * before[name]).abs() >= NOISE_FLOOR
+        diff = p.grad - q.grad
+        grad_err = 0.0
+        if q.grad.norm().item() < NOISE_FLOOR * top_norm:
+            zero.append(name)
+        else:
+            grad_err = (diff.norm() / q.grad.norm()).item()
+        if grad_err > grad_worst:
+            grad_worst, grad_name = grad_err, name
+        if not math.isfinite(grad_err) or grad_err > STEP_UPDATE_RTOL:
+            bad.append(f"{name} (gradient {grad_err:.3e})")
+        g = (q.grad + decay[id(q)] * before[name]).abs()
+        keep = g >= max(NOISE_FLOOR, 2 * diff.abs().max().item())
         masked += int((~keep).sum())
         total += keep.numel()
-        d_k = (p.detach() - before[name])[keep]
         d_p = (q.detach() - before[name])[keep]
         if d_p.numel() == 0:
             continue
+        d_k = (p.detach() - before[name])[keep]
         err = ((d_k - d_p).norm() / d_p.norm().clamp_min(1e-30)).item()
+        d_a = (again_params[name].detach() - before[name])[keep]
+        again = max(again, ((d_a - d_p).norm()
+                            / d_p.norm().clamp_min(1e-30)).item())
         if err > worst:
             worst, worst_name = err, name
         if not math.isfinite(err) or err > STEP_UPDATE_RTOL:
-            fail(f"f32 step: the update of {name} differs by {err:.3e} "
-                 f"({flips} argmax flips in the text tower)")
-    log(f"f32 step, kernels vs plain: losses within {loss_err:.3e} "
+            bad.append(f"{name} (update {err:.3e})")
+    log(f"f32 step, {model_name}, kernels vs plain: gradients within "
+        f"{grad_worst:.3e} at {grad_name} ({', '.join(zero) or 'none'} "
+        f"under 1e-6 of the largest gradient norm, left out); the plain "
+        f"step taken twice: worst update error {again:.3e}")
+    if bad:
+        fail(f"f32 step, {model_name}: {'; '.join(bad[:8])} differ past "
+             f"{STEP_UPDATE_RTOL:.0e} ({flips} argmax flips in the text "
+             "tower)")
+    log(f"f32 step, {model_name}, kernels vs plain: losses within "
+        f"{loss_err:.3e} "
         f"(rtol {STEP_LOSS_RTOL:.0e}); worst update error {worst:.3e} at "
         f"{worst_name} (bound {STEP_UPDATE_RTOL:.0e}; {masked} of {total} "
-        f"entries under the {NOISE_FLOOR:.0e} gradient floor left out)")
+        f"entries under the gradient floor, the larger of {NOISE_FLOOR:.0e} "
+        "and twice the tensor's largest gradient difference, left out)")
     del states, model, before
     torch.cuda.empty_cache()
-    return loss_err, worst
+    return loss_err, worst, grad_worst
 
 
 def profile_steps(step, state, batch, steps=2):
@@ -2012,10 +2217,17 @@ def profile_steps(step, state, batch, steps=2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # the first family whose key a kernel's name holds takes it: K1's
+    # backward before its forwards, cuDNN's convolutions before the
+    # products (their names hold "xmma" and "gemm" too)
     families = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
-                ("K1 fwd", ("bigru_pooled_kernel",
-                            "bigru_pooled_train_kernel")),
                 ("K1 bwd", ("bigru_pooled_bwd_kernel",)),
+                ("K1 fwd", ("bigru_pooled", "bigru_resident")),
+                ("convolutions", ("fprop", "dgrad", "wgrad", "winograd",
+                                  "convolve", "conv2d", "convolution",
+                                  "implicit_gemm", "nchwtonhwc",
+                                  "nhwctonchw")),
+                ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
                 ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
                                      "nvjet", "wgmma")))
     torch.cuda.synchronize()
@@ -2052,13 +2264,15 @@ def profile_steps(step, state, batch, steps=2):
     return out
 
 
-def time_training(reps=8):
+def time_training(model_name, reps=8):
     """Median ms per bf16 step (kernels, then plain versions, then kernels
     again), peak memory, and the profile of the step's device time with
-    the kernels and with the plain versions."""
+    the kernels and with the plain versions, for one of TRAIN_MODELS.  The
+    flagship's step is the port's counterpart of the JAX package's
+    ``moco_train_step_ms_bs128`` (``bench.py``), logged under that name."""
     import torch
 
-    cfg, model, state_of, step, batch = train_setup("bfloat16")
+    cfg, model, state_of, step, batch = train_setup(model_name, "bfloat16")
     state = state_of(model)
     torch.cuda.reset_peak_memory_stats()
 
@@ -2083,8 +2297,11 @@ def time_training(reps=8):
     ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
     profile = profile_steps(step, state, batch)
 
-    log(f"time train step bf16 B=128 (ViT-B/16 384x128 + bi-GRU T=105, "
-        f"K=2048): median {ms:.2f} ms with the kernels "
+    metric = ("moco_train_step_ms_bs128: " if "flagship" in model_name
+              else "")
+    log(f"time train step bf16 B=128 ({model_name}, 384x128, T="
+        f"{cfg.INPUT.MAX_TEXT_LENGTH}, K={cfg.MODEL.MOCO.K}): {metric}median "
+        f"{ms:.2f} ms with the kernels "
         f"({len(kernel)} steps), {plain_ms:.2f} ms with the plain versions "
         f"({len(plain)} steps); device time a step "
         f"{profile['total'] if profile else float('nan'):.2f} ms in "
@@ -2301,11 +2518,17 @@ def main():
     del service, built
     torch.cuda.empty_cache()
 
-    train_launches, state, meters, ckpt = drive_training()
-    check_training(train_launches, state, meters, ckpt)
-    del state
-    compare_steps()
-    train_times = time_training()
+    train_launches, train_times = {}, {}
+    for model_name in TRAIN_MODELS:
+        launched, state, meters, ckpt = drive_training(model_name)
+        check_training(model_name, launched, state, meters, ckpt)
+        train_launches[model_name] = launched
+        del state
+        torch.cuda.empty_cache()
+    for model_name in TRAIN_MODELS:
+        compare_steps(model_name)
+        train_times[model_name] = time_training(model_name)
+    vit_train, rn_train = (train_times[name] for name in TRAIN_MODELS)
     k1_times = time_k1_backward()
     attn_times = time_attention()
 
@@ -2319,9 +2542,12 @@ def main():
         f"6156 x 3074 {rank_s[True]:.3f} s; int8 /search p50 "
         f"{int8_times[('p50', 3074)]:.3f} ms at 3074 rows, "
         f"{int8_times[('p50', 98304)]:.3f} ms at 98304; train step bf16 "
-        f"{train_times['ms']:.2f} ms (plain versions "
-        f"{train_times['plain_ms']:.2f} ms), peak "
-        f"{train_times['peak'] / 2**30:.2f} GiB, K1 backward kernel "
+        f"B=128, ViT-B/16 + bi-GRU {vit_train['ms']:.2f} ms (plain versions "
+        f"{vit_train['plain_ms']:.2f} ms), peak "
+        f"{vit_train['peak'] / 2**30:.2f} GiB; the flagship (CLIP RN50 + "
+        f"bi-GRU, moco_train_step_ms_bs128) {rn_train['ms']:.2f} ms (plain "
+        f"versions {rn_train['plain_ms']:.2f} ms), peak "
+        f"{rn_train['peak'] / 2**30:.2f} GiB; K1 backward kernel "
         f"{k1_times[('bwd', 'bfloat16')]:.3f} ms (the plain recompute it "
         f"replaced {k1_times[('recompute', 'bfloat16')]:.2f} ms) ({card})")
     log(f"summary, int8 encoders of the full-CLIP model: gallery encode "
@@ -2333,16 +2559,18 @@ def main():
         f"{enc_times[('p50', 'float')]:.3f}); minimum cosine to the float "
         f"towers {cosines[0]:.5f} (ViT), {cosines[1]:.5f} (text) ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
-        f"{int8_counts}; int8 encoders {enc_counts}; training "
-        f"{train_launches}")
+        f"{int8_counts}; int8 encoders {enc_counts}; "
+        + "; ".join(f"training {name} {launched}"
+                    for name, launched in train_launches.items()))
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
-            counts, eval_launches, int8_counts, enc_counts, train_launches))
+            counts, eval_launches, int8_counts, enc_counts,
+            *train_launches.values()))
 
     bounds = kernel_bounds(k1_times[("steps",)])
     rows = [  # (entry point, source, replaces, error, (ms, plain ms), library)
-        ("bigru_pooled_fwd", "bigru_pooled.cu", "gru_pallas.py:396",
+        ("bigru_pooled_fwd", "bigru_resident.cu", "gru_pallas.py:396",
          k1_err["bfloat16"], times[("K1", 256, "bfloat16")], None),
         # K1's backward replaces the custom VJP's bwd, which differentiates
         # the XLA scan; no single PyTorch call computes it (nn.GRU has

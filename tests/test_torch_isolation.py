@@ -165,6 +165,6 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     assert _build.source_hash() != before
     assert sorted(p.name for p in _build._sources()) == [
-        "bigru_pooled.cu", "bigru_pooled_bwd.cu", "fused_attention.cu",
-        "gru_scan.cu",
+        "bigru_pooled.cu", "bigru_pooled_bwd.cu", "bigru_resident.cu",
+        "fused_attention.cu", "gru_scan.cu",
         "int8_mm.cu", "requant.cu", "topk_similarity.cu"]

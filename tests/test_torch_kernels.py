@@ -114,6 +114,60 @@ def test_bigru_kernel_matches_plain(cuda, dtype, tol, batch, seq, hidden):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("batch,capacity,want", [
+    # one wave either way: 16-row steps are the cheaper
+    (1, {32: 8, 16: 8}, (16, 2, 2, 1)),
+    (37, {32: 8, 16: 8}, (16, 6, 6, 1)),
+    # 1 wave of 32 rows against 2 of 16: a tie goes to 32
+    (128, {32: 8, 16: 8}, (32, 8, 8, 1)),
+    (256, {32: 8, 16: 8}, (32, 8, 16, 2)),
+    (100, {32: 4, 16: 4}, (32, 4, 8, 2)),
+    # seven clusters of 16 blocks: 3 waves of 16 rows (48 row-steps) beat
+    # 2 of 32 (64); at B=256, 5 of 16 (80) beat 3 of 32 (96)
+    (128, {32: 7, 16: 7}, (16, 7, 16, 3)),
+    (256, {32: 7, 16: 7}, (16, 7, 32, 5)),
+])
+def test_resident_plan(batch, capacity, want):
+    """The bf16 forward's row-group plan (``csrc/bigru_resident.cu:plan``
+    computes the same; chip_smoke.py holds the two together on the card):
+    (rows a cluster, clusters, items, waves)."""
+    assert gru.resident_plan(batch, capacity) == want
+
+
+def test_bf16_forward_refuses_a_hidden_size_past_its_cluster():
+    """The W-resident kernel's cluster has H / 32 blocks, at most 16."""
+    x = torch.zeros(2, 3, 3 * 544, dtype=torch.bfloat16)
+    w = torch.zeros(544, 3 * 544, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H <= 512"):
+        gru._bigru_pooled_cuda(x, x, w, w, torch.ones(2, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 37, 128, 256])
+def test_bf16_forwards_match_plain_at_served_and_trained_batches(cuda, batch):
+    """K1's W-resident bf16 forward at T=105, H=512 with ragged lengths and
+    two empty rows: the pooled-only kernel within 8e-3 of the plain scan
+    (after the serving pool rule), the training kernel's pooled output
+    within 8e-3 and its saved f32 state within 1e-5 of the plain training
+    forward's, its argmax -1 on the empty rows."""
+    args = _k1_args(batch, 105, 512, torch.bfloat16, cuda, seed=batch)
+    if batch > 2:
+        args[4][[1, batch - 2]] = 0
+    got = gru.bigru_pooled_scan(*args, pool_mode="always")
+    want = gru.zero_participation(gru.bigru_pooled_scan_plain(*args),
+                                  args[4], 105, "always")
+    pooled, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+    p_pooled, p_hp, p_gates, _ = gru.bigru_pooled_fwd_train_plain(*args)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 8e-3
+    assert torch.equal(torch.isinf(pooled), torch.isinf(p_pooled))
+    finite = torch.isfinite(p_pooled)
+    assert (pooled.float() - p_pooled.float())[finite].abs().max() <= 8e-3
+    assert (hp - p_hp).abs().max().item() <= 1e-5
+    assert (gates - p_gates).abs().max().item() <= 1e-5
+    assert bool((argmax[args[4] == 0] == -1).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_q,n_g,k,valid", [
     (13, 200, 1, 0), (13, 200, 7, 0), (9, 130, 64, 0), (8, 50, 64, 0),

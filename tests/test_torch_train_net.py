@@ -1,6 +1,7 @@
 """``python -m textreid_torch.train_net`` on the CPU: one epoch of two MoCo
 steps of a tiny ViT + bi-GRU model on a synthetic CUHK-PEDES train split,
-and the parts that are not ported yet refusing to run."""
+the same of the flagship (CLIP RN50 + bi-GRU) at 32x16 pixels, and the
+parts that are not ported yet refusing to run."""
 
 import math
 import os
@@ -82,6 +83,34 @@ def _main(workspace, *extra):
                            "--device", "cpu", *extra])
 
 
+def test_the_flagship_trains_one_epoch_on_the_cpu(workspace):
+    """``train_net`` on the flagship's yaml (CLIP RN50 + bi-GRU, BatchNorm
+    in training) at 32x16 pixels, batch 8, K=32: two finite steps, and a
+    checkpoint whose query and key models both hold moved, distinct
+    BatchNorm running statistics."""
+    state, meters = train_net.main([
+        "--root", str(workspace), "--config-file",
+        os.path.join(REPO, "configs/cuhkpedes/"
+                     "moco_gru_cliprn50_ls_bs128_2048.yaml"),
+        "--device", "cpu", "INPUT.HEIGHT", "32", "INPUT.WIDTH", "16",
+        "SOLVER.IMS_PER_BATCH", "8", "DATALOADER.IMS_PER_ID", "4",
+        "DATALOADER.NUM_WORKERS", "2", "MODEL.MOCO.K", "32",
+        "MODEL.NUM_CLASSES", "4", "SOLVER.NUM_EPOCHS", "1",
+        "SOLVER.EVALUATE_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "1",
+        "SOLVER.LOG_PERIOD", "1", "TPU.ALLOW_RANDOM_VOCAB", "True",
+        "TPU.DEBUG_NANS", "True"])
+    assert state.step == 2 and state.queue_ptr == 16
+    assert all(math.isfinite(v) for v in meters.loss.deque)
+    ckpt = torch.load(workspace / "output" / "cuhkpedes" /
+                      "moco_gru_cliprn50_ls_bs128_2048" / "epoch_1.pth",
+                      weights_only=False)
+    name = "visual_model.layer4.2.bn3.running_var"
+    query, key = ckpt["model"][name], ckpt["key_model"][name]
+    assert torch.isfinite(query).all() and torch.isfinite(key).all()
+    assert not torch.equal(query, torch.ones_like(query))
+    assert not torch.equal(query, key)
+
+
 def test_evaluation_during_training_raises(workspace):
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         _main(workspace, "SOLVER.EVALUATE_PERIOD", "1")
@@ -93,8 +122,10 @@ def test_resume_raises(workspace):
 
 
 def test_batchnorm_tower_in_training_raises(workspace):
+    """The torchvision BatchNorm towers are not ported; the CLIP
+    ModifiedResNet's trains (tests/test_torch_train_step_bn.py)."""
     with pytest.raises(NotImplementedError, match="BatchNorm"):
-        _main(workspace, "MODEL.VISUAL_MODEL", "m_resnet50")
+        _main(workspace, "MODEL.VISUAL_MODEL", "resnet50")
 
 
 def test_cuda_without_a_card_raises(workspace):

@@ -161,11 +161,13 @@ cudaError_t launch(const void* xf, const void* xb, const void* wf,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  hidden % 32 == 0 (each of the
-// kSplit blocks owns a multiple of 4 units, each k half is a multiple of
-// 4), hidden <= 2048, and the dtype/shape checks are the Python wrapper's
-// job.  Returns cudaError_t.
-extern "C" int bigru_pooled_fwd(const void* xf, const void* xb,
+// Plain C entry point, called by bigru_resident.cu's bigru_pooled_fwd for
+// f32 inputs (bf16 there runs the W-resident kernel; this one's bf16 is
+// kept for comparison: tools/gru_variants.py, chip_smoke.py).  hidden % 32
+// == 0 (each of the kSplit blocks owns a multiple of 4 units, each k half
+// is a multiple of 4), hidden <= 2048, and the dtype/shape checks are the
+// Python wrapper's job.  Returns cudaError_t.
+extern "C" int bigru_pooled_fwd_streamed(const void* xf, const void* xb,
                                 const void* wf, const void* wb,
                                 const void* lengths, void* out, int batch,
                                 int seq, int hidden, int is_bf16,

@@ -439,25 +439,19 @@ cudaError_t launch_bwd(const void* g, const void* wtf, const void* wtb,
 // <= 512; the dtype/shape checks are the Python wrapper's job.  Each
 // returns cudaError_t.
 
-// The training forward: the pooled output, and hp [2, B, T, H], gates
+// The f32 training forward: the pooled output, and hp [2, B, T, H], gates
 // [2, B, T, 4, H] (f32) and argmax [B, 2H] (int32) for bigru_pooled_bwd.
-extern "C" int bigru_pooled_fwd_train(const void* xf, const void* xb,
-                                      const void* wf, const void* wb,
-                                      const void* lengths, void* out,
-                                      void* hp, void* gates, void* argmax,
-                                      int batch, int seq, int hidden,
-                                      int is_bf16, void* stream) {
-  const int* lens = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* h = static_cast<float*>(hp);
-  float* g = static_cast<float*>(gates);
-  int* am = static_cast<int*>(argmax);
-  const cudaError_t err =
-      is_bf16 ? launch_train<__nv_bfloat16>(xf, xb, wf, wb, lens, out, h, g,
-                                            am, batch, seq, hidden, s)
-              : launch_train<float>(xf, xb, wf, wb, lens, out, h, g, am,
-                                    batch, seq, hidden, s);
-  return static_cast<int>(err);
+// Called by bigru_resident.cu's bigru_pooled_fwd_train for f32 inputs (bf16
+// runs the W-resident kernel there).
+extern "C" int bigru_pooled_fwd_train_streamed(
+    const void* xf, const void* xb, const void* wf, const void* wb,
+    const void* lengths, void* out, void* hp, void* gates, void* argmax,
+    int batch, int seq, int hidden, void* stream) {
+  return static_cast<int>(launch_train<float>(
+      xf, xb, wf, wb, static_cast<const int*>(lengths), out,
+      static_cast<float*>(hp), static_cast<float*>(gates),
+      static_cast<int*>(argmax), batch, seq, hidden,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The backward: g [B, 2H] and wt_f, wt_b = W^T [3H, H] in the input dtype,

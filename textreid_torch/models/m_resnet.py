@@ -11,9 +11,14 @@
 Module and parameter names are CLIP's (``conv1``, ``bn1``, ``layer1.0``,
 ``downsample.{-1,0,1}``, ``attnpool.{q,k,v,c}_proj``), so a reference
 state dict loads with ``load_state_dict``.  Convolutions are ``F.conv2d``
-through cuDNN (the JAX package has no kernel of its own here); BatchNorm
-runs in eval mode with eps 1e-5.  The tensor layout inside is NCHW; the
-model's public entry takes NHWC pixels like the JAX package.
+through cuDNN (the JAX package has no kernel of its own here).  Every
+layer runs in the dtype of its input with its parameters cast on use
+(``models/common.py``), so f32 masters train a bf16 tower; BatchNorm
+(eps 1e-5) reads its running statistics in eval mode and, in train mode,
+normalises with f32 batch statistics and updates the running ones as
+``flax``'s ``BatchNorm(momentum=0.9)`` does (``common.batch_norm``).  The
+tensor layout inside is NCHW; the model's public entry takes NHWC pixels
+like the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .common import batch_norm, conv2d, linear
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -58,10 +65,13 @@ class Bottleneck(nn.Module):
             ]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(self.avgpool(out)))
-        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
+        out = F.relu(batch_norm(conv2d(out, self.conv2), self.bn2))
+        out = batch_norm(conv2d(self.avgpool(out), self.conv3), self.bn3)
+        identity = x
+        if self.downsample is not None:
+            pool, conv, bn = self.downsample
+            identity = batch_norm(conv2d(pool(x), conv), bn)
         return F.relu(out + identity)
 
 
@@ -102,12 +112,13 @@ class AttentionPool2d(nn.Module):
 
         heads = self.num_heads
         head_dim = c // heads
-        q = self.q_proj(tokens[:, 0]).reshape(batch, heads, head_dim)
+        q = linear(tokens[:, 0], self.q_proj).reshape(batch, heads, head_dim)
         q = q * head_dim ** -0.5
-        w_k = self.k_proj.weight.T.reshape(c, heads, head_dim)
-        w_v = self.v_proj.weight.T.reshape(c, heads, head_dim)
-        b_k = self.k_proj.bias.reshape(heads, head_dim)
-        b_v = self.v_proj.bias.reshape(heads, head_dim)
+        dtype = tokens.dtype
+        w_k = self.k_proj.weight.to(dtype).T.reshape(c, heads, head_dim)
+        w_v = self.v_proj.weight.to(dtype).T.reshape(c, heads, head_dim)
+        b_k = self.k_proj.bias.to(dtype).reshape(heads, head_dim)
+        b_v = self.v_proj.bias.to(dtype).reshape(heads, head_dim)
 
         q_tilde = torch.einsum("bhd,chd->bhc", q, w_k)  # [B, H, C]
         score_bias = torch.einsum("bhd,hd->bh", q, b_k)
@@ -115,7 +126,7 @@ class AttentionPool2d(nn.Module):
         attn = torch.softmax(scores + score_bias[..., None], dim=-1)
         pooled_tokens = torch.einsum("bhn,bnc->bhc", attn, tokens)
         pooled = torch.einsum("bhc,chd->bhd", pooled_tokens, w_v) + b_v
-        return self.c_proj(pooled.reshape(batch, c))
+        return linear(pooled.reshape(batch, c), self.c_proj)
 
 
 class ModifiedResNet(nn.Module):
@@ -162,9 +173,9 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, 3, H, W]`` normalized pixels -> ``[B, output_dim]``."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
+        x = F.relu(batch_norm(conv2d(x, self.conv2), self.bn2))
+        x = F.relu(batch_norm(conv2d(x, self.conv3), self.bn3))
         x = self.avgpool(x)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

@@ -28,10 +28,9 @@ from .text_transformer import build_text_transformer
 from .vit import build_vit
 
 M_RESNETS = ("m_resnet", "m_resnet50", "m_resnet101")
-# towers with BatchNorm: the port has no parity test of their batch
-# statistics in the train step yet
-BN_TOWERS = M_RESNETS + ("resnet18", "resnet34", "resnet50", "resnet101",
-                         "resnet152")
+# the torchvision BatchNorm towers, which the port does not build yet
+TORCHVISION_RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101",
+                       "resnet152")
 TEXT_TRANSFORMERS = ("transformer", "clip_transformer")
 
 
@@ -191,14 +190,15 @@ def build_model(cfg, device="cpu", dtype=torch.float32,
                 train: bool = False) -> TextReIDModel:
     """Seeded (``cfg.SEED``) model for ``cfg`` on ``device``, parameters in
     ``dtype``, towers running in ``compute_dtype`` (default ``dtype``).
-    ``train=True`` returns it in train mode and refuses the BatchNorm
-    towers, whose batch statistics no parity test covers yet, and the text
-    transformer, whose train step none covers."""
+    ``train=True`` returns it in train mode (the CLIP ModifiedResNet's
+    BatchNorm then runs on batch statistics, ``models/common.batch_norm``)
+    and refuses the torchvision BatchNorm towers, which are not ported, and
+    the text transformer, whose train step no parity test covers."""
     name = cfg.MODEL.VISUAL_MODEL
-    if train and name in BN_TOWERS:
+    if train and name in TORCHVISION_RESNETS:
         raise NotImplementedError(
-            f"training the BatchNorm tower {name!r} is not ported yet "
-            "(ROADMAP Queue A item 3: BN batch statistics in the train step)")
+            f"training the torchvision BatchNorm tower {name!r} is not "
+            "ported yet (ROADMAP Queue A item 10: torchvision ResNet)")
     if train and cfg.MODEL.TEXTUAL_MODEL in TEXT_TRANSFORMERS:
         raise NotImplementedError(
             "training the CLIP text transformer is not ported yet (ROADMAP "

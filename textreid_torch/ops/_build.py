@@ -40,6 +40,10 @@ SIGNATURES = {
     # stream
     "bigru_pooled_fwd_train": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _P),
+    # the streamed kernel behind the first for f32 (its bf16 is kept for
+    # comparison, off the main path): the same arguments
+    "bigru_pooled_fwd_streamed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P),
     # g, wt_f, wt_b, lengths, hp, gates, argmax, dxf, dxb, dhg, B, T, H,
     # is_bf16, stream
     "bigru_pooled_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -156,6 +160,10 @@ def library() -> ctypes.CDLL:
     lib.bigru_pooled_bwd_clusters.argtypes = [_I, _I, _I,
                                               ctypes.POINTER(_I)]
     lib.bigru_pooled_bwd_clusters.restype = ctypes.c_int
+    # B, H, out: rows a cluster and clusters of K1's bf16 forward, and the
+    # clusters of 32 and of 16 rows the card holds at once
+    lib.bigru_resident_plan.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
+    lib.bigru_resident_plan.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib

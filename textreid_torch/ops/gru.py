@@ -5,8 +5,12 @@ state.
 Counterpart of ``textreid_tpu/ops/gru_pallas.py``: :func:`bigru_pooled_scan`
 of ``bigru_pooled_scan`` there, :func:`gru_scan` of ``gru_scan_pallas``
 behind ``gru_scan_auto``.  On a CUDA tensor each launches its hand-written
-kernel (``csrc/bigru_pooled.cu``, ``csrc/gru_scan.cu``) through an autograd
-Function.  The fused scan's backward is a kernel too
+kernel through an autograd Function: the fused scan's forward in bf16 the
+W-resident kernel of ``csrc/bigru_resident.cu`` (W held in registers
+across a cluster of H / 32 blocks, the tensor cores' ``mma.sync``), in f32
+the streamed kernels of ``csrc/bigru_pooled.cu`` and
+``csrc/bigru_pooled_bwd.cu``; the one-direction scan ``csrc/gru_scan.cu``.
+The fused scan's backward is a kernel too
 (``csrc/bigru_pooled_bwd.cu``), fed by a training forward that keeps each
 step's state (the JAX package's custom VJP differentiates its XLA scan
 instead: it has no backward kernel); the one-direction scan's backward
@@ -30,6 +34,29 @@ from . import _build
 # The backward kernel's blocks run H / 2 threads, at most 256 so that two
 # fit an SM (csrc/bigru_pooled_bwd.cu); the training forward feeds only it
 MAX_TRAIN_HIDDEN = 512
+# The bf16 forward's cluster has H / 32 blocks, at most 16
+# (csrc/bigru_resident.cu)
+MAX_RESIDENT_HIDDEN = 512
+# rows a cluster of the bf16 forward takes, in order of preference
+RESIDENT_ROWS = (32, 16)
+
+
+def resident_plan(batch: int, capacity: dict) -> tuple:
+    """The bf16 forward's launch plan for ``batch`` rows, as
+    ``csrc/bigru_resident.cu:plan`` computes it: ``capacity`` maps rows a
+    cluster (32, 16) to the clusters of that size the card holds at once.
+    Each direction's rows go in groups of ``rows``, one (direction, group)
+    item a cluster at a time; the rows that take the fewest rounds of
+    ``rows``-row steps (waves x rows) win, 32 on a tie.  Returns ``(rows,
+    clusters, items, waves)``."""
+    best = None
+    for rows in RESIDENT_ROWS:
+        items = 2 * -(-batch // rows)
+        waves = -(-items // capacity[rows])
+        if best is None or waves * rows < best[0]:
+            best = (waves * rows, rows, min(items, capacity[rows]), items,
+                    waves)
+    return best[1:]
 
 
 def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
@@ -162,6 +189,10 @@ def _check_inputs(xf, xb, w_f, w_b, lengths, train=False) -> None:
     if train and hidden > MAX_TRAIN_HIDDEN:
         raise ValueError(f"bigru_pooled_bwd needs H <= {MAX_TRAIN_HIDDEN} "
                          f"(H / 2 threads a block); got H={hidden}")
+    if xf.dtype == torch.bfloat16 and hidden > MAX_RESIDENT_HIDDEN:
+        raise ValueError(f"bigru_pooled_fwd in bf16 needs H <= "
+                         f"{MAX_RESIDENT_HIDDEN} (H / 32 blocks a cluster); "
+                         f"got H={hidden}")
     for name, w in (("w_f", w_f), ("w_b", w_b)):
         if tuple(w.shape) != (hidden, three_h):
             raise ValueError(f"{name} must be [{hidden}, {three_h}]; got "
@@ -173,6 +204,9 @@ def _check_inputs(xf, xb, w_f, w_b, lengths, train=False) -> None:
         raise TypeError(f"bigru_pooled_fwd takes f32 or bf16, not {xf.dtype}")
     _check_on_card(xf, (("xf", xf), ("xb", xb), ("w_f", w_f), ("w_b", w_b)),
                    (("lengths", lengths),))
+    if any(t.data_ptr() % 16 for t in (xf, xb)):
+        # the bf16 kernel reads each thread's input gates as one vector
+        raise ValueError("xf and xb must start on a 16-byte boundary")
 
 
 def _check_on_card(ref, same_dtype, other) -> None:

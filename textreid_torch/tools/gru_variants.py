@@ -1,9 +1,10 @@
 """Time variants of the fused bi-GRU kernels (K1: forward, backward) side by
 side.
 
-A development aid for ``csrc/bigru_pooled.cu`` and
-``csrc/bigru_pooled_bwd.cu``: each variant is those sources (with
-``gru_cell.cuh`` beside them) after a few text substitutions, built by its
+A development aid for ``csrc/bigru_resident.cu`` (K1's bf16 forward),
+``csrc/bigru_pooled.cu`` and ``csrc/bigru_pooled_bwd.cu``: each variant is
+those sources (with ``gru_cell.cuh`` beside them) after a few text
+substitutions, built by its
 own ``nvcc`` into ``build/gru_variants/`` and loaded with ctypes beside the
 others, so that all are timed in one process on one card, in turns.
 ``--against DIR ...`` adds the ``csrc`` directory of another checkout (for
@@ -14,7 +15,9 @@ card:
     python -m textreid_torch.tools.gru_variants [--against DIR ...]
 
 Prints the card's name and power limit, each variant's registers, and per
-variant, bf16, H=512, T=105: the pooled-only forward at B=256 and B=64,
+variant, bf16, H=512, T=105 (the variants marked "wrong" compute garbage
+and are there for their times alone): the pooled-only forward at B=256, 128 and 64
+(and the streamed kernel it replaced, kept for comparison, at B=256),
 one dependent forward step (the slope from T=5 to T=105 at B=8), and the
 backward kernel alone at B=128 (the lesser of two rounds of CUDA events)
 with its largest error against ``bigru_pooled_bwd_plain`` on the same
@@ -36,11 +39,38 @@ import torch
 from ..ops import _build, gru
 
 OUT = _build.BUILD_DIR.parent / "gru_variants"
+_MMA = "                mma_bf16(acc[mt][j], a_{}, bw[i][j]);\n"
 VARIANTS = {  # name: [(text, replacement), ...]
     "as committed": [],
     "backward 2 threads a unit": [("constexpr int kBwdParts = 4;",
                                    "constexpr int kBwdParts = 2;")],
+    "forward in 32-row groups": [("const int options[2] = {32, 16};",
+                                  "const int options[2] = {32, 32};")],
+    # deliberately wrong, for the time alone: what a forward step spends on
+    # its products, on the lo half of them, and on its copies
+    "forward without products (wrong)": [(_MMA.format("hi"), ""),
+                                         (_MMA.format("lo"), "")],
+    "forward without lo products (wrong)": [(_MMA.format("lo"), "")],
+    "forward without copies (wrong)": [
+        ("mbar_arrive_expect(&bar[cur ^ 1], static_cast<uint32_t>(",
+         "mbar_arrive_expect(&bar[cur ^ 1], 0u * static_cast<uint32_t>("),
+        ("          copy_to_peer(mine,", "          if (0) copy_to_peer(mine,")],
 }
+
+
+def streamed_forward(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
+                     w_b: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """K1's pooled ``[B, 2H]`` (before the zero-participation rule) through
+    the streamed kernel of ``csrc/bigru_pooled.cu``, which the W-resident
+    kernel replaced for bf16 on the main path (f32 still runs it there).
+    For comparison only: it counts no launch, and the port does not call
+    it."""
+    batch, seq, three_h = xf.shape
+    out = torch.empty(batch, 2 * (three_h // 3), dtype=xf.dtype,
+                      device=xf.device)
+    gru._launch("bigru_pooled_fwd_streamed", xf, xb, w_f, w_b, lengths, out,
+                batch, seq, three_h // 3, int(xf.dtype == torch.bfloat16))
+    return out
 
 
 def _start_build(name: str, csrc: Path, edits) -> tuple:
@@ -48,7 +78,7 @@ def _start_build(name: str, csrc: Path, edits) -> tuple:
     folder.mkdir(parents=True, exist_ok=True)
     shutil.copy(csrc / "gru_cell.cuh", folder / "gru_cell.cuh")
     texts = {src.name: src.read_text() for src in sorted(
-        csrc.glob("bigru_pooled*.cu"))}
+        csrc.glob("bigru_*.cu"))}
     for old, new in edits:
         hits = [key for key, text in texts.items() if old in text]
         if not hits:
@@ -66,7 +96,7 @@ def _start_build(name: str, csrc: Path, edits) -> tuple:
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name in ("bigru_pooled_fwd", "bigru_pooled_fwd_train",
-                 "bigru_pooled_bwd"):
+                 "bigru_pooled_bwd", "bigru_pooled_fwd_streamed"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = list(_build.SIGNATURES[name])
     return lib
@@ -111,9 +141,19 @@ def _time(name: str, lib: ctypes.CDLL) -> None:
             512, 1, stream)
 
     line = [f"{name}:"]
-    for batch in (256, 64):
+    for batch in (256, 128, 64):
         call = fwd(_inputs(batch, 105))
         line.append(f"forward B={batch} {min(_ms(call), _ms(call)):.4f} ms")
+    if hasattr(lib, "bigru_pooled_fwd_streamed"):
+        args = _inputs(256, 105)
+        out = torch.empty(256, 1024, device="cuda", dtype=torch.bfloat16)
+
+        def streamed():
+            return lib.bigru_pooled_fwd_streamed(
+                *map(ptr, args), ptr(out), 256, 105, 512, 1, stream)
+
+        line.append(f"streamed forward B=256 "
+                    f"{min(_ms(streamed), _ms(streamed)):.4f} ms")
     slope = [min(_ms(c), _ms(c)) for c in (fwd(_inputs(8, 5)),
                                            fwd(_inputs(8, 105)))]
     line.append(f"step {(slope[1] - slope[0]) / 100 * 1e3:.2f} us")
@@ -170,8 +210,8 @@ def main(argv=None) -> int:
             print(f"{name}: nvcc failed\n{log[-2000:]}")
             continue
         for block in log.split("Compiling entry function")[1:]:
-            kernel = re.search(r"(bigru_pooled\w*?kernel)I13__nv_bfloat16",
-                               block)
+            kernel = re.search(
+                r"(bigru_\w*?kernel)(I13__nv_bfloat16|ILi\dELb\d)", block)
             used = re.search(r"Used (\d+) registers", block)
             if kernel and used:
                 print(f"{name}: {kernel.group(1)} bf16: {used.group(1)} "
