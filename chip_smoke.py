@@ -14,15 +14,19 @@ before the result line:
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it, with the tolerances stated below: K7, K8 and
    K9 (the int8 encoders' FFN, matmul-requant and requant kernels) at the
-   ViT-B/16 gallery batch (24,704 rows, K=768, N=3072), the CLIP text query
-   bucket (25,600 rows, K=512, N=2048) and 37 rows, f32 and bf16; K1 and K2 at
+   ViT-B/16 gallery batch (24,704 rows, K=768, N=3072), a CLIP text batch
+   (25,600 rows, K=512, N=2048) and 37 rows (K7 also 100 rows and the
+   ViT's FFN at 37 and 100, and against the 16-row kernel it replaced, bit
+   for bit), f32 and bf16; K1 and K2 at
    the serving shapes; K3 (the one-direction GRU scan) at T=105, H=512 and
-   B=256, 128 and a ragged 37, with a non-zero h0 and both scan orders; K4
+   B=1, 37, 128 and 256 in bf16 (the W-resident kernel, its launch plan
+   held against ``ops/gru.py:resident_plan``) and B=256 and 37 in f32 (the
+   streamed kernel), with a non-zero h0 and both scan orders; K4
    (the int8 streaming top-k) at Q=256, D=256, G=3,074 and 98,304, k=10
    and 64, with duplicated rows; K2 also with its bf16 compute option at
    G=3,074 and 98,304; K5 and K6 in bf16 (tensor cores) and f32 (FP32
    cores) at the ViT-B/16 shape (B=128, S=193, W=768, 12 heads), the causal
-   CLIP-text shapes (B=128, S=77 and the served B=256, S=100; W=512, 8
+   CLIP-text shapes (B=128, S=77 and B=256, S=100; W=512, 8
    heads), S=288 causal and not, S=257 and a ragged S=45 at head_dim 32,
    one token and one sample; K1's forwards (bf16: the W-resident kernel,
    f32: the streamed one), pooled-only and training, at B=1, 37, 128 and
@@ -41,7 +45,13 @@ before the result line:
    launch counters are zeroed just before and read just after; the same
    queries through the plain versions on the card must agree.
 4. Timings with CUDA events (kernels) or the host clock around work that
-   ends in a synchronize (gallery encode, /search latency).
+   ends in a synchronize (gallery encode, /search latency), each kernel in
+   turns with its plain version; K1's and K3's bf16 W-resident kernels
+   also in turns with the streamed kernels they replaced (B=256, 128 and,
+   for K3, 1; and one dependent step), and K7's cluster tile with the
+   16-row kernel it replaced at both towers' FFNs.  One query through the
+   index launches K1 (and K3 twice a lower layer) on one row, and agrees
+   with the plain path.
 5. The evaluation slice through ``textreid_torch.test_net.main`` at the
    full width of ``configs/cuhkpedes/moco_gru2l_freeze_cliprn50_ls_bs128_
    2048.yaml`` (CLIP RN50 at 384x128, 2-layer bi-GRU H=512, T=105, bf16
@@ -51,9 +61,10 @@ before the result line:
    grid; the same run through the plain versions to the same similarity
    matrix and grid.
 6. Int8-gallery serving of the same model: ``build_index --quantize``,
-   ``serve --quantize``, ``/search`` and ``/search_image``: K3, K1 and K4
-   launched, K2 not; replies equal to the plain path on the card, and each
-   returned id's float score within the int8 error of its quantized one.
+   ``serve --quantize``, ``/search`` and ``/search_image``: K3 twice and K1
+   once a ``/search``, K4 launched, K2 not; replies equal to the plain path
+   on the card, and each returned id's float score within the int8 error
+   of its quantized one.
    Then ``/search`` latency from the int8 gallery at 3,074 and 98,304 rows,
    and the index's search time from the float and the int8 gallery.
 7. Int8-encoder serving of the full-CLIP model at the full width of
@@ -445,7 +456,7 @@ def attn_inputs(batch, seq, width, dtype, seed):
 ATTN_CASES = [  # (name, batch, seq, width, heads, causal)
     ("ViT-B/16", 128, 193, 768, 12, False),
     ("CLIP text", 128, 77, 512, 8, True),
-    ("CLIP text, served bucket", 256, 100, 512, 8, True),
+    ("CLIP text, a batch of 256", 256, 100, 512, 8, True),
     ("longest S", 16, 288, 768, 12, False),
     ("longest S, causal", 16, 288, 768, 12, True),
     ("ViT-L/14 length, head_dim 32", 8, 257, 256, 8, False),
@@ -630,30 +641,60 @@ def k3_inputs(batch, dtype, seed, seq=105, hidden=512):
     return x, (w / math.sqrt(hidden)).to(dtype), h0.to(dtype)
 
 
+def k3_plan(batch):
+    """K3's bf16 launch plan for ``batch`` rows, from the library and from
+    ``ops/gru.py:resident_plan`` with one direction: (rows, clusters,
+    capacity), failing if they differ."""
+    import ctypes
+
+    from textreid_torch.ops import _build, gru
+
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().gru_scan_resident_plan(
+        batch, 512, *map(ctypes.byref, out)), "gru_scan_resident_plan")
+    rows, clusters, cap32, cap16 = (v.value for v in out)
+    capacity = {32: cap32, 16: cap16}
+    want = gru.resident_plan(batch, capacity, directions=1)
+    if (rows, clusters) != want[:2]:
+        fail(f"K3 bf16 plan at B={batch}: the library's {(rows, clusters)}, "
+             f"resident_plan's {want[:2]}")
+    return rows, clusters, capacity
+
+
 def check_k3():
-    """K3 against its plain version (f32 and bf16; B=256, 128 and a ragged
-    B; non-zero h0; both scan orders), then the Function's gradient against
-    autograd through the plain version."""
+    """K3 against its plain version: bf16 (the W-resident kernel) at B=1,
+    37, 128 and 256 in both scan orders, f32 (the streamed kernel) at B=256
+    and a ragged B, all with a non-zero h0; the bf16 plan against the
+    library's; then the Function's gradient against autograd through the
+    plain version."""
     import torch
     from textreid_torch.ops import gru
 
     worst = {}
-    for batch, reverse in ((256, False), (128, True), (37, False)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args = k3_inputs(batch, dtype, seed=batch)
-            got = gru.gru_scan(*args, reverse=reverse)
-            want = gru.gru_scan_plain(*args, reverse=reverse)
-            torch.cuda.synchronize()
-            name = str(dtype).split(".")[1]
-            if got.shape != want.shape or got.dtype != want.dtype:
-                fail(f"K3 B={batch} {name}: {got.shape}/{got.dtype} vs "
-                     f"{want.shape}/{want.dtype}")
-            err = (got.float() - want.float()).abs().max().item()
-            log(f"K3 gru_scan_fwd B={batch} T=105 H=512 reverse={reverse} "
-                f"{name}: max_abs_err={err:.3e} (tol {K1_TOL[name]:.0e})")
-            if not math.isfinite(err) or err > K1_TOL[name]:
-                fail(f"K3 B={batch} {name} disagrees with its plain version")
-            worst[name] = max(worst.get(name, 0.0), err)
+    cases = [(batch, reverse, torch.bfloat16) for batch in (1, 37, 128, 256)
+             for reverse in (False, True)]
+    cases += [(256, False, torch.float32), (37, True, torch.float32)]
+    for batch, reverse, dtype in cases:
+        name = str(dtype).split(".")[1]
+        entry = gru.scan_kernel(dtype, 512)
+        if dtype == torch.bfloat16 and not reverse:
+            rows, clusters, capacity = k3_plan(batch)
+            log(f"K3 bf16 plan B={batch}: {rows} rows a cluster of 16 "
+                f"blocks, {clusters} clusters (the card holds "
+                f"{capacity[32]} of 32 rows, {capacity[16]} of 16 at once)")
+        args = k3_inputs(batch, dtype, seed=batch)
+        got = gru.gru_scan(*args, reverse=reverse)
+        want = gru.gru_scan_plain(*args, reverse=reverse)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"K3 B={batch} {name}: {got.shape}/{got.dtype} vs "
+                 f"{want.shape}/{want.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"K3 {entry} B={batch} T=105 H=512 reverse={reverse} {name}: "
+            f"max_abs_err={err:.3e} (tol {K1_TOL[name]:.0e})")
+        if not math.isfinite(err) or err > K1_TOL[name]:
+            fail(f"K3 B={batch} {name} disagrees with its plain version")
+        worst[name] = max(worst.get(name, 0.0), err)
 
     args = k3_inputs(128, torch.float32, seed=5)
     g = torch.randn(128, 105, 512, device="cuda")
@@ -740,8 +781,8 @@ def check_k4():
 
 # -- K7-K9: the int8 encoders' kernels ------------------------------------------
 
-# (name, rows, K, N): the ViT-B/16 gallery batch (128 x 193 tokens), the CLIP
-# text query bucket (256 x 100 tokens), and a ragged row count
+# (name, rows, K, N): the ViT-B/16 gallery batch (128 x 193 tokens), a CLIP
+# text batch (256 x 100 tokens), and a ragged row count
 INT8_SHAPES = [("ViT-B/16", 24704, 768, 3072), ("CLIP text", 25600, 512, 2048),
                ("ragged", 37, 512, 2048)]
 
@@ -834,22 +875,47 @@ def check_k8():
     return worst
 
 
+# K7 also at 100 rows (one query of the CLIP text tower) and the ViT's FFN
+# at 37 and 100 rows
+K7_SHAPES = INT8_SHAPES + [("one query", 100, 512, 2048),
+                           ("ragged ViT", 37, 768, 3072),
+                           ("ragged ViT", 100, 768, 3072)]
+
+
 def check_k7():
-    """K7 against its plain version: the FFN of both towers and 37 rows, f32
-    and bf16 output.  Returns the worst absolute error."""
+    """K7 against its plain version: the FFN of both towers at their
+    batches, 37 and 100 rows, f32 and bf16 output; and against the 16-row
+    kernel it replaced, which must give the same output bit for bit (the
+    same int8 middle and the same integer sums); its cluster tile from the
+    library against ``ops/int8_mm.py:ffn_plan``.  Returns the worst
+    absolute error."""
+    import ctypes
+
     import torch
-    from textreid_torch.ops import int8_mm
+    from textreid_torch.ops import _build, int8_mm
+    from textreid_torch.tools.int8_variants import ffn_rows16
 
     worst = 0.0
-    for name, rows, k, n in INT8_SHAPES:
+    for name, rows, k, n in K7_SHAPES:
         site = int8_site(rows, k, n, seed=rows + 1, m_out=k)
         args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
                                       "s_next", "w2", "s_w2", "b2")]
         _, r_mid = int8_mm.int8_matmul_requant_plain(*args[:6], op="gelu")
+        blocks, tile = int8_mm.ffn_plan(k, n, k)
+        lib_plan = [ctypes.c_int(0), ctypes.c_int(0)]
+        _build.library().int8_ffn_plan(k, n, k, *map(ctypes.byref, lib_plan))
+        if (blocks, tile) != tuple(v.value for v in lib_plan):
+            fail(f"K7 at K={k} N={n}: ffn_plan's {(blocks, tile)}, the "
+                 f"library's {tuple(v.value for v in lib_plan)}")
         for dtype in (torch.bfloat16, torch.float32):
             got = int8_mm.fused_int8_ffn(*args, out_dtype=dtype)
             want = int8_mm.int8_ffn_plain(*args, out_dtype=dtype)
+            old = ffn_rows16(*args, out_dtype=dtype)
             torch.cuda.synchronize()
+            if not torch.equal(got, old):
+                fail(f"K7 {name} [{rows}, {k}]: the cluster tile and the "
+                     f"16-row kernel differ by "
+                     f"{(got.float() - old.float()).abs().max().item():.3e}")
             dname = str(dtype).split(".")[1]
             if got.shape != want.shape or got.dtype != want.dtype:
                 fail(f"K7 {name} {dname}: {got.shape}/{got.dtype} vs "
@@ -861,7 +927,9 @@ def check_k7():
             err = diff.max().item()
             over = (diff / allowed.clamp_min(1e-30)).max().item()
             moved = (diff > 0).float().mean().item()
-            log(f"K7 int8_ffn {name} [{rows}, {k}] -> {n} -> {k} {dname}: "
+            log(f"K7 int8_ffn {name} [{rows}, {k}] -> {n} -> {k} {dname} "
+                f"(a cluster of {blocks} blocks, {tile}-row tiles; equal to "
+                f"the 16-row kernel): "
                 f"max_abs_err={err:.3e}, {over:.3f} of the allowance of "
                 f"{K7_FLIPS} one-step flips of the middle a row, share of "
                 f"outputs that differ {moved:.2e}")
@@ -876,6 +944,7 @@ def time_int8_kernels():
     out), kernel and plain version interleaved."""
     import torch
     from textreid_torch.ops import int8_mm, requant
+    from textreid_torch.tools.int8_variants import ffn_rows16
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -900,12 +969,19 @@ def time_int8_kernels():
             lambda: int8_mm.fused_int8_ffn(*args, out_dtype=torch.bfloat16),
             lambda: int8_mm.int8_ffn_plain(*args, out_dtype=torch.bfloat16),
             5, 5)
+        # the cluster tile against the 16-row kernel it replaced, in turns
+        out[("K7 vs rows16", name)] = interleaved_ms(
+            lambda: int8_mm.fused_int8_ffn(*args, out_dtype=torch.bfloat16),
+            lambda: ffn_rows16(*args, out_dtype=torch.bfloat16), 10, 10)
         # the library's product alone, for scale: not the same function
         lib_ms = cuda_ms(lambda: int8_mm.int_matmul(args[0], args[1]), 10)
         out[("int_mm", name)] = lib_ms
         for kname in ("K8", "K7"):
             log("time %s %s rows=%d K=%d N=%d: kernel %.3f ms, plain %.3f ms"
                 % (kname, name, rows, k, n, *out[(kname, name)]))
+        log("time K7 %s rows=%d bf16: the cluster tile %.3f ms, the 16-row "
+            "kernel it replaced %.3f ms (in turns)" % (
+                name, rows, *out[("K7 vs rows16", name)]))
         log(f"time torch._int_mm alone [{rows}, {k}] x [{k}, {n}] (the "
             f"product without the epilogue): {lib_ms:.3f} ms")
     return out
@@ -1151,6 +1227,14 @@ def check_slice(service, text, images, counts):
             fail(f"the int8 path launched {name} {n} times")
         if name not in idle and n < 1:
             fail(f"the main path never launched {name}")
+    # a /search encodes once (and serve's warmup once): K1 once, K3 twice a
+    # lower layer
+    layers = index.model.textual_model.num_layers
+    want = {"bigru_pooled_fwd": len(text) + 1,
+            "gru_scan_fwd": 2 * (layers - 1) * (len(text) + 1)}
+    got = {name: counts.get(name, 0) for name in want}
+    if got != want:
+        fail(f"{len(text)} /search requests launched {got}, expected {want}")
 
     # a 2-layer text tower in bf16 feeds layer 0's rounded states on: where
     # kernel and plain version round one of them apart, the query moves
@@ -1171,8 +1255,45 @@ def check_slice(service, text, images, counts):
             worst, swaps = max(worst, e), swaps + w
     log(f"slice vs plain path on the card: max score diff {worst:.3e} "
         f"(tol {tol:.0e}), meta swaps within ties {swaps}")
+    ids, lens = text[0][:2]
+    check_one_query(index, ids[:1], lens[:1], tol)
     if index.quantize:
         check_int8_error(index, text)
+
+
+def check_one_query(index, ids, lens, tol):
+    """One query through ``index.search``: the text tower's kernels launched
+    on one row (K1 once, K3 twice a lower layer), and the result the plain
+    path's on the same card."""
+    import textreid_torch.models.gru as gru_model
+
+    rows = []
+
+    def spy(fn):
+        def counted(*args, **kwargs):
+            rows.append(args[0].shape[0])
+            return fn(*args, **kwargs)
+        return counted
+
+    layers = index.model.textual_model.num_layers
+    zero_counts()
+    with mock.patch.object(gru_model, "bigru_pooled_scan",
+                           spy(gru_model.bigru_pooled_scan)), \
+            mock.patch.object(gru_model, "gru_scan", spy(gru_model.gru_scan)):
+        scores, meta = index.search(ids, lens, k=10)
+    counts = read_counts(("gru_scan_fwd", "bigru_pooled_fwd"))
+    want = {"gru_scan_fwd": 2 * (layers - 1), "bigru_pooled_fwd": 1}
+    if counts != want or set(rows) != {1}:
+        fail(f"one query: launches {counts} on {rows} rows, expected {want} "
+             f"on 1 row each")
+    with plain_kernels():
+        plain_scores, plain_meta = index.search(ids, lens, k=10)
+        emb = index.encode_queries(ids, lens)
+    err, _ = agree_with_plain({"scores": scores.tolist(),
+                               "meta": meta.tolist()}, plain_scores,
+                              plain_meta, emb, index, "one query", tol)
+    log(f"one query: {counts} launched on 1 row each; scores within "
+        f"{err:.3e} of the plain path (tol {tol:.0e})")
 
 
 def check_int8_error(index, text):
@@ -1497,12 +1618,12 @@ def time_int8_encoders(service, base, built):
 def time_kernels():
     import torch
     from textreid_torch.ops import gru, ranking
-    from textreid_torch.tools.gru_variants import streamed_forward
+    from textreid_torch.tools.gru_variants import streamed_forward, streamed_scan
 
     out = {}
     # K1's bf16 forward: the W-resident kernel against the streamed one it
     # replaced, interleaved (streamed, resident, resident, streamed)
-    for batch in (256, 128):  # the search bucket; the train step's batch
+    for batch in (256, 128):  # the timed row's batch; the train step's
         args = k1_inputs(batch, torch.bfloat16, seed=1)
         with torch.no_grad():
             new_ms, old_ms = interleaved_ms(
@@ -1517,8 +1638,8 @@ def time_kernels():
         log(f"time K1 B={batch} T=105 H=512 bfloat16: W-resident kernel "
             f"{new_ms:.3f} ms, the streamed kernel it replaced {old_ms:.3f} "
             f"ms (its max_abs_err {old_err:.3e})")
-    for batch in (256, 128, 64):  # the search bucket; the train step's
-        # batch; encode_queries' chunk
+    for batch in (256, 128, 64):  # the timed row's batch; the train
+        # step's; encode_queries' chunk
         for dtype in (torch.bfloat16, torch.float32):
             args = k1_inputs(batch, dtype, seed=1)
             ms, plain_ms = interleaved_ms(
@@ -1530,7 +1651,19 @@ def time_kernels():
             out[("K1", batch, name)] = (ms, plain_ms)
             log(f"time K1 B={batch} T=105 H=512 {name}: kernel {ms:.3f} ms, "
                 f"plain {plain_ms:.3f} ms")
-    for batch in (256, 128):  # the search bucket; the eval batch
+    # K3's bf16 scan: the W-resident kernel against the streamed one it
+    # replaced, in turns
+    for batch in (256, 128, 1):  # the timed row's batch; the eval batch;
+        # one query
+        args = k3_inputs(batch, torch.bfloat16, seed=1)
+        new_ms, old_ms = interleaved_ms(lambda: gru.gru_scan(*args),
+                                        lambda: streamed_scan(*args), 10, 10)
+        out[("K3 vs streamed", batch)] = (new_ms, old_ms)
+        log(f"time K3 B={batch} T=105 H=512 bfloat16: W-resident kernel "
+            f"{new_ms:.3f} ms, the streamed kernel it replaced {old_ms:.3f} "
+            f"ms")
+    for batch in (256, 128, 1):  # the timed row's batch; the eval batch;
+        # one query
         for dtype in (torch.bfloat16, torch.float32):
             args = k3_inputs(batch, dtype, seed=1)
             ms, plain_ms = interleaved_ms(
@@ -1544,7 +1677,7 @@ def time_kernels():
     # cluster's worth of rows (B=8), where nothing but the chain waits; from
     # T=55, where even a 2 us step keeps a call longer than the host takes
     # to issue it (from T=5 the host would set the short call's time)
-    for kname in ("K1", "K1 streamed", "K1 bwd", "K3"):
+    for kname in ("K1", "K1 streamed", "K1 bwd", "K3", "K3 streamed"):
         ms_t = {}
         for seq in (55, 105):
             if kname == "K1":
@@ -1560,9 +1693,12 @@ def time_kernels():
                 g = torch.ones(8, 1024, device="cuda", dtype=torch.bfloat16)
                 ms_t[seq] = cuda_ms(lambda: gru.bigru_pooled_bwd(
                     g, args[2], args[3], args[4], *saved), 20)
-            else:
+            elif kname == "K3":
                 args = k3_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: gru.gru_scan(*args), 20)
+            else:
+                args = k3_inputs(8, torch.bfloat16, seed=1, seq=seq)
+                ms_t[seq] = cuda_ms(lambda: streamed_scan(*args), 20)
         step_us = (ms_t[105] - ms_t[55]) / 50 * 1e3
         out[(kname, "step_us")] = step_us
         log(f"time {kname} one dependent step (B=8, bf16, slope of T=55 -> "
@@ -1595,7 +1731,7 @@ def kernel_bounds(bwd_steps):
     output written once, against the operations of the function.
     ``bwd_steps``: the (row, step) pairs with ``t < len`` of K1's timed
     backward inputs, the steps whose gradient its data needs."""
-    b, t, h = 256, 105, 512  # K1, K3: the /search bucket, bf16
+    b, t, h = 256, 105, 512  # K1, K3: a batch of 256, bf16
     tb = 128  # K1's backward: the train step's batch, bf16
     q, d, g, k = 256, 256, 3074, 10  # K2, K4: the 3,074-row gallery
     ab, s, w, heads = 128, 193, 768, 12  # K5, K6: ViT-B/16 at 384x128, bf16
@@ -1750,7 +1886,7 @@ def time_int8_serving(service, base):
                 if i >= 5:
                     times.append((time.perf_counter() - t0) * 1000)
             out[("search", rows, quantize)] = float(np.median(times))
-        log(f"time index.search (1 query in the 256 bucket, k=10, {rows} "
+        log(f"time index.search (1 query, k=10, {rows} "
             f"rows, 2-layer GRU model): float gallery "
             f"{out[('search', rows, False)]:.3f} ms, int8 gallery "
             f"{out[('search', rows, True)]:.3f} ms (median of 20)")
@@ -2558,6 +2694,18 @@ def main():
         f"{enc_times[('p50', 'int8')]:.3f} ms (float text tower "
         f"{enc_times[('p50', 'float')]:.3f}); minimum cosine to the float "
         f"towers {cosines[0]:.5f} (ViT), {cosines[1]:.5f} (text) ({card})")
+    k3 = {b: times[("K3 vs streamed", b)] for b in (256, 128, 1)}
+    k7 = {name: int8_kernel_times[("K7 vs rows16", name)]
+          for name in ("CLIP text", "ViT-B/16")}
+    log(f"summary, the kernels redesigned for this card: K3 bf16 T=105 "
+        f"H=512 W-resident (the streamed kernel in the same run) B=256 "
+        f"{k3[256][0]:.3f} ms ({k3[256][1]:.3f}), B=128 {k3[128][0]:.3f} "
+        f"({k3[128][1]:.3f}), B=1 {k3[1][0]:.3f} ({k3[1][1]:.3f}), a step "
+        f"{times[('K3', 'step_us')]:.2f} us ({times[('K3 streamed', 'step_us')]:.2f}); "
+        f"K7 bf16 on the cluster tile (the 16-row kernel) CLIP text "
+        f"{k7['CLIP text'][0]:.3f} ms ({k7['CLIP text'][1]:.3f}), ViT-B/16 "
+        f"{k7['ViT-B/16'][0]:.3f} ({k7['ViT-B/16'][1]:.3f}); K1 bf16 B=256 "
+        f"{times[('K1', 256, 'bfloat16')][0]:.3f} ms ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; "
         + "; ".join(f"training {name} {launched}"
@@ -2578,7 +2726,7 @@ def main():
         ("bigru_pooled_bwd", "bigru_pooled_bwd.cu", "gru_pallas.py:421",
          k1_bwd_err["bfloat16"], (k1_times[("bwd", "bfloat16")],
                                   k1_times[("bwd plain", "bfloat16")]), None),
-        ("gru_scan_fwd", "gru_scan.cu", "gru_pallas.py:107",
+        ("gru_scan_fwd", "gru_scan_resident.cu", "gru_pallas.py:107",
          k3_err["bfloat16"], times[("K3", 256, "bfloat16")], None),
         ("topk_similarity_f32", "topk_similarity.cu", "ranking_pallas.py:211",
          k2_err, times[("K2", 3074)], None),

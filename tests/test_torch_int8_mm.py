@@ -137,13 +137,84 @@ def test_cpu_tensors_launch_nothing():
 
 
 def test_shared_memory_of_the_towers_fits_the_card():
-    """The kernels' 16-row tile at both towers' FFN shapes."""
-    assert int8_mm.shared_bytes(768, 3072) <= int8_mm.SMEM_MAX
-    assert int8_mm.shared_bytes(512, 2048) <= int8_mm.SMEM_MAX
+    """K7's cluster tile at both towers' FFN shapes: a 64-row tile over 4
+    and 6 blocks within the card's 227 KB (the f32 middle slice, the int8
+    input, the consumer scales and the row statistics; the s32 partials and
+    the int8 middle reuse the first two); 32 rows where 64 do not fit; a
+    refusal where no tile fits and on a shape the split does not take.
+    K8 keeps its 16-row tile."""
+    assert int8_mm.ffn_shared_bytes(512, 2048, 512, 64) == 174848
+    assert int8_mm.ffn_shared_bytes(768, 3072, 768, 64) == 191232
+    assert int8_mm.ffn_plan(512, 2048, 512) == (4, 64)
+    assert int8_mm.ffn_plan(768, 3072, 768) == (6, 64)
+    assert int8_mm.ffn_shared_bytes(2048, 2048, 512, 64) > int8_mm.SMEM_MAX
+    assert int8_mm.ffn_plan(2048, 2048, 512) == (4, 32)
+    assert int8_mm.ffn_plan(64, 64, 64) == (1, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        int8_mm._check_dims("fused_int8_ffn", 4096, 4096, 512)
+        int8_mm.ffn_plan(16384, 2048, 512)
     with pytest.raises(ValueError, match="K % 64"):
-        int8_mm._check_dims("fused_int8_ffn", 32, 128, 32)
+        int8_mm.ffn_plan(32, 128, 32)
+    with pytest.raises(ValueError, match="M / C"):
+        int8_mm.ffn_plan(512, 2048, 1024)  # 256 output columns a block
+    assert int8_mm.shared_bytes(768, 3072) <= int8_mm.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        int8_mm._check_dims("fused_int8_matmul_requant", 4096, 4096)
+
+
+def _cluster_ffn(xq, w1, s_w1, b1, r_row, s_mid, w2, s_w2, b2, blocks, rng,
+                 out_dtype):
+    """K7 as the cluster kernel decomposes it, in numpy (integers) and f32
+    elementwise torch steps: block c's middle columns from its slice of w1,
+    its partial row maxima of |xn| merged in a shuffled order, its slice
+    rounded with the merged row scale, and the exact s32 partial sums
+    ``q[:, slice c] @ w2[slice c, :]`` added up in a shuffled order."""
+    from textreid_torch.ops.requant import quick_gelu
+
+    n = w1.shape[1]
+    s = n // blocks
+    cols = [slice(c * s, (c + 1) * s) for c in range(blocks)]
+    xn, part_max = [], []
+    for c in cols:
+        acc = xq.astype(np.int64) @ w1[:, c].astype(np.int64)
+        y = torch.from_numpy(acc.astype(np.int32)).float() * torch.from_numpy(
+            s_w1[c].copy())
+        y = y * torch.from_numpy(r_row) + torch.from_numpy(b1[c].copy())
+        x_c = quick_gelu(y) * torch.reciprocal(torch.from_numpy(
+            s_mid[c].copy()))
+        xn.append(x_c)
+        part_max.append(x_c.abs().amax(dim=-1, keepdim=True))
+    order = rng.permutation(blocks)
+    m = part_max[order[0]]
+    for c in order[1:]:
+        m = torch.maximum(m, part_max[c])
+    r = m.clamp_min(1e-6) * (1.0 / 127.0)
+    total = np.zeros((xq.shape[0], w2.shape[1]), np.int64)
+    for c in rng.permutation(blocks):
+        v = xn[c] * torch.reciprocal(r)
+        v = v + torch.where(v >= 0, 0.5, -0.5)
+        q = v.clamp(-127.0, 127.0).to(torch.int8).numpy()
+        total += q.astype(np.int64) @ w2[cols[c], :].astype(np.int64)
+    z = torch.from_numpy(total.astype(np.int32)).float() * torch.from_numpy(
+        s_w2)
+    z = z * r
+    return z.to(out_dtype) + torch.from_numpy(b2).to(out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(37, 2048), (130, 2048), (37, 3072),
+                                    (130, 3072)])
+def test_cluster_decomposition_equals_the_plain_ffn(rows, n, out_dtype):
+    """The cluster kernel's arithmetic (C = N / 512 blocks, the middle
+    split by columns, the row max exchanged, the second product summed by
+    slices) equals ``int8_ffn_plain`` bit for bit: a max and integer sums
+    are exact in any order."""
+    k = n // 4
+    site = _ffn_site(rows, k, n, seed=rows + n)
+    blocks = n // 512
+    got = _cluster_ffn(*site, blocks, np.random.RandomState(rows), out_dtype)
+    want = int8_mm.int8_ffn_plain(*_torch(site), out_dtype=out_dtype)
+    assert int8_mm.ffn_plan(k, n, k) == (blocks, 64)
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("value,default,want", [

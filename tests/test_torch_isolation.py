@@ -161,10 +161,12 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", copy)
     before = _build.source_hash()
     assert before == _build.source_hash()
-    with open(copy / "gru_cell.cuh", "a") as f:
-        f.write("// edited\n")
-    assert _build.source_hash() != before
+    for header in ("gru_cell.cuh", "gru_resident.cuh"):
+        with open(copy / header, "a") as f:
+            f.write("// edited\n")
+        assert _build.source_hash() != before
+        before = _build.source_hash()
     assert sorted(p.name for p in _build._sources()) == [
         "bigru_pooled.cu", "bigru_pooled_bwd.cu", "bigru_resident.cu",
-        "fused_attention.cu", "gru_scan.cu",
+        "fused_attention.cu", "gru_scan.cu", "gru_scan_resident.cu",
         "int8_mm.cu", "requant.cu", "topk_similarity.cu"]

@@ -114,24 +114,53 @@ def test_bigru_kernel_matches_plain(cuda, dtype, tol, batch, seq, hidden):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("batch,capacity,want", [
-    # one wave either way: 16-row steps are the cheaper
-    (1, {32: 8, 16: 8}, (16, 2, 2, 1)),
-    (37, {32: 8, 16: 8}, (16, 6, 6, 1)),
+@pytest.mark.parametrize("batch,capacity,directions,want", [
+    # K1, both directions.  One wave either way: 16-row steps are the cheaper
+    (1, {32: 8, 16: 8}, 2, (16, 2, 2, 1)),
+    (37, {32: 8, 16: 8}, 2, (16, 6, 6, 1)),
     # 1 wave of 32 rows against 2 of 16: a tie goes to 32
-    (128, {32: 8, 16: 8}, (32, 8, 8, 1)),
-    (256, {32: 8, 16: 8}, (32, 8, 16, 2)),
-    (100, {32: 4, 16: 4}, (32, 4, 8, 2)),
+    (128, {32: 8, 16: 8}, 2, (32, 8, 8, 1)),
+    (256, {32: 8, 16: 8}, 2, (32, 8, 16, 2)),
+    (100, {32: 4, 16: 4}, 2, (32, 4, 8, 2)),
     # seven clusters of 16 blocks: 3 waves of 16 rows (48 row-steps) beat
     # 2 of 32 (64); at B=256, 5 of 16 (80) beat 3 of 32 (96)
-    (128, {32: 7, 16: 7}, (16, 7, 16, 3)),
-    (256, {32: 7, 16: 7}, (16, 7, 32, 5)),
+    (1, {32: 7, 16: 7}, 2, (16, 2, 2, 1)),
+    (37, {32: 7, 16: 7}, 2, (16, 6, 6, 1)),
+    (128, {32: 7, 16: 7}, 2, (16, 7, 16, 3)),
+    (256, {32: 7, 16: 7}, 2, (16, 7, 32, 5)),
+    # K3, one direction
+    (1, {32: 8, 16: 8}, 1, (16, 1, 1, 1)),
+    (37, {32: 8, 16: 8}, 1, (16, 3, 3, 1)),
+    (128, {32: 8, 16: 8}, 1, (16, 8, 8, 1)),
+    # 1 wave of 32 against 2 of 16: the tie to 32
+    (256, {32: 8, 16: 8}, 1, (32, 8, 8, 1)),
+    (1, {32: 7, 16: 7}, 1, (16, 1, 1, 1)),
+    (37, {32: 7, 16: 7}, 1, (16, 3, 3, 1)),
+    # 4 items of 32 in 1 wave against 8 of 16 in 2: a tie, to 32
+    (128, {32: 7, 16: 7}, 1, (32, 4, 4, 1)),
+    # 16 items of 16 in 3 waves (48) beat 8 of 32 in 2 (64)
+    (256, {32: 7, 16: 7}, 1, (16, 7, 16, 3)),
 ])
-def test_resident_plan(batch, capacity, want):
-    """The bf16 forward's row-group plan (``csrc/bigru_resident.cu:plan``
-    computes the same; chip_smoke.py holds the two together on the card):
-    (rows a cluster, clusters, items, waves)."""
-    assert gru.resident_plan(batch, capacity) == want
+def test_resident_plan(batch, capacity, directions, want):
+    """The W-resident kernels' row-group plan (``csrc/gru_resident.cuh:
+    plan_rows`` computes the same; chip_smoke.py holds the two together on
+    the card): (rows a cluster, clusters, items, waves), for K1's two
+    directions a launch and K3's one."""
+    assert gru.resident_plan(batch, capacity, directions) == want
+
+
+@pytest.mark.parametrize("dtype,hidden,want", [
+    (torch.bfloat16, 512, "gru_scan_fwd_resident"),
+    (torch.bfloat16, 32, "gru_scan_fwd_resident"),
+    (torch.bfloat16, 544, "gru_scan_fwd"),   # a cluster past 16 blocks
+    (torch.bfloat16, 2048, "gru_scan_fwd"),
+    (torch.bfloat16, 48, "gru_scan_fwd"),    # not whole 32-unit blocks
+    (torch.float32, 512, "gru_scan_fwd"),    # W's f32 slice: no registers
+    (torch.float32, 64, "gru_scan_fwd"),
+])
+def test_gru_scan_dispatch_rule(dtype, hidden, want):
+    """K3's choice of kernel is a function of the dtype and H alone."""
+    assert gru.scan_kernel(dtype, hidden) == want
 
 
 def test_bf16_forward_refuses_a_hidden_size_past_its_cluster():
@@ -254,6 +283,58 @@ def test_gru_scan_kernel_matches_plain(cuda, dtype, tol, batch, seq, hidden,
     assert gru.gru_scan.launches == before + 1
     assert got.dtype == dtype and got.shape == (batch, seq, hidden)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _k3_args(batch, hidden, dtype, device, seed, seq=105):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, seq, 3 * hidden, generator=g) * 0.6
+    w = (torch.rand(hidden, 3 * hidden, generator=g) * 2 - 1) / math.sqrt(
+        hidden)
+    h0 = torch.randn(batch, hidden, generator=g) * 0.5
+    return [t.to(device=device, dtype=dtype) for t in (x, w, h0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch", [1, 37, 128, 256])
+def test_resident_gru_scan_matches_plain(cuda, batch, reverse):
+    """K3's W-resident bf16 kernel at T=105, H=512 with a non-zero h0 in
+    both orders, within 8e-3 of the plain scan (f32 inside, one bf16
+    rounding of each stored h_t: 2 ulp below 1.0), one launch; its plan is
+    the library's."""
+    import ctypes
+
+    from textreid_torch.ops import _build
+
+    args = _k3_args(batch, 512, torch.bfloat16, cuda, seed=batch)
+    assert gru.scan_kernel(torch.bfloat16, 512) == "gru_scan_fwd_resident"
+    before = gru.gru_scan.launches
+    got = gru.gru_scan(*args, reverse=reverse)
+    want = gru.gru_scan_plain(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    assert gru.gru_scan.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (batch, 105, 512)
+    assert (got.float() - want.float()).abs().max().item() <= 8e-3
+    out = [ctypes.c_int(0) for _ in range(4)]
+    _build.check(_build.library().gru_scan_resident_plan(
+        batch, 512, *map(ctypes.byref, out)), "gru_scan_resident_plan")
+    rows, clusters, cap32, cap16 = (v.value for v in out)
+    assert (rows, clusters) == gru.resident_plan(
+        batch, {32: cap32, 16: cap16}, directions=1)[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [37, 256])
+def test_f32_gru_scan_stays_on_the_streamed_kernel(cuda, batch):
+    """f32 runs the streamed kernel (W's f32 slice does not fit the
+    registers), within 1e-5 of the plain scan: the same f32 math in another
+    summation order."""
+    args = _k3_args(batch, 512, torch.float32, cuda, seed=batch)
+    assert gru.scan_kernel(torch.float32, 512) == "gru_scan_fwd"
+    got = gru.gru_scan(*args, reverse=True)
+    want = gru.gru_scan_plain(*args, reverse=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 @pytest.mark.gpu
@@ -585,6 +666,31 @@ def test_int8_ffn_kernel_matches_plain(cuda, rows, k, n, dtype):
     torch.cuda.synchronize()
     assert int8_mm.fused_int8_ffn.launches == before + 1
     assert got.dtype == dtype and got.shape == (rows, k)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    allowed = 4 * 127.0 * site[7][None, :] * r_mid + ulp * want.float().abs()
+    assert ((got.float() - want.float()).abs() <= allowed).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [(37, 512, 2048), (100, 512, 2048),
+                                      (37, 768, 3072), (100, 768, 3072)])
+def test_cluster_int8_ffn_equals_the_16_row_kernel(cuda, rows, k, n, dtype):
+    """K7's cluster tile (the middle split over N / 512 blocks, row maxima
+    and s32 partial sums swapped between them) at both towers' FFNs: the
+    same int8 middle and the same integer sums as the 16-row kernel it
+    replaced, so the same output bit for bit, and within the allowance of
+    test_int8_ffn_kernel_matches_plain of the plain version."""
+    from textreid_torch.ops import int8_mm
+    from textreid_torch.tools.int8_variants import ffn_rows16
+
+    site = _int8_site(rows, k, n, cuda, seed=rows + k, m_out=k)
+    got = int8_mm.fused_int8_ffn(*site, out_dtype=dtype)
+    old = ffn_rows16(*site, out_dtype=dtype)
+    want = int8_mm.int8_ffn_plain(*site, out_dtype=dtype)
+    _, r_mid = int8_mm.int8_matmul_requant_plain(*site[:6], op="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, old)
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     allowed = 4 * 127.0 * site[7][None, :] * r_mid + ulp * want.float().abs()
     assert ((got.float() - want.float()).abs() <= allowed).all()

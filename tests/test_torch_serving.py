@@ -297,6 +297,54 @@ def test_quantized_scores_stay_within_the_int8_error(indexes, quantized):
             assert abs(exact - scores[r, j]) <= bound + 2.0 ** -8
 
 
+@pytest.mark.parametrize("gallery", ["float", "int8"])
+@pytest.mark.parametrize("n_q", [1, 3, 300])
+def test_search_runs_the_text_tower_at_the_query_count(indexes, quantized,
+                                                       monkeypatch, n_q,
+                                                       gallery):
+    """The port's search encodes exactly the ``n_q`` rows it was given (the
+    JAX index pads them to 256-row buckets) and still returns the JAX
+    index's top-k: the ``"always"`` pool rule makes each query's embedding
+    independent of the rows beside it."""
+    jax_index, port_index = indexes if gallery == "float" else quantized
+    rng = np.random.RandomState(n_q)
+    ids = rng.randint(1, 30, (n_q, 10)).astype(np.int32)
+    lens = rng.randint(1, 11, n_q).astype(np.int32)
+    rows = []
+    encode_text = port_index.model.encode_text
+
+    def counted(token_ids, lengths, **kwargs):
+        rows.append((token_ids.shape[0], lengths.shape[0]))
+        return encode_text(token_ids, lengths, **kwargs)
+
+    monkeypatch.setattr(port_index.model, "encode_text", counted)
+    kept = port_index._quant_gallery
+    if gallery == "int8":
+        _share_int8_rows(jax_index, port_index)
+    try:
+        got = port_index.search(ids, lens, k=5)
+    finally:
+        port_index._quant_gallery = kept
+        monkeypatch.undo()
+    assert rows == [(n_q, n_q)]
+    want = jax_index.search(ids, lens, k=5)
+    assert got[0].shape == (n_q, 5) and got[1].shape == (n_q, 5)
+    if gallery == "float":
+        np.testing.assert_allclose(got[0], want[0], atol=1e-4)
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        from textreid_torch.ops.quant import QuantizedGallery, quantized_scores
+
+        shared = QuantizedGallery(
+            torch.from_numpy(np.array(jax_index._quant_gallery.values)),
+            torch.from_numpy(np.array(jax_index._quant_gallery.scales)))
+        scores = quantized_scores(
+            torch.from_numpy(port_index.encode_queries(ids, lens)),
+            shared).numpy()
+        row_of = {m: r for r, m in enumerate(port_index.gallery_meta)}
+        _assert_same_topk(got, want, lambda r, m: scores[r, row_of[int(m)]])
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_quantized_index_files_cross_packages(quantized, tmp_path, writer):
     jax_index, port_index = quantized

@@ -54,6 +54,8 @@ SIGNATURES = {
                             _I, _P),
     # x, w, h0, out, B, T, H, reverse, is_bf16, stream
     "gru_scan_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the W-resident bf16 scan: x, w, h0, out, B, T, H, reverse, stream
+    "gru_scan_fwd_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, g_int8, scales, vals, idx, part_vals, part_idx, Q, G, D, k,
     # valid_gallery, splits, stream
     "topk_similarity_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -72,6 +74,9 @@ SIGNATURES = {
     # out_bf16, stream
     "int8_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  _P),
+    # the 16-row K7 kernel it replaced, for comparison: the same arguments
+    "int8_ffn_rows16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P),
 }
 
 
@@ -162,8 +167,13 @@ def library() -> ctypes.CDLL:
     lib.bigru_pooled_bwd_clusters.restype = ctypes.c_int
     # B, H, out: rows a cluster and clusters of K1's bf16 forward, and the
     # clusters of 32 and of 16 rows the card holds at once
-    lib.bigru_resident_plan.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
-    lib.bigru_resident_plan.restype = ctypes.c_int
+    # ... and the same of K3's bf16 scan (one direction)
+    for name in ("bigru_resident_plan", "gru_scan_resident_plan"):
+        getattr(lib, name).argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
+        getattr(lib, name).restype = ctypes.c_int
+    # K, N, M, out: K7's blocks a cluster and rows a tile
+    lib.int8_ffn_plan.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 2
+    lib.int8_ffn_plan.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,7 +9,9 @@ kernel through an autograd Function: the fused scan's forward in bf16 the
 W-resident kernel of ``csrc/bigru_resident.cu`` (W held in registers
 across a cluster of H / 32 blocks, the tensor cores' ``mma.sync``), in f32
 the streamed kernels of ``csrc/bigru_pooled.cu`` and
-``csrc/bigru_pooled_bwd.cu``; the one-direction scan ``csrc/gru_scan.cu``.
+``csrc/bigru_pooled_bwd.cu``; the one-direction scan in bf16 the same
+design, ``csrc/gru_scan_resident.cu``, in f32 the streamed
+``csrc/gru_scan.cu`` (:func:`scan_kernel` is the rule).
 The fused scan's backward is a kernel too
 (``csrc/bigru_pooled_bwd.cu``), fed by a training forward that keeps each
 step's state (the JAX package's custom VJP differentiates its XLA scan
@@ -41,22 +43,35 @@ MAX_RESIDENT_HIDDEN = 512
 RESIDENT_ROWS = (32, 16)
 
 
-def resident_plan(batch: int, capacity: dict) -> tuple:
-    """The bf16 forward's launch plan for ``batch`` rows, as
-    ``csrc/bigru_resident.cu:plan`` computes it: ``capacity`` maps rows a
+def resident_plan(batch: int, capacity: dict, directions: int = 2) -> tuple:
+    """The W-resident bf16 kernels' launch plan for ``batch`` rows, as
+    ``csrc/gru_resident.cuh:plan_rows`` computes it: ``capacity`` maps rows a
     cluster (32, 16) to the clusters of that size the card holds at once.
     Each direction's rows go in groups of ``rows``, one (direction, group)
     item a cluster at a time; the rows that take the fewest rounds of
-    ``rows``-row steps (waves x rows) win, 32 on a tie.  Returns ``(rows,
+    ``rows``-row steps (waves x rows) win, 32 on a tie.  K1 runs both
+    directions in one launch (``directions=2``), K3 one.  Returns ``(rows,
     clusters, items, waves)``."""
     best = None
     for rows in RESIDENT_ROWS:
-        items = 2 * -(-batch // rows)
+        items = directions * -(-batch // rows)
         waves = -(-items // capacity[rows])
         if best is None or waves * rows < best[0]:
             best = (waves * rows, rows, min(items, capacity[rows]), items,
                     waves)
     return best[1:]
+
+
+def scan_kernel(dtype: torch.dtype, hidden: int) -> str:
+    """The entry point K3 launches for ``dtype`` and ``H``: bf16 with
+    ``H % 32 == 0`` and ``H <= MAX_RESIDENT_HIDDEN`` runs the W-resident
+    kernel (``csrc/gru_scan_resident.cu``: W in registers across H / 32
+    blocks, at most 16); f32 (whose W slice does not fit the registers) and
+    a wider bf16 H run the streamed kernel (``csrc/gru_scan.cu``)."""
+    if (dtype == torch.bfloat16 and hidden % 32 == 0
+            and hidden <= MAX_RESIDENT_HIDDEN):
+        return "gru_scan_fwd_resident"
+    return "gru_scan_fwd"
 
 
 def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
@@ -440,8 +455,17 @@ def _gru_scan_cuda(x_gates, w_h, h0, reverse) -> torch.Tensor:
     hidden = three_h // 3
     out = torch.empty(batch, seq, hidden, dtype=x_gates.dtype,
                       device=x_gates.device)
-    _launch("gru_scan_fwd", x_gates, w_h, h0, out, batch, seq, hidden,
-            int(bool(reverse)), int(x_gates.dtype == torch.bfloat16))
+    entry = scan_kernel(x_gates.dtype, hidden)
+    if entry == "gru_scan_fwd_resident":
+        if any(t.data_ptr() % 16 for t in (x_gates, h0)):
+            # the kernel moves each thread's units as one vector
+            raise ValueError("x_gates and h0 must start on a 16-byte "
+                             "boundary")
+        _launch(entry, x_gates, w_h, h0, out, batch, seq, hidden,
+                int(bool(reverse)))
+    else:
+        _launch(entry, x_gates, w_h, h0, out, batch, seq, hidden,
+                int(bool(reverse)), int(x_gates.dtype == torch.bfloat16))
     gru_scan.launches += 1
     return out
 
@@ -473,8 +497,8 @@ def gru_scan(x_gates: torch.Tensor, w_h: torch.Tensor, h0: torch.Tensor,
     """One-direction GRU scan, ``[B, T, 3H]`` -> every hidden state
     ``[B, T, H]`` in the input dtype; differentiable on both paths.
 
-    A CUDA tensor launches ``gru_scan_fwd`` (counted in
-    ``gru_scan.launches``, forward launches only); a CPU tensor runs the
+    A CUDA tensor launches the kernel :func:`scan_kernel` names (counted
+    in ``gru_scan.launches``, forward launches only); a CPU tensor runs the
     plain version."""
     if x_gates.is_cuda:
         return _GruScan.apply(x_gates, w_h, h0, reverse)

@@ -21,7 +21,9 @@ same function, in a bf16 tower the kernels are the tighter path.  K7 casts
 On a CUDA tensor the wrappers launch ``csrc/int8_mm.cu`` (products by
 ``mma.sync`` s8 in the kernel's own body) or raise on a shape it does not
 take; on a CPU tensor they run :func:`int8_matmul_requant_plain` and
-:func:`int8_ffn_plain`.  Nothing falls back from one to the other.
+:func:`int8_ffn_plain`.  Nothing falls back from one to the other.  K8 runs
+a 16-row tile a block; K7 a tile of up to 64 rows split over a cluster of
+``ceil(N / 512)`` blocks (:func:`ffn_plan`).
 
 Weights are ``[K, N]`` as in the JAX package.  The kernels read them with
 each output channel's K values contiguous, so a weight held as the
@@ -42,9 +44,16 @@ from . import _build
 from .requant import _check_op, quick_gelu, requant_rowdyn
 
 MM_OPS = ("none", "gelu")
-ROW_TILE = 16  # rows a block owns: one mma.sync row tile
-WARPS = 16  # warps of a block, each with a row-max slot in shared memory
+ROW_TILE = 16  # rows a block of K8 owns: one mma.sync row tile
+WARPS = 16  # warps of a K8 block, each with a row-max slot in shared memory
 SMEM_MAX = 232448  # bytes of shared memory a block can take on sm_90
+# K7's cluster tile (csrc/int8_mm.cu, ffn_cluster_kernel): a block owns at
+# most SLICE middle columns and OUT_SLICE output columns; rows a tile, in
+# order of preference; the warps that share a row (a block's 16 warps work
+# in two halves of the rows)
+SLICE, OUT_SLICE = 512, 128
+FFN_TILES = (64, 32)
+FFN_HALF_WARPS = 8
 
 
 def int_matmul(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -120,13 +129,57 @@ def _rows(xq: torch.Tensor, r_row: torch.Tensor):
     return lead, x2, r_row.float().reshape(-1).contiguous()
 
 
+def _int8_stride(depth: int) -> int:
+    """Bytes of an int8 row in shared memory (padded against bank
+    conflicts, as ``csrc/int8_mm.cu:int8_stride``)."""
+    return depth + (64 if depth % 128 == 0 else 0)
+
+
 def shared_bytes(k: int, n: int) -> int:
-    """Shared memory of one block of ``csrc/int8_mm.cu``: the int8 input
-    tile, the f32 middle ``[ROW_TILE, N]`` (padded against bank conflicts),
-    the reciprocal consumer scales and the row statistics."""
-    x_stride = k + (64 if k % 128 == 0 else 0)
-    return (ROW_TILE * (n + 8) * 4 + ROW_TILE * x_stride + n * 4
+    """Shared memory of one block of K8 (``csrc/int8_mm.cu``): the int8
+    input tile, the f32 middle ``[ROW_TILE, N]`` (padded against bank
+    conflicts), the reciprocal consumer scales and the row statistics."""
+    return (ROW_TILE * (n + 8) * 4 + ROW_TILE * _int8_stride(k) + n * 4
             + (WARPS + 2) * ROW_TILE * 4)
+
+
+def ffn_shared_bytes(k: int, n: int, m_out: int, rows: int) -> int:
+    """Shared memory of one block of K7's cluster tile of ``rows`` rows
+    (``csrc/int8_mm.cu:ffn_bytes``), with C = ceil(N / SLICE) blocks, S =
+    N / C middle and P = M / C output columns a block: the f32 middle
+    ``[rows, S + 8]``, whose place the s32 partial sums ``[3, rows, P + 8]``
+    (the upper depth half's scratch and two ring stages) take after the
+    requant; the int8 input ``[rows, K]``, whose place the int8 middle
+    ``[rows, S]`` takes; the reciprocal consumer scales ``[S]``; and the row
+    statistics (the maxima of each of the 8 warps that share a row, the
+    input and middle scales, the block's maxima that its peers read)."""
+    c = -(-n // SLICE)
+    s, p = n // c, m_out // c
+    mid = max(4 * rows * (s + 8), 12 * rows * (p + 8))
+    ints = rows * max(_int8_stride(k), _int8_stride(s))
+    return mid + ints + 4 * (s + (FFN_HALF_WARPS + 3) * rows)
+
+
+def ffn_plan(k: int, n: int, m_out: int) -> tuple:
+    """K7's cluster tile at (K, N, M): ``(blocks a cluster, rows a tile)``,
+    the rows the largest of ``FFN_TILES`` whose block fits ``SMEM_MAX``.
+    Raises on a shape the kernel does not take."""
+    c = -(-n // SLICE)
+    if (k % 64 or k < 64 or n % 64 or n < 64 or c > 8 or n % c
+            or (n // c) % 64 or m_out % c or (m_out // c) % 32
+            or m_out // c > OUT_SLICE):
+        raise ValueError(
+            f"fused_int8_ffn needs K % 64 == 0, N % 64 == 0 (N <= 4096) "
+            f"split into C = ceil(N / {SLICE}) slices of a multiple of 64, "
+            f"and M / C a multiple of 32 up to {OUT_SLICE}; got K={k} N={n} "
+            f"M={m_out}")
+    for rows in FFN_TILES:
+        if ffn_shared_bytes(k, n, m_out, rows) <= SMEM_MAX:
+            return c, rows
+    raise ValueError(
+        f"fused_int8_ffn: a {FFN_TILES[-1]}-row tile at K={k}, N={n}, "
+        f"M={m_out} needs {ffn_shared_bytes(k, n, m_out, FFN_TILES[-1])} "
+        f"bytes of shared memory, the card has {SMEM_MAX}")
 
 
 def _check_dims(name: str, k: int, n: int, m_out: int = 0) -> None:
@@ -180,7 +233,7 @@ def _ffn_cuda(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2, out_dtype):
     if w1_t.shape[1] != k or w2_t.shape[1] != n:
         raise ValueError(f"w1_q {tuple(w1_q.shape)} and w2_q "
                          f"{tuple(w2_q.shape)} do not chain from K={k}")
-    _check_dims("fused_int8_ffn", k, n, m_out)
+    ffn_plan(k, n, m_out)
     s_w1, b1, s_mid = (_vector(name, v, n, dev) for name, v in (
         ("s_w1", s_w1), ("b1", b1), ("s_mid", s_mid)))
     s_w2, b2 = (_vector(name, v, m_out, dev) for name, v in (

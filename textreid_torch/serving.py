@@ -30,8 +30,6 @@ from .models.losses import l2_normalize
 from .ops.quant import QuantizedGallery, quantize_rows, quantized_topk
 from .ops.ranking import K_MAX, topk_similarity, topk_similarity_quantized
 
-QUERY_BUCKET = 256  # search pads the query count to multiples of this
-
 
 class RetrievalIndex:
     """An encoded, normalized gallery plus the query towers of ``model``.
@@ -233,17 +231,17 @@ class RetrievalIndex:
                k: int = 10):
         """Top-k gallery matches for tokenized text queries: ``(scores
         [Q, k], meta [Q, k])``.  Slots beyond the real gallery carry score
-        ``-inf`` and meta ``-1``.  The query count is padded to
-        256-row buckets on the host, so the device sees a few fixed
-        shapes."""
+        ``-inf`` and meta ``-1``.  The text tower and the ranking run at
+        the Q rows given: the JAX package pads Q to 256-row buckets for
+        its compile cache, which eager PyTorch has no use for, and the
+        ``"always"`` pool rule makes an embedding independent of the rows
+        beside it."""
         if self.gallery is None:
             raise RuntimeError("call build_gallery first")
         n_q = token_ids.shape[0]
-        q_pad = -(-n_q // QUERY_BUCKET) * QUERY_BUCKET
-        ids = _pad_rows(np.asarray(token_ids, np.int32), q_pad, 0)
-        lens = _pad_rows(np.asarray(lengths, np.int32), q_pad, 1)
-        queries = self._embed_texts(self._to_device(ids),
-                                    self._to_device(lens))
+        queries = self._embed_texts(
+            self._to_device(np.asarray(token_ids, np.int32)),
+            self._to_device(np.asarray(lengths, np.int32)))
         vals, idx = self._rank(queries, k)
         return self._finish(vals, idx, n_q, k)
 
@@ -256,13 +254,13 @@ class RetrievalIndex:
             raise RuntimeError("call build_gallery first")
         n_q = np.asarray(pixels).shape[0]
         queries = self.encode_image_queries(pixels)
-        q_pad = -(-n_q // QUERY_BUCKET) * QUERY_BUCKET
-        vals, idx = self._rank(self._to_device(_pad_rows(queries, q_pad, 0)), k)
+        vals, idx = self._rank(self._to_device(queries), k)
         return self._finish(vals, idx, n_q, k)
 
     def _finish(self, vals, idx, n_q: int, k: int):
-        """Trim the bucket padding, pad k out to the request, and map rows
-        to metadata with the sentinel contract (-inf score, -1 meta)."""
+        """Keep the first ``n_q`` rows, pad k out to the request, and map
+        rows to metadata with the sentinel contract (-inf score, -1
+        meta)."""
         n_real = len(self.gallery_meta)
         vals = vals[:n_q].cpu().numpy()
         idx = idx[:n_q].cpu().numpy()

@@ -1,9 +1,11 @@
-"""Time variants of the fused bi-GRU kernels (K1: forward, backward) side by
-side.
+"""Time variants of the GRU kernels (K1: the fused bi-GRU forward and
+backward; K3: the one-direction scan) side by side.
 
 A development aid for ``csrc/bigru_resident.cu`` (K1's bf16 forward),
-``csrc/bigru_pooled.cu`` and ``csrc/bigru_pooled_bwd.cu``: each variant is
-those sources (with ``gru_cell.cuh`` beside them) after a few text
+``csrc/bigru_pooled.cu``, ``csrc/bigru_pooled_bwd.cu``,
+``csrc/gru_scan_resident.cu`` (K3's bf16 forward) and ``csrc/gru_scan.cu``
+(K3's streamed kernel): each variant is those sources (with the headers
+``gru_cell.cuh`` and ``gru_resident.cuh`` beside them) after a few text
 substitutions, built by its
 own ``nvcc`` into ``build/gru_variants/`` and loaded with ctypes beside the
 others, so that all are timed in one process on one card, in turns.
@@ -18,10 +20,12 @@ Prints the card's name and power limit, each variant's registers, and per
 variant, bf16, H=512, T=105 (the variants marked "wrong" compute garbage
 and are there for their times alone): the pooled-only forward at B=256, 128 and 64
 (and the streamed kernel it replaced, kept for comparison, at B=256),
-one dependent forward step (the slope from T=5 to T=105 at B=8), and the
+one dependent forward step (the slope from T=5 to T=105 at B=8), the
 backward kernel alone at B=128 (the lesser of two rounds of CUDA events)
 with its largest error against ``bigru_pooled_bwd_plain`` on the same
-saved state, relative to the plain gradient's largest magnitude.
+saved state, relative to the plain gradient's largest magnitude; then K3,
+the W-resident scan at B=256, 128 and 1 and the streamed one at B=256,
+and each one's dependent step.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -73,12 +76,25 @@ def streamed_forward(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     return out
 
 
+def streamed_scan(x: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
+    """K3's ``[B, T, H]`` through the streamed kernel of
+    ``csrc/gru_scan.cu``, which the W-resident kernel replaced for bf16 on
+    the main path (f32 still runs it there).  For comparison only: it
+    counts no launch, and the port does not call it."""
+    batch, seq, three_h = x.shape
+    out = torch.empty(batch, seq, three_h // 3, dtype=x.dtype,
+                      device=x.device)
+    gru._launch("gru_scan_fwd", x, w, h0, out, batch, seq, three_h // 3,
+                int(bool(reverse)), int(x.dtype == torch.bfloat16))
+    return out
+
+
 def _start_build(name: str, csrc: Path, edits) -> tuple:
     folder = OUT / name.replace(" ", "_")
     folder.mkdir(parents=True, exist_ok=True)
-    shutil.copy(csrc / "gru_cell.cuh", folder / "gru_cell.cuh")
     texts = {src.name: src.read_text() for src in sorted(
-        csrc.glob("bigru_*.cu"))}
+        csrc.glob("*gru_*.cu*"))}
     for old, new in edits:
         hits = [key for key, text in texts.items() if old in text]
         if not hits:
@@ -88,7 +104,7 @@ def _start_build(name: str, csrc: Path, edits) -> tuple:
         (folder / key).write_text(text)
     lib = folder / "lib.so"
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-           *(str(folder / key) for key in texts)]
+           *(str(folder / key) for key in texts if key.endswith(".cu"))]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
@@ -96,7 +112,8 @@ def _start_build(name: str, csrc: Path, edits) -> tuple:
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name in ("bigru_pooled_fwd", "bigru_pooled_fwd_train",
-                 "bigru_pooled_bwd", "bigru_pooled_fwd_streamed"):
+                 "bigru_pooled_bwd", "bigru_pooled_fwd_streamed",
+                 "gru_scan_fwd", "gru_scan_fwd_resident"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = list(_build.SIGNATURES[name])
     return lib
@@ -183,7 +200,48 @@ def _time(name: str, lib: ctypes.CDLL) -> None:
                   for a, b in zip(got, want))
         line.append(f"backward kernel B=128 {min(_ms(bwd), _ms(bwd)):.4f} ms "
                     f"(error {err:.1e}, launch code {code})")
+    _time_scan(lib, line)
     print(", ".join(line), flush=True)
+
+
+def _scan_inputs(batch, seq, hidden=512, seed=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(batch, seq, 3 * hidden, device="cuda", generator=gen)
+         * 0.6).bfloat16()
+    w = ((torch.rand(hidden, 3 * hidden, device="cuda", generator=gen) * 2
+          - 1) / hidden ** 0.5).bfloat16()
+    h0 = (torch.randn(batch, hidden, device="cuda", generator=gen)
+          * 0.5).bfloat16()
+    return x, w, h0
+
+
+def _time_scan(lib: ctypes.CDLL, line: list) -> None:
+    """K3's entry points that ``lib`` has: the resident scan at B=256, 128
+    and 1, the streamed one at B=256, and the step of each."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(entry, batch, seq):
+        x, w, h0 = _scan_inputs(batch, seq)
+        out = torch.empty(batch, seq, 512, device="cuda",
+                          dtype=torch.bfloat16)
+        extra = () if entry == "gru_scan_fwd_resident" else (1,)
+        fn = getattr(lib, entry)
+        return lambda: fn(x.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                          out.data_ptr(), batch, seq, 512, 0, *extra, stream)
+
+    for entry, batches in (("gru_scan_fwd_resident", (256, 128, 1)),
+                           ("gru_scan_fwd", (256,))):
+        if not hasattr(lib, entry):
+            continue
+        kind = "resident" if entry.endswith("resident") else "streamed"
+        for batch in batches:
+            fn = call(entry, batch, 105)
+            line.append(f"K3 {kind} B={batch} "
+                        f"{min(_ms(fn), _ms(fn)):.4f} ms")
+        slope = [min(_ms(c), _ms(c)) for c in (call(entry, 8, 5),
+                                               call(entry, 8, 105))]
+        line.append(f"K3 {kind} step {(slope[1] - slope[0]) / 100 * 1e3:.2f} "
+                    "us")
 
 
 def main(argv=None) -> int:
@@ -211,11 +269,12 @@ def main(argv=None) -> int:
             continue
         for block in log.split("Compiling entry function")[1:]:
             kernel = re.search(
-                r"(bigru_\w*?kernel)(I13__nv_bfloat16|ILi\dELb\d)", block)
+                r"((?:bi)?gru_\w*?kernel)(I13__nv_bfloat16|ILi\d(?:ELb\d)?)",
+                block)
             used = re.search(r"Used (\d+) registers", block)
             if kernel and used:
-                print(f"{name}: {kernel.group(1)} bf16: {used.group(1)} "
-                      "registers")
+                print(f"{name}: {kernel.group(1)} {kernel.group(2)}: "
+                      f"{used.group(1)} registers")
         libs[name] = _load(path)
     for round_ in range(2):  # every variant twice, in turns
         for name, lib in libs.items():
