@@ -15,9 +15,11 @@ before the result line:
    shapes its paths give it, with the tolerances stated below: K7, K8 and
    K9 (the int8 encoders' FFN, matmul-requant and requant kernels) at the
    ViT-B/16 gallery batch (24,704 rows, K=768, N=3072), a CLIP text batch
-   (25,600 rows, K=512, N=2048) and 37 rows (K7 also 100 rows and the
-   ViT's FFN at 37 and 100, and against the 16-row kernel it replaced, bit
-   for bit), f32 and bf16; K1 and K2 at
+   (25,600 rows, K=512, N=2048) and 37 rows (K7 and K8 also 100 rows and
+   the ViT's widths at 37 and 100; K7's cluster tile and K8's cluster
+   kernel against the 16-row kernels, bit for bit, and K8's plan from the
+   library against ``ops/int8_mm.py:matmul_plan``), f32 and bf16; K1 and
+   K2 at
    the serving shapes; K3 (the one-direction GRU scan) at T=105, H=512 and
    B=1, 37, 128 and 256 in bf16 (the W-resident kernel, its launch plan
    held against ``ops/gru.py:resident_plan``) and B=256 and 37 in f32 (the
@@ -48,10 +50,11 @@ before the result line:
    ends in a synchronize (gallery encode, /search latency), each kernel in
    turns with its plain version; K1's and K3's bf16 W-resident kernels
    also in turns with the streamed kernels they replaced (B=256, 128 and,
-   for K3, 1; and one dependent step), and K7's cluster tile with the
-   16-row kernel it replaced at both towers' FFNs.  One query through the
-   index launches K1 (and K3 twice a lower layer) on one row, and agrees
-   with the plain path.
+   for K3, 1; and one dependent step), K7's cluster tile and K8's cluster
+   kernel with the 16-row kernels at both towers' shapes, and K9 on the
+   device alone, warm and with L2 flushed.  One query through the index
+   launches K1 (and K3 twice a lower layer) on one row, and agrees with
+   the plain path.
 5. The evaluation slice through ``textreid_torch.test_net.main`` at the
    full width of ``configs/cuhkpedes/moco_gru2l_freeze_cliprn50_ls_bs128_
    2048.yaml`` (CLIP RN50 at 384x128, 2-layer bi-GRU H=512, T=105, bf16
@@ -111,6 +114,8 @@ before the result line:
     against operations over the peak rate of the input type), and the time
     of the one PyTorch call that computes the same function where there is
     one (a yardstick only: nothing in the port calls it).
+12. Last, after every host-paced timing, the device time of one int8
+    ViT-B/16 forward by kernel family (``torch.profiler``).
 
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -857,29 +862,82 @@ def check_k9():
     return worst
 
 
-def check_k8():
-    """K8 against its plain version: c_fc of both towers and 37 rows, with
-    and without the GELU."""
-    from textreid_torch.ops import int8_mm
+# K7 and K8 also at 100 rows (one query of the CLIP text tower) and both at
+# the ViT's widths at 37 and 100 rows
+INT8_ROW_SHAPES = INT8_SHAPES + [("one query", 100, 512, 2048),
+                                 ("ragged ViT", 37, 768, 3072),
+                                 ("ragged ViT", 100, 768, 3072)]
 
+
+def k8_plan(k, n):
+    """K8's plan from the library (columns a block, blocks a cluster,
+    stages, rows a tile, shared bytes, clusters the card holds at once),
+    held against ``ops/int8_mm.py:matmul_plan``; returns that plan and the
+    clusters."""
+    import ctypes
+
+    from textreid_torch.ops import _build, int8_mm
+
+    plan = int8_mm.matmul_plan(k, n)
+    out = [ctypes.c_int(0) for _ in range(6)]
+    _build.check(_build.library().int8_matmul_requant_plan(
+        k, n, *map(ctypes.byref, out)), "int8_matmul_requant_plan")
+    cols, cluster, stages, tile, smem, clusters = (v.value for v in out)
+    lib_plan = (("cluster", cluster, cols, tile, stages, smem) if cols
+                else ("rows16",))
+    if tuple(plan)[:len(lib_plan)] != lib_plan:
+        fail(f"K8 at K={k} N={n}: matmul_plan {tuple(plan)}, the library's "
+             f"{lib_plan}")
+    return plan, clusters
+
+
+def check_k8():
+    """K8 against its plain version: c_fc of both towers, 37 and 100 rows,
+    with and without the GELU; where ``matmul_plan`` gives the cluster
+    kernel, against the 16-row kernel too, which must give the same q and r
+    bit for bit (the same integer sums and f32 steps); the library's plan
+    against ``matmul_plan``; the epilogue's reciprocal against __frcp_rn on
+    every float it takes."""
+    import torch
+    from textreid_torch.ops import _build, int8_mm
+    from textreid_torch.tools.int8_variants import matmul_rows16
+
+    # the epilogue's branch-free reciprocal is __frcp_rn on all of [1, 2^126]
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    _build.check(_build.library().int8_mm_rcp_mismatches(
+        0x3F800000, 0x7E800001, bad.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "int8_mm_rcp_mismatches")
+    log(f"K8's reciprocal against __frcp_rn on every float of [1, 2^126]: "
+        f"{int(bad.item())} differ")
+    if bad.item():
+        fail("K8's reciprocal differs from __frcp_rn")
     worst = 0.0
-    for name, rows, k, n in INT8_SHAPES:
+    for name, rows, k, n in INT8_ROW_SHAPES:
+        plan, clusters = k8_plan(k, n)
         site = int8_site(rows, k, n, seed=rows)
         args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
                                       "s_next")]
         for op in ("gelu", "none"):
+            got = int8_mm.fused_int8_matmul_requant(*args, op=op)
+            what = (f"K8 int8_matmul_requant {name} [{rows}, {k}] x [{k}, "
+                    f"{n}] op={op}")
+            if plan.kernel == "cluster":
+                old = matmul_rows16(*args, op=op)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], old[0])
+                        and torch.equal(got[1], old[1])):
+                    steps = (got[0].int() - old[0].int()).abs()
+                    fail(f"{what}: the cluster kernel and the 16-row kernel "
+                         f"differ: {int((steps > 0).sum())} int8 values, "
+                         f"row scales by "
+                         f"{(got[1] - old[1]).abs().max().item():.3e}")
+                what += (f" (cluster kernel: {plan.cluster} blocks of "
+                         f"{plan.cols} columns, {plan.stages} stages, "
+                         f"{plan.smem} B, {clusters} clusters at once; equal "
+                         f"to the 16-row kernel)")
             worst = max(worst, int8_agreement(
-                f"K8 int8_matmul_requant {name} [{rows}, {k}] x [{k}, {n}] "
-                f"op={op}", int8_mm.fused_int8_matmul_requant(*args, op=op),
-                int8_mm.int8_matmul_requant_plain(*args, op=op)))
+                what, got, int8_mm.int8_matmul_requant_plain(*args, op=op)))
     return worst
-
-
-# K7 also at 100 rows (one query of the CLIP text tower) and the ViT's FFN
-# at 37 and 100 rows
-K7_SHAPES = INT8_SHAPES + [("one query", 100, 512, 2048),
-                           ("ragged ViT", 37, 768, 3072),
-                           ("ragged ViT", 100, 768, 3072)]
 
 
 def check_k7():
@@ -896,7 +954,7 @@ def check_k7():
     from textreid_torch.tools.int8_variants import ffn_rows16
 
     worst = 0.0
-    for name, rows, k, n in K7_SHAPES:
+    for name, rows, k, n in INT8_ROW_SHAPES:
         site = int8_site(rows, k, n, seed=rows + 1, m_out=k)
         args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
                                       "s_next", "w2", "s_w2", "b2")]
@@ -941,13 +999,18 @@ def check_k7():
 
 def time_int8_kernels():
     """K7, K8 and K9 at both towers' shapes (bf16 where a float goes in or
-    out), kernel and plain version interleaved."""
+    out), kernel and plain version interleaved; K8's cluster kernel in
+    turns with the 16-row kernel; K9 at the LayerNorm sites also on the
+    device alone (launches queued behind a device sleep), warm (the input
+    read again at once) and with L2 flushed before each launch."""
     import torch
     from textreid_torch.ops import int8_mm, requant
-    from textreid_torch.tools.int8_variants import ffn_rows16
+    from textreid_torch.tools.int8_variants import (
+        cold_ms, ffn_rows16, matmul_rows16, queued_ms)
 
     out = {}
     g = torch.Generator(device="cuda").manual_seed(4)
+    scratch = torch.empty(16 * 2**20, device="cuda")  # 64 MB
     for name, rows, k, n in INT8_SHAPES[:2]:
         for op, c in (("ln", k), ("none", k), ("gelu", n)):
             x = torch.randn(rows, c, device="cuda", generator=g).to(
@@ -956,8 +1019,16 @@ def time_int8_kernels():
             out[("K9", name, op)] = interleaved_ms(
                 lambda: requant.fused_requant(x, s, op),
                 lambda: requant.requant_plain(x, s, op), 20, 5)
-            log("time K9 %s [%d, %d] op=%s bf16: kernel %.3f ms, plain "
+            log("time K9 %s [%d, %d] op=%s bf16: kernel %.4f ms, plain "
                 "%.3f ms" % (name, rows, c, op, *out[("K9", name, op)]))
+            if op == "ln":
+                fn = lambda: requant.fused_requant(x, s, op)  # noqa: E731
+                out[("K9 queued", name)] = (queued_ms(fn, 20),
+                                            cold_ms(fn, 20, scratch))
+                log("time K9 %s [%d, %d] ln bf16 on the device (launches "
+                    "queued behind a device sleep): warm %.4f ms, L2 "
+                    "flushed %.4f ms" % (name, rows, c,
+                                         *out[("K9 queued", name)]))
         site = int8_site(rows, k, n, seed=3, m_out=k)
         args = [site[key] for key in ("xq", "w", "s_w", "b", "r_row",
                                       "s_next", "w2", "s_w2", "b2")]
@@ -965,6 +1036,10 @@ def time_int8_kernels():
             lambda: int8_mm.fused_int8_matmul_requant(*args[:6], op="gelu"),
             lambda: int8_mm.int8_matmul_requant_plain(*args[:6], op="gelu"),
             5, 5)
+        # the cluster kernel against the 16-row kernel, in turns
+        out[("K8 vs rows16", name)] = interleaved_ms(
+            lambda: int8_mm.fused_int8_matmul_requant(*args[:6], op="gelu"),
+            lambda: matmul_rows16(*args[:6], op="gelu"), 10, 10)
         out[("K7", name)] = interleaved_ms(
             lambda: int8_mm.fused_int8_ffn(*args, out_dtype=torch.bfloat16),
             lambda: int8_mm.int8_ffn_plain(*args, out_dtype=torch.bfloat16),
@@ -979,11 +1054,14 @@ def time_int8_kernels():
         for kname in ("K8", "K7"):
             log("time %s %s rows=%d K=%d N=%d: kernel %.3f ms, plain %.3f ms"
                 % (kname, name, rows, k, n, *out[(kname, name)]))
+        log("time K8 %s rows=%d gelu: the cluster kernel %.4f ms, the "
+            "16-row kernel %.4f ms (in turns)" % (
+                name, rows, *out[("K8 vs rows16", name)]))
         log("time K7 %s rows=%d bf16: the cluster tile %.3f ms, the 16-row "
             "kernel it replaced %.3f ms (in turns)" % (
                 name, rows, *out[("K7 vs rows16", name)]))
         log(f"time torch._int_mm alone [{rows}, {k}] x [{k}, {n}] (the "
-            f"product without the epilogue): {lib_ms:.3f} ms")
+            f"product without the epilogue): {lib_ms:.4f} ms")
     return out
 
 
@@ -1610,6 +1688,45 @@ def time_int8_encoders(service, base, built):
     log(f"time /search p50 (1 query, k=10, 3074 rows, int8 gallery, full-CLIP "
         f"model): int8 text tower {out[('p50', 'int8')]:.3f} ms, float text "
         f"tower {out[('p50', 'float')]:.3f} ms")
+    return out, (visual, v_tower, x)
+
+
+def to_device(obj, device):
+    """``obj`` (a module, a tensor, an ``Int8Tower``, or a tuple or dict of
+    them) on ``device``; a tensor keeps its strides."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, (torch.nn.Module, torch.Tensor)):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {key: to_device(v, device) for key, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(to_device(v, device) for v in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def profile_int8_vit(visual, tower, x, forward_ms):
+    """Device time of one int8 ViT-B/16 forward (B=128, ``fused_ffn`` off)
+    by kernel family.  Run last, after every host-paced timing: taken
+    before the full-CLIP model's ``/search`` timings, a ``torch.profiler``
+    session slowed them by several ms a query, with either text tower."""
+    import torch
+    from textreid_torch.models.int8_vit import int8_vit_apply
+
+    with torch.inference_mode():
+        out = device_profile(
+            lambda: int8_vit_apply(visual, tower, x, fused_ffn=False), 3,
+            INT8_VIT_FAMILIES,
+            "the int8 ViT-B/16 tower forward, B=128, fused_ffn off")
+    if out:
+        log(f"the int8 ViT-B/16 forward keeps the device busy "
+            f"{out['total']:.2f} ms of the {forward_ms:.2f} ms timed")
     return out
 
 
@@ -2344,33 +2461,21 @@ def _compare_steps(model_name):
     return loss_err, worst, grad_worst
 
 
-def profile_steps(step, state, batch, steps=2):
-    """Device time of a train step by kernel family, from ``torch.profiler``
-    over ``steps`` bf16 steps: {family: ms a step}, with "total" and
-    "launches" (kernels a step).  None when the trace holds no device
-    events."""
+def device_profile(fn, calls, families, what):
+    """Device time of ``fn`` by kernel family, from ``torch.profiler`` over
+    ``calls`` calls: {family: ms a call}, with "other", "total" and
+    "launches" (kernels a call).  ``families`` is ((name, keys), ...): the
+    first family whose key a kernel's name holds takes it.  None when the
+    trace holds no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # the first family whose key a kernel's name holds takes it: K1's
-    # backward before its forwards, cuDNN's convolutions before the
-    # products (their names hold "xmma" and "gemm" too)
-    families = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
-                ("K1 bwd", ("bigru_pooled_bwd_kernel",)),
-                ("K1 fwd", ("bigru_pooled", "bigru_resident")),
-                ("convolutions", ("fprop", "dgrad", "wgrad", "winograd",
-                                  "convolve", "conv2d", "convolution",
-                                  "implicit_gemm", "nchwtonhwc",
-                                  "nhwctonchw")),
-                ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
-                ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
-                                     "nvjet", "wgmma")))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(state, batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     out = {name: 0.0 for name, _ in families}
     out.update({"other": 0.0, "total": 0.0, "launches": 0})
@@ -2387,17 +2492,48 @@ def profile_steps(step, state, batch, steps=2):
                            if any(k in evt.name.lower() for k in keys)),
                           "other")
             out["launches"] += 1
-        out[family] += us / 1e3 / steps
-        out["total"] += us / 1e3 / steps
-    out["launches"] //= steps
+        out[family] += us / 1e3 / calls
+        out["total"] += us / 1e3 / calls
+    out["launches"] //= calls
     if out["total"] == 0.0:
-        log("profile of the train step: the trace holds no device events")
+        log(f"profile of {what}: the trace holds no device events")
         return None
-    log("profile of the bf16 train step (torch.profiler, device time a step): "
+    log(f"profile of {what} (torch.profiler, device time a call): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()
                     if k != "launches")
-        + f"; {out['launches']} kernels a step")
+        + f"; {out['launches']} kernels a call")
     return out
+
+
+# the train step's kernel families: K1's backward before its forwards,
+# cuDNN's convolutions before the products (their names hold "xmma" and
+# "gemm" too)
+STEP_FAMILIES = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
+                 ("K1 bwd", ("bigru_pooled_bwd_kernel",)),
+                 ("K1 fwd", ("bigru_pooled", "bigru_resident")),
+                 ("convolutions", ("fprop", "dgrad", "wgrad", "winograd",
+                                   "convolve", "conv2d", "convolution",
+                                   "implicit_gemm", "nchwtonhwc",
+                                   "nhwctonchw")),
+                 ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+                 ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
+                                      "nvjet", "wgmma")))
+# the int8 ViT forward's: K8 (both its kernels) and K9 (both designs)
+# before the library's products
+INT8_VIT_FAMILIES = (("K8", ("matmul_requant",)),
+                     ("K9", ("rows_kernel", "staged_kernel")),
+                     ("K5", ("attention_fwd",)),
+                     ("torch._int_mm", ("gemm", "cutlass", "cublas", "xmma",
+                                        "nvjet", "wgmma", "imma")),
+                     ("elementwise (decodes, residual adds, casts)",
+                      ("elementwise",)))
+
+
+def profile_steps(step, state, batch, steps=2):
+    """Device time of a bf16 train step by kernel family (see
+    :func:`device_profile`)."""
+    return device_profile(lambda: step(state, batch), steps, STEP_FAMILIES,
+                          "the bf16 train step")
 
 
 def time_training(model_name, reps=8):
@@ -2646,12 +2782,13 @@ def main():
      cosines) = drive_int8_encoders()
     try:
         int8_kernel_times = time_int8_kernels()
-        enc_times = time_int8_encoders(service, base, built)
+        enc_times, vit_forward = time_int8_encoders(service, base, built)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     del service, built
+    vit_forward = to_device(vit_forward, "cpu")  # kept for the profile
     torch.cuda.empty_cache()
 
     train_launches, train_times = {}, {}
@@ -2667,6 +2804,9 @@ def main():
     vit_train, rn_train = (train_times[name] for name in TRAIN_MODELS)
     k1_times = time_k1_backward()
     attn_times = time_attention()
+    profile_int8_vit(*to_device(vit_forward, "cuda"),
+                     enc_times[("vit", "off")])
+    del vit_forward
 
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(
         ("jax.", "textreid_tpu")))
@@ -2695,7 +2835,10 @@ def main():
         f"{enc_times[('p50', 'float')]:.3f}); minimum cosine to the float "
         f"towers {cosines[0]:.5f} (ViT), {cosines[1]:.5f} (text) ({card})")
     k3 = {b: times[("K3 vs streamed", b)] for b in (256, 128, 1)}
-    k7 = {name: int8_kernel_times[("K7 vs rows16", name)]
+    k7, k8 = ({name: int8_kernel_times[(kname, name)]
+               for name in ("CLIP text", "ViT-B/16")}
+              for kname in ("K7 vs rows16", "K8 vs rows16"))
+    k9 = {name: int8_kernel_times[("K9 queued", name)]
           for name in ("CLIP text", "ViT-B/16")}
     log(f"summary, the kernels redesigned for this card: K3 bf16 T=105 "
         f"H=512 W-resident (the streamed kernel in the same run) B=256 "
@@ -2704,7 +2847,14 @@ def main():
         f"{times[('K3', 'step_us')]:.2f} us ({times[('K3 streamed', 'step_us')]:.2f}); "
         f"K7 bf16 on the cluster tile (the 16-row kernel) CLIP text "
         f"{k7['CLIP text'][0]:.3f} ms ({k7['CLIP text'][1]:.3f}), ViT-B/16 "
-        f"{k7['ViT-B/16'][0]:.3f} ({k7['ViT-B/16'][1]:.3f}); K1 bf16 B=256 "
+        f"{k7['ViT-B/16'][0]:.3f} ({k7['ViT-B/16'][1]:.3f}); K8 gelu on the "
+        f"cluster kernel (the 16-row kernel) ViT-B/16 c_fc "
+        f"{k8['ViT-B/16'][0]:.4f} ms ({k8['ViT-B/16'][1]:.4f}), CLIP text "
+        f"{k8['CLIP text'][0]:.4f} ({k8['CLIP text'][1]:.4f}); K9 ln bf16 "
+        f"in registers, on the device (queued), warm (L2 flushed) "
+        f"[24704, 768] {k9['ViT-B/16'][0]:.4f} ms "
+        f"({k9['ViT-B/16'][1]:.4f}), [25600, 512] "
+        f"{k9['CLIP text'][0]:.4f} ({k9['CLIP text'][1]:.4f}); K1 bf16 B=256 "
         f"{times[('K1', 256, 'bfloat16')][0]:.3f} ms ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; "
@@ -2742,7 +2892,8 @@ def main():
         # difference (K7); no single PyTorch call computes any of the three
         ("int8_ffn", "int8_mm.cu", "int8_mm_pallas.py:186", k7_err,
          int8_kernel_times[("K7", "CLIP text")], None),
-        ("int8_matmul_requant", "int8_mm.cu", "int8_mm_pallas.py:100", k8_err,
+        ("int8_matmul_requant", "int8_mm_sm90.cu", "int8_mm_pallas.py:100",
+         k8_err,
          int8_kernel_times[("K8", "ViT-B/16")], None),
         ("fused_requant", "requant.cu", "quant_pallas.py:102", k9_err,
          int8_kernel_times[("K9", "ViT-B/16", "ln")], None),

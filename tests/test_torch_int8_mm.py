@@ -142,7 +142,7 @@ def test_shared_memory_of_the_towers_fits_the_card():
     input, the consumer scales and the row statistics; the s32 partials and
     the int8 middle reuse the first two); 32 rows where 64 do not fit; a
     refusal where no tile fits and on a shape the split does not take.
-    K8 keeps its 16-row tile."""
+    K8's 16-row tile fits at the ViT's c_fc (its plan: the next test)."""
     assert int8_mm.ffn_shared_bytes(512, 2048, 512, 64) == 174848
     assert int8_mm.ffn_shared_bytes(768, 3072, 768, 64) == 191232
     assert int8_mm.ffn_plan(512, 2048, 512) == (4, 64)
@@ -215,6 +215,124 @@ def test_cluster_decomposition_equals_the_plain_ffn(rows, n, out_dtype):
     want = int8_mm.int8_ffn_plain(*_torch(site), out_dtype=out_dtype)
     assert int8_mm.ffn_plan(k, n, k) == (blocks, 64)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_matmul_plan_of_the_towers():
+    """K8 at both towers' c_fc goes to the cluster kernel: 16 blocks of 192
+    (ViT) or 128 (text) columns, two consumers with 3 or 8 stages each,
+    within the card's 227 KB; shapes it does not take go to the 16-row
+    kernel, and shapes neither takes raise."""
+    vit, text = int8_mm.matmul_plan(768, 3072), int8_mm.matmul_plan(512, 2048)
+    assert vit == ("cluster", 16, 192, 64, 3, 216456)
+    assert text == ("cluster", 16, 128, 64, 8, 215848)
+    for plan, (k, n) in ((vit, (768, 3072)), (text, (512, 2048))):
+        assert plan.cluster * plan.cols == n and plan.smem <= int8_mm.SMEM_MAX
+        assert plan.smem == int8_mm.matmul_shared_bytes(k, plan.cols,
+                                                        plan.cluster,
+                                                        plan.stages)
+        # one stage more would not fit, unless the plan is at the cap
+        assert (plan.stages == int8_mm.MM_STAGES_MAX
+                or int8_mm.matmul_shared_bytes(k, plan.cols, plan.cluster,
+                                               plan.stages + 1)
+                > int8_mm.SMEM_MAX)
+    # K not a multiple of 128, N not split by 192 or 128 into <= 16, W's
+    # slice past the budget: the 16-row kernel
+    for k, n in ((64, 64), (192, 512), (768, 1088), (1024, 3072)):
+        assert int8_mm.matmul_plan(k, n) == (
+            "rows16", 1, n, 16, 0, int8_mm.shared_bytes(k, n))
+    assert int8_mm.matmul_plan(768, 768) == (
+        "cluster", 4, 192, 64, 4, int8_mm.matmul_shared_bytes(768, 192, 4, 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        int8_mm.matmul_plan(512, 4096)
+    with pytest.raises(ValueError, match="K % 64"):
+        int8_mm.matmul_plan(96, 256)
+
+
+def test_both_k8_entry_points_take_the_same_arguments():
+    """The wrapper hands either library entry the same arguments."""
+    from textreid_torch.ops import _build
+
+    assert (_build.SIGNATURES["int8_matmul_requant"]
+            == _build.SIGNATURES["int8_matmul_requant_rows16"])
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k8", "k9"])
+def test_every_variant_edits_text_of_its_source(kernel):
+    """``tools/int8_variants.py`` builds each variant by replacing text of
+    the kernel's source: every text it replaces is in that source, once per
+    edit at least, and the entry point it times is a signature of the
+    library (the variants build only on the card, so a stale edit would show
+    only there)."""
+    from textreid_torch.ops import _build
+    from textreid_torch.tools import int8_variants
+
+    source, entry, table, *_ = int8_variants.KERNELS[kernel]
+    text = (_build.CSRC / source).read_text()
+    assert "as committed" in table and entry in _build.SIGNATURES
+    assert f'extern "C" int {entry}(' in text
+    for name, edits in table.items():
+        for old, new in edits:
+            assert old in text, (name, old)
+            assert old != new, name
+
+
+def _cluster_matmul_requant(xq, wq, s_w, b, r_row, s_next, op, cols, rng):
+    """K8 as the cluster kernel decomposes it, in numpy (integers) and f32
+    elementwise torch steps: 64-row tiles; block c's columns [c cols, (c +
+    1) cols) from its slice of w; each block's partial row maxima of |xn|,
+    merged in a shuffled order; each slice rounded with the whole row's
+    scale."""
+    from textreid_torch.ops.requant import quick_gelu
+
+    rows, n = xq.shape[0], wq.shape[1]
+    blocks = n // cols
+    q = np.zeros((rows, n), np.int8)
+    r = np.zeros((rows, 1), np.float32)
+    for t0 in range(0, rows, 64):
+        tile = slice(t0, min(t0 + 64, rows))
+        xn, part_max = [], []
+        for c in range(blocks):
+            cs = slice(c * cols, (c + 1) * cols)
+            acc = xq[tile].astype(np.int64) @ wq[:, cs].astype(np.int64)
+            y = torch.from_numpy(acc.astype(np.int32)).float() * (
+                torch.from_numpy(s_w[cs].copy()))
+            y = y * torch.from_numpy(r_row[tile]) + torch.from_numpy(
+                b[cs].copy())
+            if op == "gelu":
+                y = quick_gelu(y)
+            x_c = y * torch.reciprocal(torch.from_numpy(s_next[cs].copy()))
+            xn.append(x_c)
+            part_max.append(x_c.abs().amax(dim=-1, keepdim=True))
+        order = rng.permutation(blocks)
+        m = part_max[order[0]]
+        for c in order[1:]:
+            m = torch.maximum(m, part_max[c])
+        r_t = m.clamp_min(1e-6) * (1.0 / 127.0)
+        for c in rng.permutation(blocks):
+            v = xn[c] * torch.reciprocal(r_t)
+            v = v + torch.where(v >= 0, 0.5, -0.5)
+            q[tile, c * cols:(c + 1) * cols] = v.clamp(-127.0, 127.0).to(
+                torch.int8).numpy()
+        r[tile] = r_t.numpy()
+    return torch.from_numpy(q), torch.from_numpy(r)
+
+
+@pytest.mark.parametrize("op", ["gelu", "none"])
+@pytest.mark.parametrize("rows,n", [(37, 2048), (64, 2048), (130, 2048),
+                                    (37, 3072), (64, 3072), (130, 3072)])
+def test_cluster_decomposition_equals_the_plain_matmul_requant(rows, n, op):
+    """K8's cluster kernel arithmetic (the columns split over N / cols
+    blocks, each block's row maxima exchanged, each slice rounded with the
+    row's scale) equals ``int8_matmul_requant_plain`` bit for bit: a max is
+    exact in any order, and every other step is elementwise."""
+    k = n // 4
+    site = _site(rows, k, n, seed=rows + n + len(op))
+    plan = int8_mm.matmul_plan(k, n)
+    assert plan.kernel == "cluster" and plan.rows == 64
+    got = _cluster_matmul_requant(*site, op, plan.cols,
+                                  np.random.RandomState(rows))
+    want = int8_mm.int8_matmul_requant_plain(*_torch(site), op=op)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("value,default,want", [

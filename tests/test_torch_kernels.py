@@ -617,7 +617,8 @@ def test_cpu_tensors_of_the_int8_kernels_launch_nothing():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", ["ln", "none", "gelu"])
-@pytest.mark.parametrize("rows,c", [(37, 512), (256, 768), (64, 3072)])
+@pytest.mark.parametrize("rows,c", [(37, 512), (256, 768), (64, 2048),
+                                    (64, 3072)])
 def test_requant_kernel_matches_plain(cuda, rows, c, op, dtype):
     from textreid_torch.ops import requant
 
@@ -694,6 +695,51 @@ def test_cluster_int8_ffn_equals_the_16_row_kernel(cuda, rows, k, n, dtype):
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
     allowed = 4 * 127.0 * site[7][None, :] * r_mid + ulp * want.float().abs()
     assert ((got.float() - want.float()).abs() <= allowed).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["gelu", "none"])
+@pytest.mark.parametrize("rows,k,n", [(24704, 768, 3072), (25600, 512, 2048),
+                                      (37, 512, 2048), (100, 512, 2048),
+                                      (37, 768, 3072), (100, 768, 3072)])
+def test_cluster_int8_matmul_requant_equals_the_16_row_kernel(cuda, rows, k,
+                                                             n, op):
+    """K8's cluster kernel (W resident across 16 blocks, wgmma, the row
+    maxima swapped between the blocks) at both towers' c_fc: the same
+    integer sums and f32 steps as the 16-row kernel, so the same q and r
+    bit for bit, and within the gate of the plain version."""
+    from textreid_torch.ops import int8_mm
+    from textreid_torch.tools.int8_variants import matmul_rows16
+
+    assert int8_mm.matmul_plan(k, n).kernel == "cluster"
+    site = _int8_site(rows, k, n, cuda, seed=rows + k)
+    before = int8_mm.fused_int8_matmul_requant.launches
+    got = int8_mm.fused_int8_matmul_requant(*site, op=op)
+    old = matmul_rows16(*site, op=op)
+    want = int8_mm.int8_matmul_requant_plain(*site, op=op)
+    torch.cuda.synchronize()
+    assert int8_mm.fused_int8_matmul_requant.launches == before + 1
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    _int8_agree(got, want)
+
+
+@pytest.mark.gpu
+def test_comparison_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    """The 16-row K8, called apart for comparison, checks its inputs as the
+    main wrapper does and counts no launch."""
+    from textreid_torch.ops import int8_mm
+    from textreid_torch.tools.int8_variants import matmul_rows16
+
+    before = int8_mm.fused_int8_matmul_requant.launches
+    with pytest.raises(ValueError, match="K % 64"):
+        matmul_rows16(*_int8_site(4, 96, 64, cuda))
+    site = _int8_site(4, 64, 64, cuda)
+    with pytest.raises(ValueError, match="r_row"):
+        matmul_rows16(*site[:4], site[4][:2], site[5])
+    q, r = matmul_rows16(*site)
+    torch.cuda.synchronize()
+    assert q.shape == (4, 64) and r.shape == (4, 1)
+    assert int8_mm.fused_int8_matmul_requant.launches == before
 
 
 @pytest.mark.gpu

@@ -118,3 +118,60 @@ def test_cpu_tensors_launch_nothing():
     x, s = _inputs((4, 128), 33)
     requant.fused_requant(torch.from_numpy(x), torch.from_numpy(s), "ln")
     assert requant.fused_requant.launches == before
+
+
+def _register_ln_requant(x, s, vec, eps=1e-5):
+    """The LayerNorm requant as the register design orders it, in numpy
+    f32: lane l of a warp owns the 16-byte pieces (32 j + l) vec on, sums
+    its channels four at a time ((a + b) + (c + d)) piece after piece, the
+    warp adds the 32 partial sums by a butterfly of xor shuffles; the rsqrt
+    is numpy's, not the card's rsqrtf."""
+    f32 = np.float32
+    rows, c = x.shape
+    loads = -(-c // (32 * vec))
+    idx = (np.arange(loads)[None, :, None] * 32
+           + np.arange(32)[:, None, None]) * vec + np.arange(vec)
+    live = idx < c
+    v = np.where(live[None], x[:, np.minimum(idx, c - 1)], f32(0))
+    sums = np.zeros((rows, 32), f32)
+    for j in range(loads):
+        for e in range(0, vec, 4):
+            quad = v[:, :, j, e:e + 4]
+            sums = sums + ((quad[..., 0] + quad[..., 1])
+                           + (quad[..., 2] + quad[..., 3]))
+
+    def warp_sum(part):
+        for o in (16, 8, 4, 2, 1):
+            part = part + part[:, np.arange(32) ^ o]
+        return part[:, :1]
+
+    mean = warp_sum(sums) / f32(c)
+    sq = np.zeros((rows, 32), f32)
+    for j in range(loads):
+        for e in range(0, vec, 4):
+            d = v[:, :, j, e:e + 4] - mean[:, :, None]
+            d = np.where(live[None, :, j, e:e + 4], d, f32(0))
+            sq = sq + ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+                       + (d[..., 2] * d[..., 2] + d[..., 3] * d[..., 3]))
+    var = warp_sum(sq) / f32(c)
+    rstd = f32(1) / np.sqrt(var + f32(eps))
+    xn = ((x - mean) * rstd) * (f32(1) / s)
+    r = np.maximum(np.abs(xn).max(axis=1, keepdims=True), f32(1e-6)) * f32(
+        1.0 / 127.0)
+    t = xn * (f32(1) / r)
+    t = t + np.where(t >= 0, f32(0.5), f32(-0.5))
+    return np.clip(t, -127, 127).astype(np.int8), r.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [512, 768])
+def test_register_design_order_agrees_with_the_plain_version(c, dtype):
+    """The register design sums a row in another order than torch (its own
+    lane mapping, 8 bf16 or 4 f32 channels a piece): its LayerNorm requant
+    still agrees with ``requant_plain`` within the gate."""
+    x, s = _inputs((48, c), 40 + c)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    vec = 8 if dtype == "bfloat16" else 4
+    got = _register_ln_requant(xt.float().numpy(), s, vec)
+    want = requant.requant_plain(xt, torch.from_numpy(s), "ln")
+    _agree((torch.from_numpy(got[0]), torch.from_numpy(got[1])), want)

@@ -1,6 +1,8 @@
-// int8_matmul_requant (K8) and int8_ffn (K7): int8 x int8 -> int32 products
-// with the decode, quickGELU and per-row requant done on the output tile
-// before anything reaches device memory.
+// int8_matmul_requant_rows16 (K8 on a 16-row tile) and int8_ffn (K7):
+// int8 x int8 -> int32 products with the decode, quickGELU and per-row
+// requant done on the output tile before anything reaches device memory.
+// K8's main kernel is int8_mm_sm90.cu (W resident across a cluster, wgmma);
+// ops/int8_mm.py:matmul_plan sends the shapes it does not take here.
 //
 // Replaces: textreid_tpu/ops/int8_mm_pallas.py:fused_int8_matmul_requant
 // (Pallas kernel _kernel) and :fused_int8_ffn (_ffn_kernel).  Contract
@@ -20,12 +22,13 @@
 // reads every weight once, 32 operations a byte (3.6 GB a call at the ViT's
 // c_fc, some 4 TB/s of L2 reads at 0.88 ms).
 //
-// K8's design, and the 16-row K7 kept for comparison (int8_ffn_rows16).  The
-// row's abs-max needs all N outputs of the row before one can be rounded,
-// and the value rounded must be the f32 value whose max was taken.  A row of
-// f32 is up to 12 KB, so a block owns ONE mma.sync row tile of 16 rows and
-// keeps its whole f32 middle [16, N] in shared memory (197 KB at N = 3072),
-// with the int8 input tile beside it.  The TPU kernel's resident [K, N]
+// The 16-row K8 (it serves the shapes int8_mm_sm90.cu does not take, and is
+// timed against it), and the 16-row K7 kept for comparison
+// (int8_ffn_rows16).  The row's abs-max needs all N outputs of the row
+// before one can be rounded, and the value rounded must be the f32 value
+// whose max was taken.  A row of f32 is up to 12 KB, so a block owns ONE
+// mma.sync row tile of 16 rows and keeps its whole f32 middle [16, N] in
+// shared memory (197 KB at N = 3072), with the int8 input tile beside it.  The TPU kernel's resident [K, N]
 // weight does not fit an SM: the weights stream from L2 (2.4 MB, or 2 x 1
 // MB, stay there across blocks) straight into the B fragments.  16 warps
 // split the output columns in groups of 32 (the loads of 16 warps in flight
@@ -891,11 +894,14 @@ cudaError_t dispatch_cluster(const void* x, const void* w1_t,
 // Plain C entry points (bound with ctypes).  K % 64 == 0, N % 64 == 0,
 // N <= 4096, M % 8 == 0, the tile within the card's shared memory, x and the
 // weights 16-byte aligned: the Python wrapper checks.  Return cudaError_t.
-extern "C" int int8_matmul_requant(const void* x, const void* w_t,
-                                   const void* s_w, const void* b,
-                                   const void* r_row, const void* s_next,
-                                   void* q, void* r_out, int rows, int k,
-                                   int n, int gelu, void* stream) {
+// K8 on the 16-row tile: the shapes ops/int8_mm.py:matmul_plan gives it, and
+// the yardstick of int8_mm_sm90.cu's kernel (chip_smoke.py:check_k8).
+extern "C" int int8_matmul_requant_rows16(const void* x, const void* w_t,
+                                          const void* s_w, const void* b,
+                                          const void* r_row,
+                                          const void* s_next, void* q,
+                                          void* r_out, int rows, int k, int n,
+                                          int gelu, void* stream) {
   const size_t smem = tile_bytes(k, n);
   cudaError_t err = allow_shared(matmul_requant_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,12 +17,35 @@
 // element.  The composition in eager PyTorch reads and writes the row some
 // eight times.
 //
-// Design: one warp owns a row.  The row is staged in shared memory as f32
-// (the statistics need two passes over it and the rounding a third), the
-// reductions are warp shuffles, and nothing is synchronised across warps.
-// A block holds 8 warps and the reciprocal scales (computed once a block);
-// blocks stride over the rows.  Each lane loads 4 consecutive channels (16
-// bytes of f32) and stores them as one packed 32-bit word.
+// Design: one warp owns a row, and for C <= 1024 (every LayerNorm and
+// identity site of both towers: C = 512, 768) the row stays in registers,
+// C / 32 values a lane (rows_kernel).  A lane loads 16 bytes at a time (8
+// bf16 or 4 f32 channels; a warp's load covers 512 contiguous bytes) and
+// always owns the same channels, so it takes their reciprocal scales once
+// per launch.  The mean, the variance, the abs-max and the rounding run
+// from registers with warp shuffles only; the next row's loads are issued
+// before the current row's reductions, so each warp keeps two rows in
+// flight; a lane stores each 8 (bf16) or 4 (f32) channels as one packed
+// int8 word.  The grid is as many blocks as the card holds at once (the
+// occupancy API), striding over the rows: no ragged last wave.  Wider rows
+// (the quickGELU sites at C = 2048, 3072), and bf16 rows of C % 8 != 0, run
+// the staged design (staged_kernel): the row in shared memory as f32, four
+// passes over it (sum, variance, scale and abs-max, rounding), 4 channels a
+// lane, 8 warps a block with the block's reciprocal scales; it is the
+// kernel of every C before the register design.  The choice is made by C
+// in `launch` below.  `python -m textreid_torch.tools.int8_variants
+// --variants k9` times the register design in turns with the staged
+// design at every C (a text patch of this file) and, with `--against`,
+// with another checkout's requant.cu.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; tools/int8_variants.py --variants
+// k9, ln, bf16, in turns with the staged design, launches queued behind a
+// device sleep so that the host's time to issue them is not counted):
+// [24,704, 768] 0.0277 ms warm (staged 0.0311), 0.0317 ms with L2 flushed
+// before each launch (0.0347), against a bound of 0.0170; [25,600, 512]
+// 0.0195 warm (0.0202), 0.0246 flushed (0.0243), bound 0.0118.  Through
+// the wrapper as the host issues the launches, 0.035-0.052 ms: the
+// wrapper's host time, not the kernel, sets that reading.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,6 +54,7 @@
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kRegisterC = 1024;  // widest row held in registers
 constexpr int kOpLn = 1;
 constexpr int kOpGelu = 2;
 constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
@@ -70,9 +94,9 @@ __device__ __forceinline__ uint32_t quantize(float xn, float inv_r) {
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-requant_kernel(const T* __restrict__ x, const float* __restrict__ s,
-               int8_t* __restrict__ q, float* __restrict__ r_out, int rows,
-               int c, int op, float eps) {
+staged_kernel(const T* __restrict__ x, const float* __restrict__ s,
+              int8_t* __restrict__ q, float* __restrict__ r_out, int rows,
+              int c, int op, float eps) {
   extern __shared__ float4 smem4[];
   float* inv_s = reinterpret_cast<float*>(smem4);  // [C]
   const int warp = threadIdx.x >> 5;
@@ -145,10 +169,11 @@ requant_kernel(const T* __restrict__ x, const float* __restrict__ s,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* s, void* q, void* r, int rows,
-                   int c, int op, float eps, cudaStream_t stream) {
+cudaError_t launch_staged(const void* x, const void* s, void* q, void* r,
+                          int rows, int c, int op, float eps,
+                          cudaStream_t stream) {
   const size_t smem = sizeof(float) * (1 + kWarps) * c;
-  auto kernel = requant_kernel<T>;
+  auto kernel = staged_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -159,6 +184,205 @@ cudaError_t launch(const void* x, const void* s, void* q, void* r, int rows,
       static_cast<const T*>(x), static_cast<const float*>(s),
       static_cast<int8_t*>(q), static_cast<float*>(r), rows, c, op, eps);
   return cudaGetLastError();
+}
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, uint4& raw) {
+  raw = __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// 16 bytes of a row (8 bf16 or 4 f32 channels) as floats
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* v) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+      v[2 * i] = __low2float(h);
+      v[2 * i + 1] = __high2float(h);
+    }
+  } else {
+    v[0] = __uint_as_float(raw.x);
+    v[1] = __uint_as_float(raw.y);
+    v[2] = __uint_as_float(raw.z);
+    v[3] = __uint_as_float(raw.w);
+  }
+}
+
+// kLoads 16-byte pieces a lane hold a row of up to 32 kLoads kVec channels
+// (kVec = 8 bf16 or 4 f32): piece j of lane l is channels (32 j + l) kVec
+// on.  Pieces past C are neither loaded nor stored.
+template <typename T, int kLoads>
+__global__ void __launch_bounds__(kWarps * 32)
+rows_kernel(const T* __restrict__ x, const float* __restrict__ s,
+            int8_t* __restrict__ q, float* __restrict__ r_out, int rows,
+            int c, int op, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  bool live[kLoads];
+  float inv_s[kLoads][kVec];
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int ch = (32 * j + lane) * kVec;
+    live[j] = ch < c;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      inv_s[j][e] = live[j] ? __frcp_rn(s[ch + e]) : 0.0f;
+  }
+  const int stride = gridDim.x * kWarps;
+  int row = blockIdx.x * kWarps + warp;
+  uint4 raw[kLoads];
+  if (row < rows) {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j)
+      if (live[j])
+        load16(x + static_cast<size_t>(row) * c + (32 * j + lane) * kVec,
+               raw[j]);
+  }
+  const float count = static_cast<float>(c);
+  for (; row < rows; row += stride) {
+    float v[kLoads][kVec];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (live[j]) {
+        unpack16<T>(raw[j], v[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[j][e] = 0.0f;
+      }
+    }
+    const int next = row + stride;  // its loads fly during this row's work
+    if (next < rows) {
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j)
+        if (live[j])
+          load16(x + static_cast<size_t>(next) * c + (32 * j + lane) * kVec,
+                 raw[j]);
+    }
+    float mean = 0.0f, rstd = 1.0f;
+    if (op == kOpLn) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j)
+#pragma unroll
+        for (int e = 0; e < kVec; e += 4)
+          sum += (v[j][e] + v[j][e + 1]) + (v[j][e + 2] + v[j][e + 3]);
+      mean = __fdiv_rn(warp_sum(sum), count);
+      float sq = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        if (!live[j]) continue;
+#pragma unroll
+        for (int e = 0; e < kVec; e += 4) {
+          const float d0 = v[j][e] - mean, d1 = v[j][e + 1] - mean,
+                      d2 = v[j][e + 2] - mean, d3 = v[j][e + 3] - mean;
+          sq = __fadd_rn(sq, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0),
+                                                 __fmul_rn(d1, d1)),
+                                       __fadd_rn(__fmul_rn(d2, d2),
+                                                 __fmul_rn(d3, d3))));
+        }
+      }
+      const float var = __fdiv_rn(warp_sum(sq), count);
+      rstd = rsqrtf(__fadd_rn(var, eps));
+    }
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        float y = v[j][e];
+        if (op == kOpLn) {
+          y = __fmul_rn(y - mean, rstd);
+        } else if (op == kOpGelu) {
+          const float t = __fmul_rn(1.702f, y);
+          y = __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-t))));
+        }
+        v[j][e] = __fmul_rn(y, inv_s[j][e]);  // 0 past C: inv_s is 0
+        amax = fmaxf(amax, fabsf(v[j][e]));
+      }
+    }
+    amax = warp_max(amax);
+    const float r = __fmul_rn(fmaxf(amax, 1e-6f), kInv127);
+    const float inv_r = __frcp_rn(r);
+    int8_t* qr = q + static_cast<size_t>(row) * c;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (!live[j]) continue;
+      uint32_t word[kVec / 4];
+#pragma unroll
+      for (int i = 0; i < kVec / 4; ++i)
+        word[i] = quantize(v[j][4 * i], inv_r) |
+                  (quantize(v[j][4 * i + 1], inv_r) << 8) |
+                  (quantize(v[j][4 * i + 2], inv_r) << 16) |
+                  (quantize(v[j][4 * i + 3], inv_r) << 24);
+      int8_t* dst = qr + (32 * j + lane) * kVec;
+      if constexpr (kVec == 8) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(word[0], word[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = word[0];
+      }
+    }
+    if (lane == 0) r_out[row] = r;
+  }
+}
+
+// Blocks of rows_kernel<T, kLoads> the card holds at once, cached.
+template <typename T, int kLoads>
+cudaError_t resident_blocks(int* blocks) {
+  static int cached = 0;
+  if (cached == 0) {
+    int per_sm = 0, sms = 0, dev = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rows_kernel<T, kLoads>, kWarps * 32, 0);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached = per_sm * sms;
+  }
+  *blocks = cached;
+  return cudaSuccess;
+}
+
+template <typename T, int kLoads>
+cudaError_t launch_rows(const void* x, const void* s, void* q, void* r,
+                        int rows, int c, int op, float eps,
+                        cudaStream_t stream) {
+  int blocks = 0;
+  const cudaError_t err = resident_blocks<T, kLoads>(&blocks);
+  if (err != cudaSuccess) return err;
+  const int needed = (rows + kWarps - 1) / kWarps;
+  rows_kernel<T, kLoads><<<needed < blocks ? needed : blocks, kWarps * 32, 0,
+                           stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s),
+      static_cast<int8_t*>(q), static_cast<float*>(r), rows, c, op, eps);
+  return cudaGetLastError();
+}
+
+// The design by C: registers up to kRegisterC (whole 16-byte pieces), the
+// staged kernel past it.
+template <typename T>
+cudaError_t launch(const void* x, const void* s, void* q, void* r, int rows,
+                   int c, int op, float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int loads = (c / kVec + 31) / 32;  // 16-byte pieces a lane
+  if (c > kRegisterC || c % kVec)
+    return launch_staged<T>(x, s, q, r, rows, c, op, eps, stream);
+  switch (loads) {
+    case 1:
+      return launch_rows<T, 1>(x, s, q, r, rows, c, op, eps, stream);
+    case 2:
+      return launch_rows<T, 2>(x, s, q, r, rows, c, op, eps, stream);
+    case 3:
+      return launch_rows<T, 3>(x, s, q, r, rows, c, op, eps, stream);
+    case 4:
+      return launch_rows<T, 4>(x, s, q, r, rows, c, op, eps, stream);
+    default:  // f32: 5 to 8 pieces
+      return launch_rows<T, kRegisterC / 32 / kVec>(x, s, q, r, rows, c, op,
+                                                    eps, stream);
+  }
 }
 
 }  // namespace

@@ -70,6 +70,13 @@ SIGNATURES = {
     # xq, w_t, s_w, b, r_row, s_next, q, r, rows, K, N, gelu, stream
     "int8_matmul_requant": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
+    # the 16-row kernel (the shapes the cluster kernel does not take, and
+    # its yardstick): the same arguments
+    "int8_matmul_requant_rows16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _P),
+    # lo, hi (float bits), a zeroed u64 counter, stream: the check of the
+    # cluster kernel's reciprocal against __frcp_rn
+    "int8_mm_rcp_mismatches": (ctypes.c_uint, ctypes.c_uint, _P, _P),
     # xq, w1_t, s_w1, b1, r_row, s_mid, w2_t, s_w2, b2, out, rows, K, N, M,
     # out_bf16, stream
     "int8_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -174,6 +181,11 @@ def library() -> ctypes.CDLL:
     # K, N, M, out: K7's blocks a cluster and rows a tile
     lib.int8_ffn_plan.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 2
     lib.int8_ffn_plan.restype = ctypes.c_int
+    # K, N, out: K8's columns a block, blocks a cluster, stages, rows a
+    # tile, shared bytes and the clusters the card holds at once
+    lib.int8_matmul_requant_plan.argtypes = ([_I, _I]
+                                             + [ctypes.POINTER(_I)] * 6)
+    lib.int8_matmul_requant_plan.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib

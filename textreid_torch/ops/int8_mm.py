@@ -18,12 +18,15 @@ there) rounds it to the tower dtype first; in an f32 tower the two are the
 same function, in a bf16 tower the kernels are the tighter path.  K7 casts
 ``z`` to ``out_dtype`` before adding ``b2`` in ``out_dtype``.
 
-On a CUDA tensor the wrappers launch ``csrc/int8_mm.cu`` (products by
-``mma.sync`` s8 in the kernel's own body) or raise on a shape it does not
-take; on a CPU tensor they run :func:`int8_matmul_requant_plain` and
-:func:`int8_ffn_plain`.  Nothing falls back from one to the other.  K8 runs
-a 16-row tile a block; K7 a tile of up to 64 rows split over a cluster of
-``ceil(N / 512)`` blocks (:func:`ffn_plan`).
+On a CUDA tensor the wrappers launch a kernel or raise on a shape none
+takes; on a CPU tensor they run :func:`int8_matmul_requant_plain` and
+:func:`int8_ffn_plain`.  Nothing falls back from one to the other.  K8
+(:func:`matmul_plan` picks by shape) runs ``csrc/int8_mm_sm90.cu``: W
+resident across a cluster of ``N / cols`` blocks, products by ``wgmma``
+s8, 64-row tiles; shapes it does not take run the 16-row tile of
+``csrc/int8_mm.cu`` (``mma.sync`` s8).  K7 runs a tile of up to 64 rows
+split over a cluster of ``ceil(N / 512)`` blocks (:func:`ffn_plan`,
+``csrc/int8_mm.cu``).
 
 Weights are ``[K, N]`` as in the JAX package.  The kernels read them with
 each output channel's K values contiguous, so a weight held as the
@@ -38,15 +41,27 @@ on the CPU.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 from .requant import _check_op, quick_gelu, requant_rowdyn
 
 MM_OPS = ("none", "gelu")
-ROW_TILE = 16  # rows a block of K8 owns: one mma.sync row tile
-WARPS = 16  # warps of a K8 block, each with a row-max slot in shared memory
+ROW_TILE = 16  # rows a block of the 16-row K8 owns: one mma.sync row tile
+WARPS = 16  # warps of a 16-row K8 block, each with a row-max slot
 SMEM_MAX = 232448  # bytes of shared memory a block can take on sm_90
+# K8's cluster kernel (csrc/int8_mm_sm90.cu): a block owns the first of
+# MM_COLS columns that splits N into at most MM_CLUSTER_MAX slices; two
+# consumer warpgroups, each on its own tiles of MM_ROWS rows fed through its
+# own ring of up to MM_STAGES_MAX stages of MM_ROWS x MM_CHUNK input bytes
+MM_COLS = (192, 128)
+MM_CLUSTER_MAX = 16
+MM_ROWS = 64
+MM_CHUNK = 128
+MM_CONSUMERS = 2
+MM_STAGES_MAX = 8
 # K7's cluster tile (csrc/int8_mm.cu, ffn_cluster_kernel): a block owns at
 # most SLICE middle columns and OUT_SLICE output columns; rows a tile, in
 # order of preference; the warps that share a row (a block's 16 warps work
@@ -182,6 +197,52 @@ def ffn_plan(k: int, n: int, m_out: int) -> tuple:
         f"bytes of shared memory, the card has {SMEM_MAX}")
 
 
+def matmul_shared_bytes(k: int, cols: int, cluster: int, stages: int) -> int:
+    """Shared memory of one block of K8's cluster kernel
+    (``csrc/int8_mm_sm90.cu:sm90_bytes``): 1 KB of slack to align the base
+    to a swizzle atom, the block's ``[cols, K]`` int8 slice of the weight,
+    each consumer's ring of ``stages`` input stages and row maxima ``[2,
+    cluster, MM_ROWS]`` f32, the slice's three f32 vectors and the
+    mbarriers."""
+    return (1024 + cols * k + MM_CONSUMERS * stages * MM_ROWS * MM_CHUNK
+            + 4 * MM_CONSUMERS * 2 * cluster * MM_ROWS + 12 * cols
+            + 8 * (MM_CONSUMERS * (2 * stages + 2) + 1))
+
+
+class MatmulPlan(NamedTuple):
+    """K8's kernel at a shape: ``"cluster"`` (``int8_mm_sm90.cu``) or
+    ``"rows16"`` (``int8_mm.cu``), blocks a cluster, columns a block, rows a
+    tile, input stages a consumer and shared bytes a block."""
+    kernel: str
+    cluster: int
+    cols: int
+    rows: int
+    stages: int
+    smem: int
+
+
+def matmul_plan(k: int, n: int) -> MatmulPlan:
+    """K8's kernel for ``[rows, K] @ [K, N]``, as the library's
+    ``int8_matmul_requant_plan`` gives it: the cluster kernel where K is a
+    multiple of ``MM_CHUNK`` and the first of ``MM_COLS`` that divides N
+    into at most ``MM_CLUSTER_MAX`` slices fits at least 2 stages a
+    consumer (as many as fit, up to ``MM_STAGES_MAX``); else the 16-row
+    kernel.
+    Raises on a shape neither takes."""
+    if k >= MM_CHUNK and k % MM_CHUNK == 0:
+        for cols in MM_COLS:
+            cluster = n // cols
+            if n % cols or cluster > MM_CLUSTER_MAX:
+                continue
+            for stages in range(MM_STAGES_MAX, 1, -1):
+                smem = matmul_shared_bytes(k, cols, cluster, stages)
+                if smem <= SMEM_MAX:
+                    return MatmulPlan("cluster", cluster, cols, MM_ROWS,
+                                      stages, smem)
+    _check_dims("fused_int8_matmul_requant", k, n)
+    return MatmulPlan("rows16", 1, n, ROW_TILE, 0, shared_bytes(k, n))
+
+
 def _check_dims(name: str, k: int, n: int, m_out: int = 0) -> None:
     if k % 64 or n % 64 or m_out % 8 or k < 64 or n < 64 or n > 4096:
         raise ValueError(
@@ -203,7 +264,19 @@ def _matmul_requant_cuda(xq, w_q, s_w, b, r_row, s_next, op):
     n = w_t.shape[0]
     if w_t.shape[1] != k:
         raise ValueError(f"w_q is {tuple(w_q.shape)}, xq has K={k}")
-    _check_dims("fused_int8_matmul_requant", k, n)
+    entry = ("int8_matmul_requant" if matmul_plan(k, n).kernel == "cluster"
+             else "int8_matmul_requant_rows16")
+    q, r = _launch_matmul_requant(entry, x2, w_t, s_w, b, r2, s_next, op)
+    if rows:
+        fused_int8_matmul_requant.launches += 1
+    return q.reshape(*lead, n), r.reshape(*lead, 1)
+
+
+def _launch_matmul_requant(entry, x2, w_t, s_w, b, r2, s_next, op):
+    """Launch K8's library entry ``entry`` on ``x2 [rows, K]`` and ``w_t
+    [N, K]``; returns (q ``[rows, N]``, r ``[rows, 1]``)."""
+    dev = x2.device
+    (rows, k), n = x2.shape, w_t.shape[0]
     s_w, b, s_next = (_vector(name, v, n, dev) for name, v in (
         ("s_w", s_w), ("b", b), ("s_next", s_next)))
     q = torch.empty(rows, n, dtype=torch.int8, device=dev)
@@ -212,13 +285,12 @@ def _matmul_requant_cuda(xq, w_q, s_w, b, r_row, s_next, op):
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.int8_matmul_requant(
+            err = getattr(lib, entry)(
                 x2.data_ptr(), w_t.data_ptr(), s_w.data_ptr(), b.data_ptr(),
                 r2.data_ptr(), s_next.data_ptr(), q.data_ptr(), r.data_ptr(),
                 rows, k, n, int(op == "gelu"), stream)
-        _build.check(err, "int8_matmul_requant")
-        fused_int8_matmul_requant.launches += 1
-    return q.reshape(*lead, n), r.reshape(*lead, 1)
+        _build.check(err, entry)
+    return q, r
 
 
 def _ffn_cuda(xq, w1_q, s_w1, b1, r_row, s_mid, w2_q, s_w2, b2, out_dtype):
@@ -260,8 +332,8 @@ def fused_int8_matmul_requant(xq, w_q, s_w, b, r_row, s_next,
     -> requant for the consumer site.  ``s_w [N]`` decodes the weights,
     ``b [N]`` is the bias, ``r_row [..., 1]`` the input's row scale,
     ``s_next [N]`` the consumer's calibrated scale.  Returns (int8
-    ``[..., N]``, f32 ``[..., 1]``).  A CUDA tensor launches
-    ``int8_matmul_requant`` (counted in ``.launches``) or raises; a CPU
+    ``[..., N]``, f32 ``[..., 1]``).  A CUDA tensor launches the kernel
+    :func:`matmul_plan` picks (counted in ``.launches``) or raises; a CPU
     tensor runs :func:`int8_matmul_requant_plain`."""
     _check_op(op, MM_OPS)
     if xq.is_cuda:

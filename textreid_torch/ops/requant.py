@@ -9,9 +9,11 @@ calibrated per-channel scale, take the row's abs-max, round to int8.
 
 Eager PyTorch fuses nothing, so on the card the composition is eight or so
 launches over the activation; the kernel (``csrc/requant.cu``) reads each
-row once and writes the int8 row and one scale.  On a CUDA tensor
-:func:`fused_requant` launches it or raises; on a CPU tensor it runs
-:func:`requant_plain`, the same contract step for step:
+row once and writes the int8 row and one scale: a warp a row, the row held
+in registers up to C = 1024 (16-byte loads, two rows in flight a warp),
+staged in shared memory above that.  On a CUDA tensor :func:`fused_requant`
+launches it or raises; on a CPU tensor it runs :func:`requant_plain`, the
+same contract step for step:
 
     x  = f32(x);  ln: (x - mean) * rsqrt(mean((x - mean)^2) + eps)
                   gelu: x * sigmoid(1.702 x)
@@ -30,7 +32,8 @@ import torch
 from . import _build
 
 OPS = ("none", "ln", "gelu")
-# the kernel keeps 8 rows and the reciprocal scales in shared memory as f32
+# above C = 1024 the kernel keeps 8 rows and the reciprocal scales in shared
+# memory as f32
 C_MAX = 4096
 
 
