@@ -18,18 +18,21 @@ before the result line:
    (25,600 rows, K=512, N=2048) and 37 rows (K7 and K8 also 100 rows and
    the ViT's widths at 37 and 100; K7's cluster tile and K8's cluster
    kernel against the 16-row kernels, bit for bit, and K8's plan from the
-   library against ``ops/int8_mm.py:matmul_plan``), f32 and bf16; K1 and
-   K2 at
-   the serving shapes; K3 (the one-direction GRU scan) at T=105, H=512 and
-   B=1, 37, 128 and 256 in bf16 (the W-resident kernel, its launch plan
-   held against ``ops/gru.py:resident_plan``) and B=256 and 37 in f32 (the
-   streamed kernel), with a non-zero h0 and both scan orders; K4
-   (the int8 streaming top-k) at Q=256, D=256, G=3,074 and 98,304, k=10
-   and 64, with duplicated rows; K2 also with its bf16 compute option at
-   G=3,074 and 98,304; K5 and K6 in bf16 (tensor cores) and f32 (FP32
-   cores) at the ViT-B/16 shape (B=128, S=193, W=768, 12 heads), the causal
-   CLIP-text shapes (B=128, S=77 and B=256, S=100; W=512, 8
-   heads), S=288 causal and not, S=257 and a ragged S=45 at head_dim 32,
+   library against ``ops/int8_mm.py:matmul_plan``), f32 and bf16; K1 at
+   the serving shapes; K2 and K4 (the streaming top-k, f32 and int8
+   gallery) at Q=1, 3 and 256, D=256 over G=3,074, 98,304 and a ragged
+   1,001 with 990 valid rows, k=1-64, with duplicated rows and with equal
+   rows on either side of a split boundary of their plan (the larger row
+   first), K2 also with its bf16 compute option, and their plan from the
+   library held against ``ops/ranking.py:topk_plan``; K3 (the
+   one-direction GRU scan) at T=105, H=512 and B=1, 37, 128 and 256 in
+   bf16 (the W-resident kernel, its launch plan held against
+   ``ops/gru.py:resident_plan``) and B=256 and 37 in f32 (the streamed
+   kernel), with a non-zero h0 and both scan orders; K5 and K6 in bf16
+   (tensor cores) and f32 (FP32 cores) at the ViT-B/16 shape (B=128,
+   S=193, W=768, 12 heads), the causal CLIP-text shapes (B=128, S=77 and
+   B=256, S=100; W=512, 8 heads), S=288 causal and not, S=257 and a ragged
+   S=45 at head_dim 32,
    one token and one sample; K1's forwards (bf16: the W-resident kernel,
    f32: the streamed one), pooled-only and training, at B=1, 37, 128 and
    256 (T=105, H=512, ragged lengths and two empty rows), with the bf16
@@ -51,10 +54,14 @@ before the result line:
    turns with its plain version; K1's and K3's bf16 W-resident kernels
    also in turns with the streamed kernels they replaced (B=256, 128 and,
    for K3, 1; and one dependent step), K7's cluster tile and K8's cluster
-   kernel with the 16-row kernels at both towers' shapes, and K9 on the
-   device alone, warm and with L2 flushed.  One query through the index
-   launches K1 (and K3 twice a lower layer) on one row, and agrees with
-   the plain path.
+   kernel with the 16-row kernels at both towers' shapes, K9 on the
+   device alone, warm and with L2 flushed, and K2 and K4 at one and 256
+   queries over 3,074 and 98,304 rows in turns with the kernels they
+   replaced (``tools/topk_variants.py``), as issued and queued behind a
+   device sleep, with each shape's bound and the rows that entered a
+   split's top-k.  One query through the index launches K1 (and K3 twice a
+   lower layer) on one row and K2 (K4 from an int8 gallery) once on one
+   query, and agrees with the plain path.
 5. The evaluation slice through ``textreid_torch.test_net.main`` at the
    full width of ``configs/cuhkpedes/moco_gru2l_freeze_cliprn50_ls_bs128_
    2048.yaml`` (CLIP RN50 at 384x128, 2-layer bi-GRU H=512, T=105, bf16
@@ -69,7 +76,9 @@ before the result line:
    on the card, and each returned id's float score within the int8 error
    of its quantized one.
    Then ``/search`` latency from the int8 gallery at 3,074 and 98,304 rows,
-   and the index's search time from the float and the int8 gallery.
+   the index's search time from the float and the int8 gallery, and one
+   ``index.search`` of 256 queries at 98,304 rows from each (host and
+   device time).
 7. Int8-encoder serving of the full-CLIP model at the full width of
    ``configs/cuhkpedes/moco_fullclip_vitb16_ls_bs128_2048.yaml`` (ViT-B/16
    at 384x128 + the CLIP text transformer, 12 layers each, T=100, bf16
@@ -384,7 +393,11 @@ def check_k1_train_state(batch, args, name):
              "version")
 
 
-def k2_inputs(n_g, seed, n_q=256, dim=256, duplicates=False):
+def k2_inputs(n_g, seed, n_q=256, dim=256, duplicates=False, edge=0):
+    """Unit queries and gallery on the card.  ``duplicates``: exact score
+    ties (rows n_g/2.. repeat rows 0..63, row n_g-1 repeats row 3, queries
+    0-7 are rows 0-7).  ``edge``: rows edge-1 and edge hold one vector, and
+    query 0 is it (a tie across a split boundary at ``edge``)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -398,7 +411,50 @@ def k2_inputs(n_g, seed, n_q=256, dim=256, duplicates=False):
         gal[n_g // 2:n_g // 2 + 64] = gal[:64]
         gal[n_g - 1] = gal[3]
         q[:8] = gal[:8]
+    if edge:
+        gal[edge] = gal[edge - 1]
+        q[0] = gal[edge]
     return q.contiguous(), gal.contiguous()
+
+
+def split_edge(n_q, n_rows, kind):
+    """The first row of the second split of K2's / K4's plan at this shape
+    (0 if the plan has one split)."""
+    import torch
+    from textreid_torch.ops import ranking
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ranking.topk_plan(n_q, n_rows, 256, sms, kind)
+    return n_rows // plan.splits if plan.splits > 1 else 0
+
+
+def check_topk_plans():
+    """The library's plan of K2 and K4 (``topk_similarity_plan``) against
+    ``ops/ranking.py:topk_plan`` at the checked and timed shapes."""
+    import ctypes
+
+    import torch
+    from textreid_torch.ops import _build, ranking
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(n_q, n_g, dim) for n_q in (1, 3, 8, 24, 256, 1000)
+              for n_g in (40, 990, 3074, 98304) for dim in (256, 768)]
+    for kind_id, kind in enumerate(ranking.KINDS):
+        for n_q, n_rows, dim in shapes:
+            out = (ctypes.c_int * 4)()
+            _build.check(lib.topk_similarity_plan(kind_id, n_q, n_rows, dim,
+                                                  out), "topk_similarity_plan")
+            plan = ranking.topk_plan(n_q, n_rows, dim, sms, kind)
+            if tuple(out) != plan[:4]:
+                fail(f"K2/K4 plan {kind} Q={n_q} G={n_rows} D={dim}: library "
+                     f"{tuple(out)}, ops/ranking.py {plan[:4]}")
+    for n_q, n_g in TOPK_SHAPES:
+        log(f"K2/K4 plan Q={n_q} G={n_g} D=256 (q_tile, splits, stages, "
+            f"shared bytes): f32 {ranking.topk_plan(n_q, n_g, 256, sms)[:4]}, "
+            f"int8 {ranking.topk_plan(n_q, n_g, 256, sms, 'int8')[:4]}")
+    log(f"K2/K4 plans: the library's equal ops/ranking.py's at "
+        f"{3 * len(shapes)} shapes ({sms} SMs)")
 
 
 def check_k2():
@@ -409,21 +465,34 @@ def check_k2():
     from textreid_torch.ops import ranking
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(3074, k, 0, False, f32) for k in (1, 10, 64)]
-    cases += [(98304, k, 0, False, f32) for k in (1, 10, 64)]
-    cases += [(1001, 10, 990, False, f32),   # ragged G, masked tail
-              (40, 64, 0, False, f32),       # k > G: sentinel slots
-              (3074, 10, 0, True, f32),      # duplicated rows: exact ties
-              (3074, 10, 0, False, bf16), (98304, 10, 0, False, bf16),
-              (3074, 64, 0, True, bf16), (1001, 10, 990, False, bf16)]
+    cases = [(256, 3074, k, 0, False, f32) for k in (1, 10, 64)]
+    cases += [(256, 98304, k, 0, False, f32) for k in (1, 10, 64)]
+    cases += [(256, 1001, 10, 990, False, f32),   # ragged G, masked tail
+              (256, 40, 64, 0, False, f32),       # k > G: sentinel slots
+              (256, 3074, 10, 0, True, f32),      # duplicated rows: exact ties
+              (256, 3074, 10, 0, False, bf16),
+              (256, 98304, 10, 0, False, bf16),
+              (256, 3074, 64, 0, True, bf16),
+              (256, 1001, 10, 990, False, bf16)]
+    # one and three queries (the plan's 8-query tile over ~132 splits)
+    cases += [(n_q, n_g, k, valid, False, dtype) for n_q in (1, 3)
+              for n_g, k, valid in ((3074, 10, 0), (98304, 10, 0),
+                                    (98304, 64, 0), (1001, 10, 990))
+              for dtype in (f32, bf16)]
+    # equal rows on either side of a split boundary of the plan
+    cases += [(n_q, 3074, 10, 0, "edge", dtype) for n_q in (1, 3, 256)
+              for dtype in (f32, bf16)]
     worst = 0.0
-    for n_g, k, valid, dup, dtype in cases:
-        q, gal = k2_inputs(n_g, seed=n_g + k, duplicates=dup)
+    for n_q, n_g, k, valid, dup, dtype in cases:
+        n_valid = valid or n_g
+        edge = split_edge(n_q, n_valid, "bf16" if dtype == bf16 else "f32") \
+            if dup == "edge" else 0
+        q, gal = k2_inputs(n_g, seed=n_g + k + (n_q if n_q != 256 else 0),
+                           n_q=n_q, duplicates=dup is True, edge=edge)
         vals, idx = ranking.topk_similarity(q, gal, k, valid, dtype)
         pv, pi = ranking.topk_similarity_plain(q, gal, k, valid, dtype)
         torch.cuda.synchronize()
         err = (vals - pv).abs().max().item()
-        n_valid = valid or n_g
         scores = q.to(dtype).float() @ gal[:n_valid].to(dtype).float().T
         swapped = (idx != pi)
         bad = 0
@@ -433,18 +502,23 @@ def check_k2():
                     scores[r, i_k].item() - scores[r, i_p].item()) > K2_TOL:
                 bad += 1
         ties_ok = True
-        if dup:  # rows 3 and n_g-1 hold one vector: n_g-1 must come first
+        if dup is True:  # rows 3 and n_g-1 hold one vector: n_g-1 first
             row3 = idx[3].tolist()
             ties_ok = row3.index(n_g - 1) < row3.index(3)
+        elif dup == "edge":  # rows edge-1 and edge: edge first, both top
+            ties_ok = idx[0, :2].tolist() == [edge, edge - 1]
         dname = str(dtype).split(".")[1]
-        log(f"K2 topk_similarity_f32 Q=256 D=256 G={n_g} k={k} "
-            f"valid={n_valid}{' dup' if dup else ''} compute {dname}: "
+        tag = {True: " dup", "edge": f" tie across the split edge {edge}",
+               False: ""}[dup]
+        log(f"K2 topk_similarity_f32 Q={n_q} D=256 G={n_g} k={k} "
+            f"valid={n_valid}{tag} compute {dname}: "
             f"max_abs_err={err:.3e} "
             f"(tol {K2_TOL:.0e}), index mismatches={int(swapped.sum())} "
             f"(non-tie {bad}), tie order ok={ties_ok}")
         if not math.isfinite(err) or err > K2_TOL or bad or not ties_ok:
-            fail(f"K2 G={n_g} k={k} {dname} disagrees with its plain version")
-        if dtype == f32:
+            fail(f"K2 Q={n_q} G={n_g} k={k} {dname} disagrees with its "
+                 "plain version")
+        if dtype == f32 and n_q == 256:
             worst = max(worst, err)
     return worst
 
@@ -720,11 +794,11 @@ def check_k3():
     return worst
 
 
-def k4_inputs(n_g, seed, n_q=256, dim=256, duplicates=False):
+def k4_inputs(n_g, seed, n_q=256, dim=256, duplicates=False, edge=0):
     """Unit queries and a quantized unit gallery (``quantize_rows``)."""
     from textreid_torch.ops.quant import quantize_rows
 
-    q, gal = k2_inputs(n_g, seed, n_q, dim, duplicates)
+    q, gal = k2_inputs(n_g, seed, n_q, dim, duplicates, edge)
     quant = quantize_rows(gal)
     return q, quant.values.contiguous(), quant.scales.contiguous()
 
@@ -737,14 +811,24 @@ def check_k4():
     from textreid_torch.ops import ranking
     from textreid_torch.ops.quant import QuantizedGallery, quantized_scores
 
-    cases = [(3074, k, 0, False) for k in (10, 64)]
-    cases += [(98304, k, 0, False) for k in (10, 64)]
-    cases += [(1001, 10, 990, False),   # ragged G, masked tail
-              (40, 64, 0, False),       # k > G: sentinel slots
-              (3074, 10, 0, True)]      # duplicated rows: exact ties
+    cases = [(256, 3074, k, 0, False) for k in (10, 64)]
+    cases += [(256, 98304, k, 0, False) for k in (10, 64)]
+    cases += [(256, 1001, 10, 990, False),   # ragged G, masked tail
+              (256, 40, 64, 0, False),       # k > G: sentinel slots
+              (256, 3074, 10, 0, True)]      # duplicated rows: exact ties
+    # one and three queries (the plan's 8-query tile over ~132 splits)
+    cases += [(n_q, n_g, k, valid, False) for n_q in (1, 3)
+              for n_g, k, valid in ((3074, 10, 0), (98304, 10, 0),
+                                    (98304, 64, 0), (1001, 10, 990))]
+    # equal rows on either side of a split boundary of the plan
+    cases += [(n_q, 3074, 10, 0, "edge") for n_q in (1, 3, 256)]
     worst = 0.0
-    for n_g, k, valid, dup in cases:
-        q, values, scales = k4_inputs(n_g, seed=n_g + k, duplicates=dup)
+    for n_q, n_g, k, valid, dup in cases:
+        n_valid = valid or n_g
+        edge = split_edge(n_q, n_valid, "int8") if dup == "edge" else 0
+        q, values, scales = k4_inputs(
+            n_g, seed=n_g + k + (n_q if n_q != 256 else 0), n_q=n_q,
+            duplicates=dup is True, edge=edge)
         vals, idx = ranking.topk_similarity_quantized(q, values, scales, k,
                                                       valid)
         pv, pi = ranking.topk_similarity_quantized_plain(q, values, scales, k,
@@ -752,13 +836,12 @@ def check_k4():
         torch.cuda.synchronize()
         real = pi >= 0
         if not torch.equal(real, idx >= 0):
-            fail(f"K4 G={n_g} k={k}: sentinel slots differ")
+            fail(f"K4 Q={n_q} G={n_g} k={k}: sentinel slots differ")
         # |kernel - plain| over its allowance (1.0 = at the limit)
         err = ((vals - pv).abs() / (K4_RTOL * pv.abs() + K4_ATOL))[
             real].max().item()
         if not torch.equal(vals[~real], pv[~real]):
-            fail(f"K4 G={n_g} k={k}: sentinel scores differ")
-        n_valid = valid or n_g
+            fail(f"K4 Q={n_q} G={n_g} k={k}: sentinel scores differ")
         scores = quantized_scores(q, QuantizedGallery(values[:n_valid],
                                                       scales[:n_valid]))
         swapped = (idx != pi)
@@ -770,17 +853,22 @@ def check_k4():
                     K4_RTOL * abs(s_p) + K4_ATOL):
                 bad += 1
         ties_ok = True
-        if dup:  # rows 3 and n_g-1 hold one vector: n_g-1 must come first
+        if dup is True:  # rows 3 and n_g-1 hold one vector: n_g-1 first
             row3 = idx[3].tolist()
             ties_ok = row3.index(n_g - 1) < row3.index(3)
-        log(f"K4 topk_similarity_int8 Q=256 D=256 G={n_g} k={k} "
-            f"valid={n_valid}{' dup' if dup else ''}: worst error "
+        elif dup == "edge":  # rows edge-1 and edge: edge first, both top
+            ties_ok = idx[0, :2].tolist() == [edge, edge - 1]
+        tag = {True: " dup", "edge": f" tie across the split edge {edge}",
+               False: ""}[dup]
+        log(f"K4 topk_similarity_int8 Q={n_q} D=256 G={n_g} k={k} "
+            f"valid={n_valid}{tag}: worst error "
             f"{err:.3f} of its allowance (rtol {K4_RTOL:.0e} + atol "
             f"{K4_ATOL:.0e}), index mismatches={int(swapped.sum())} "
             f"(non-tie {bad}), tie order ok={ties_ok}")
         if not math.isfinite(err) or err > 1.0 or bad or not ties_ok:
-            fail(f"K4 G={n_g} k={k} disagrees with its plain version")
-        worst = max(worst, (vals - pv).abs()[real].max().item())
+            fail(f"K4 Q={n_q} G={n_g} k={k} disagrees with its plain version")
+        if n_q == 256:
+            worst = max(worst, (vals - pv).abs()[real].max().item())
     return worst
 
 
@@ -1341,9 +1429,11 @@ def check_slice(service, text, images, counts):
 
 def check_one_query(index, ids, lens, tol):
     """One query through ``index.search``: the text tower's kernels launched
-    on one row (K1 once, K3 twice a lower layer), and the result the plain
+    on one row (K1 once, K3 twice a lower layer), the ranking kernel (K2, or
+    K4 from an int8 gallery) once on one query, and the result the plain
     path's on the same card."""
     import textreid_torch.models.gru as gru_model
+    import textreid_torch.serving as serving
 
     rows = []
 
@@ -1354,13 +1444,21 @@ def check_one_query(index, ids, lens, tol):
         return counted
 
     layers = index.model.textual_model.num_layers
+    rank = ("topk_similarity_int8" if index.quantize
+            else "topk_similarity_f32")
     zero_counts()
     with mock.patch.object(gru_model, "bigru_pooled_scan",
                            spy(gru_model.bigru_pooled_scan)), \
-            mock.patch.object(gru_model, "gru_scan", spy(gru_model.gru_scan)):
+            mock.patch.object(gru_model, "gru_scan",
+                              spy(gru_model.gru_scan)), \
+            mock.patch.object(serving, "topk_similarity",
+                              spy(serving.topk_similarity)), \
+            mock.patch.object(serving, "topk_similarity_quantized",
+                              spy(serving.topk_similarity_quantized)):
         scores, meta = index.search(ids, lens, k=10)
-    counts = read_counts(("gru_scan_fwd", "bigru_pooled_fwd"))
-    want = {"gru_scan_fwd": 2 * (layers - 1), "bigru_pooled_fwd": 1}
+    counts = read_counts(("gru_scan_fwd", "bigru_pooled_fwd", rank))
+    want = {"gru_scan_fwd": 2 * (layers - 1), "bigru_pooled_fwd": 1,
+            rank: 1}
     if counts != want or set(rows) != {1}:
         fail(f"one query: launches {counts} on {rows} rows, expected {want} "
              f"on 1 row each")
@@ -1842,6 +1940,63 @@ def time_kernels():
     return out
 
 
+# (Q, G) at which K2 and K4 are timed, D = 256, k = 10: a lone /search and a
+# micro-batch of 256 queries, over 3,074 and 98,304 rows
+TOPK_SHAPES = ((1, 3074), (1, 98304), (256, 3074), (256, 98304))
+
+
+def topk_bound(kind, n_q, n_g, dim=256, k=10):
+    """K2's ("f32") or K4's ("int8") roofline at a shape: the queries and the
+    gallery (int8 rows and f32 scales) read once, the [Q, k] values and rows
+    written once, against 2 Q G D operations (K4's products are bf16)."""
+    if kind == "f32":
+        return bound(4 * (n_q * dim + n_g * dim) + 8 * n_q * k,
+                     2 * n_q * n_g * dim, "float32")
+    return bound(4 * n_q * dim + n_g * dim + 4 * n_g + 8 * n_q * k,
+                 2 * n_q * n_g * dim, "bfloat16")
+
+
+def time_topk():
+    """K2 (f32) and K4 at TOPK_SHAPES against the kernels they replaced
+    (``tools/topk_variants.py``), in turns (old, new, new, old), as the host
+    issues the launches and queued behind a device sleep; with each shape's
+    bound, plan, and the rows a query a split that entered its running
+    top-k (the plan's decomposition, ``ops/ranking.py:topk_by_plan``, on the
+    same scores)."""
+    import torch
+    from textreid_torch.ops import ranking
+    from textreid_torch.ops.quant import QuantizedGallery, quantized_scores
+    from textreid_torch.tools import topk_variants
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for n_q, n_g in TOPK_SHAPES:
+        res = topk_variants.compare(n_q, n_g)
+        q, gal, values, scales = topk_variants.unit_inputs(n_q, n_g)
+        for name, kind in (("K2", "f32"), ("K4", "int8")):
+            plan = ranking.topk_plan(n_q, n_g, 256, sms, kind)
+            scores = (q @ gal.T if kind == "f32" else quantized_scores(
+                q, QuantizedGallery(values, scales)))
+            _, _, inserted = ranking.topk_by_plan(scores, 10, plan)
+            bound_ms, binds = topk_bound(kind, n_q, n_g)
+            (new_i, old_i), (new_q, old_q) = (res[name]["issued"],
+                                              res[name]["queued"])
+            out[(name, n_q, n_g)] = dict(issued=new_i, queued=new_q,
+                                         old_issued=old_i, old_queued=old_q,
+                                         bound=bound_ms, binds=binds,
+                                         inserted=inserted)
+            log(f"time {name} Q={n_q} G={n_g} D=256 k=10 (plan: {plan.q_tile}"
+                f"-query tiles x {plan.splits} splits, {plan.stages} stages):"
+                f" kernel {new_i:.4f} ms as issued, {new_q:.4f} ms queued; "
+                f"the kernel it replaced {old_i:.4f} / {old_q:.4f} ms (in "
+                f"turns); bound {bound_ms:.5f} ms ({binds}); rows entering a "
+                f"split's top-k {inserted:.1f} a query (k(1 + ln(rows / k)) "
+                f"= {10 * (1 + math.log(max(n_g / plan.splits, 10) / 10)):.1f}"
+                f"); outputs equal the replaced kernel's: "
+                f"{res[name]['agree']}")
+    return out
+
+
 def kernel_bounds(bwd_steps):
     """Roofline bound (ms, what binds) of each kernel at the shape its row
     of the ``kernels`` line is timed at: every input read once, every
@@ -1872,11 +2027,8 @@ def kernel_bounds(bwd_steps):
         "gru_scan_fwd": bound(
             2 * (b * t * 3 * h + h * 3 * h + b * h + b * t * h),
             t * 2 * b * h * 3 * h, "bfloat16"),
-        "topk_similarity_f32": bound(
-            4 * (q * d + g * d) + 8 * q * k, 2 * q * g * d, "float32"),
-        # int8 rows and f32 scales; the products are bf16 x bf16
-        "topk_similarity_int8": bound(
-            4 * q * d + g * d + 4 * g + 8 * q * k, 2 * q * g * d, "bfloat16"),
+        "topk_similarity_f32": topk_bound("f32", q, g, d, k),
+        "topk_similarity_int8": topk_bound("int8", q, g, d, k),
         # qkv read, out written; QK^T and PV
         "fused_attention_fwd": bound(2 * ab * s * 4 * w, 2 * matmul,
                                      "bfloat16"),
@@ -2007,6 +2159,34 @@ def time_int8_serving(service, base):
             f"rows, 2-layer GRU model): float gallery "
             f"{out[('search', rows, False)]:.3f} ms, int8 gallery "
             f"{out[('search', rows, True)]:.3f} ms (median of 20)")
+    # a micro-batch: 256 queries at once (the server's MAX_BATCH), the
+    # largest gallery; host clock around a synchronised call and the device
+    # time between CUDA events around it
+    rng = np.random.RandomState(7)
+    ids = rng.randint(1, 512, (256, 105)).astype(np.int32)
+    lens = rng.randint(5, 106, 256).astype(np.int32)
+    for quantize in (False, True):
+        index = RetrievalIndex(model, quantize=quantize)
+        index.load_index(os.path.join(service.reload_dir, "unit_98304.idx"))
+        host, device = [], []
+        for i in range(12):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            index.search(ids, lens, k=10)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                host.append((time.perf_counter() - t0) * 1000)
+                device.append(start.elapsed_time(end))
+        out[("search256", quantize)] = (float(np.median(host)),
+                                        float(np.median(device)))
+        log(f"time index.search (256 queries, k=10, 98304 rows, 2-layer GRU "
+            f"model, {'int8' if quantize else 'float'} gallery): "
+            f"{np.median(host):.3f} ms host, {np.median(device):.3f} ms "
+            f"between events (median of 10)")
     return out
 
 
@@ -2743,6 +2923,7 @@ def main():
         time_attention()
         return
     k1_err = check_k1()
+    check_topk_plans()
     k2_err = check_k2()
     k3_err = check_k3()
     k4_err = check_k4()
@@ -2804,6 +2985,7 @@ def main():
     vit_train, rn_train = (train_times[name] for name in TRAIN_MODELS)
     k1_times = time_k1_backward()
     attn_times = time_attention()
+    topk_times = time_topk()  # after every host-paced timing, as the profile
     profile_int8_vit(*to_device(vit_forward, "cuda"),
                      enc_times[("vit", "off")])
     del vit_forward
@@ -2856,6 +3038,17 @@ def main():
         f"({k9['ViT-B/16'][1]:.4f}), [25600, 512] "
         f"{k9['CLIP text'][0]:.4f} ({k9['CLIP text'][1]:.4f}); K1 bf16 B=256 "
         f"{times[('K1', 256, 'bfloat16')][0]:.3f} ms ({card})")
+    log("summary, K2 and K4 (D=256, k=10; queued on the device, as issued; "
+        "the kernels they replaced in turns): " + "; ".join(
+            f"{name} Q={n_q} G={n_g} {t['queued']:.4f} / {t['issued']:.4f} "
+            f"ms ({t['old_queued']:.4f} / {t['old_issued']:.4f}), bound "
+            f"{t['bound']:.5f}"
+            for (name, n_q, n_g), t in topk_times.items())
+        + f"; index.search of 256 queries at 98304 rows: float gallery "
+        f"{int8_times[('search256', False)][0]:.3f} ms "
+        f"({int8_times[('search256', False)][1]:.3f} on the device), int8 "
+        f"{int8_times[('search256', True)][0]:.3f} "
+        f"({int8_times[('search256', True)][1]:.3f}) ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; "
         + "; ".join(f"training {name} {launched}"

@@ -11,6 +11,7 @@ path and launch nothing.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,22 +81,94 @@ def test_cpu_tensors_of_the_scan_and_the_int8_topk_launch_nothing():
             ranking.topk_similarity_quantized.launches) == before
 
 
-def test_gallery_splits_of_the_int8_tile():
-    # 128-row tiles: 98,304 rows are 768 tiles, 3,074 rows are 25
-    assert ranking.gallery_splits(256, 98304, 132, 128) == 8
-    assert ranking.gallery_splits(256, 3074, 132, 128) == 6
-    assert ranking.gallery_splits(256, 400, 132, 128) == 1
+@pytest.mark.parametrize("kind", ranking.KINDS)
+@pytest.mark.parametrize("dim", [256, 768])
+@pytest.mark.parametrize("n_rows", [100, 3074, 98304])
+@pytest.mark.parametrize("n_q", [1, 8, 256])
+def test_topk_plan_fits_and_fills_the_card(n_q, n_rows, dim, kind):
+    """K2's and K4's plan: a block fits 227 KB with 3-6 ring stages, the
+    grid is one wave, and one query puts every SM to work once the gallery
+    has 16 rows an SM."""
+    sms = 132
+    plan = ranking.topk_plan(n_q, n_rows, dim, sms, kind)
+    assert plan.smem_bytes <= ranking.SMEM_MAX
+    assert ranking.MIN_STAGES <= plan.stages <= ranking.MAX_STAGES
+    assert plan.smem_bytes == ranking._shared_bytes(kind, plan.q_tile, dim,
+                                                    plan.stages)
+    assert plan.q_tile in ranking.Q_TILES and plan.q_tile <= max(8, 2 * n_q)
+    blocks = -(-n_q // plan.q_tile) * plan.splits
+    assert 1 <= plan.splits <= n_rows and blocks <= sms
+    if n_q == 1:
+        assert plan.q_tile == 8
+        assert blocks == (sms if n_rows >= 16 * sms else -(-n_rows // 16))
 
 
-@pytest.mark.parametrize("n_q,n_rows,sms,want", [
-    (256, 3074, 132, 8),     # Q=256: 32 query tiles, ~2 blocks per SM
-    (256, 98304, 132, 8),
-    (5, 2000, 132, 8),       # 32 tiles: 4 per split
-    (5, 700, 132, 2),        # at least 4 tiles of 64 rows per split
-    (256, 100, 132, 1),      # a small gallery is not split
+@pytest.mark.parametrize("n_q,n_rows,dim,kind,want", [
+    (1, 3074, 256, "f32", (8, 132, 6)),      # a lone /search
+    (1, 98304, 256, "int8", (8, 132, 6)),
+    (256, 98304, 256, "f32", (64, 33, 3)),   # the gallery streamed 4 times
+    (256, 98304, 256, "int8", (32, 16, 5)),  # tensor cores: 32 at most
+    (64, 98304, 256, "f32", (32, 66, 5)),    # 64 only from 256 queries
+    (256, 3074, 256, "f32", (32, 13, 5)),    # splits of >= 256 rows
+    (256, 100, 256, "bf16", (8, 4, 6)),      # too few rows: 8-query tiles
+    (256, 98304, 768, "f32", (32, 16, 3)),   # wide rows: a smaller tile
 ])
-def test_gallery_splits(n_q, n_rows, sms, want):
-    assert ranking.gallery_splits(n_q, n_rows, sms) == want
+def test_topk_plan(n_q, n_rows, dim, kind, want):
+    assert ranking.topk_plan(n_q, n_rows, dim, 132, kind)[:3] == want
+
+
+def test_every_topk_variant_edits_text_of_its_source():
+    """``tools/topk_variants.py`` patches ``csrc/topk_similarity.cu`` by
+    text: each edit of each variant, and of the clock64 breakdown, must
+    find its text once."""
+    from textreid_torch.ops import _build
+    from textreid_torch.tools import topk_variants
+
+    text = (_build.CSRC / "topk_similarity.cu").read_text()
+    edits = [e for v in topk_variants.VARIANTS.values() for e in v]
+    for old, new in edits + topk_variants.BREAKDOWN:
+        assert text.count(old) == 1, old
+        assert new != old
+
+
+@pytest.mark.parametrize("k", [5, 16])
+@pytest.mark.parametrize("n_q", [1, 3, 24])
+@pytest.mark.parametrize("kind", ranking.KINDS)
+def test_split_and_merge_of_the_plan_equals_the_plain_topk(kind, n_q, k):
+    """The kernel's decomposition (``topk_by_plan``: each split streams its
+    128-row tiles into its own top-k against its running k-th entry, then
+    the splits' sorted lists are merged) gives the plain version's top-k
+    exactly: f32, bf16 and int8 scores, a masked tail, and equal rows on
+    either side of a split edge (the larger row first).  12 SMs give 4-12
+    splits of 75-225 rows (one or two tiles); k = 16 is more than a split's
+    first tile leaves after the threshold."""
+    from textreid_torch.ops.quant import QuantizedGallery, quantize_rows
+    from textreid_torch.ops.quant import quantized_scores
+
+    n_g, valid = 1000, 900
+    plan = ranking.topk_plan(n_q, valid, 32, 12, kind)
+    assert plan.splits > 1
+    edge = valid // plan.splits
+    rng = np.random.RandomState(n_q + k)
+    q = torch.from_numpy(rng.randn(n_q, 32).astype(np.float32))
+    gal = torch.from_numpy(rng.randn(n_g, 32).astype(np.float32))
+    gal[edge] = gal[edge - 1]
+    q[0] = gal[edge]
+    if kind == "int8":
+        quant = quantize_rows(gal)
+        scores = quantized_scores(q, QuantizedGallery(quant.values[:valid],
+                                                      quant.scales[:valid]))
+        want = ranking.topk_similarity_quantized_plain(
+            q, quant.values, quant.scales, k, valid)
+    else:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        scores = q.to(dtype).float() @ gal[:valid].to(dtype).float().T
+        want = ranking.topk_similarity_plain(q, gal, k, valid, dtype)
+    vals, idx, inserted = ranking.topk_by_plan(scores, k, plan)
+    assert torch.equal(idx, want[1]) and torch.equal(vals, want[0])
+    assert idx[0, :2].tolist() == [edge, edge - 1]
+    rows = valid / plan.splits
+    assert k <= inserted <= rows
 
 
 @pytest.mark.gpu
@@ -201,7 +274,9 @@ def test_bf16_forwards_match_plain_at_served_and_trained_batches(cuda, batch):
 @pytest.mark.parametrize("n_q,n_g,k,valid", [
     (13, 200, 1, 0), (13, 200, 7, 0), (9, 130, 64, 0), (8, 50, 64, 0),
     (17, 300, 10, 250),
-    (5, 2000, 10, 0), (9, 5000, 64, 4321),  # gallery split + merge kernel
+    (5, 2000, 10, 0), (9, 5000, 64, 4321),  # gallery splits, one launch
+    (1, 3074, 10, 0), (3, 3074, 10, 0), (256, 3074, 10, 0),
+    (1, 20000, 64, 19000), (3, 1001, 10, 990), (256, 1001, 64, 990),
 ])
 def test_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
     q, gal = _k2_args(n_q, n_g, cuda)
@@ -216,7 +291,8 @@ def test_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_q,n_g,k,valid", [
-    (13, 200, 7, 0), (17, 300, 10, 250), (9, 5000, 64, 4321)])
+    (13, 200, 7, 0), (17, 300, 10, 250), (9, 5000, 64, 4321),
+    (1, 3074, 10, 0), (3, 1001, 10, 990), (256, 3074, 10, 0)])
 def test_topk_kernel_bf16_compute_matches_plain(cuda, n_q, n_g, k, valid):
     """``compute_dtype=bfloat16``: the kernel rounds both operands as it
     stages them; scores within 1e-5 of the plain version's, and other than
@@ -244,6 +320,38 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
         ranking.topk_similarity(q, gal, k=65)
     with pytest.raises(TypeError, match="float32"):
         ranking.topk_similarity(q.double(), gal.double(), k=3)
+
+
+@pytest.mark.gpu
+def test_topk_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    """K2's and K4's wrappers: k past 64, D past 768 or off its multiple,
+    a wrong dtype, a view that is not contiguous or not 16-byte aligned."""
+    from textreid_torch.ops.quant import quantize_rows
+
+    q, gal = _k2_args(3, 40, cuda)
+    quant = quantize_rows(gal)
+    f32 = ranking.topk_similarity
+    int8 = ranking.topk_similarity_quantized
+    with pytest.raises(ValueError, match="k <= 64"):
+        f32(q, gal, k=65)
+    with pytest.raises(ValueError, match="k <= 64"):
+        int8(q, quant.values, quant.scales, k=0)
+    wide = torch.zeros(3, 772, device=cuda)
+    with pytest.raises(ValueError, match="D <= 768"):
+        f32(wide, wide, k=3)
+    with pytest.raises(ValueError, match="D % 4"):
+        f32(q[:, :30].contiguous(), gal[:, :30].contiguous(), k=3)
+    with pytest.raises(ValueError, match="D % 16"):
+        int8(q[:, :24].contiguous(), quant.values[:, :24].contiguous(),
+             quant.scales, k=3)
+    with pytest.raises(TypeError, match="int8"):
+        int8(q, gal, quant.scales, k=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        f32(q, gal.t().contiguous().t(), k=3)
+    with pytest.raises(ValueError, match="aligned"):
+        f32(q, torch.zeros(41 * 32 + 1, device=cuda)[1:].view(41, 32), k=3)
+    with pytest.raises(ValueError, match="scales"):
+        int8(q, quant.values, quant.scales[:-1], k=3)
 
 
 @pytest.mark.gpu
@@ -357,7 +465,9 @@ def test_gru_scan_function_has_the_plain_gradient_on_the_card(cuda):
 @pytest.mark.parametrize("n_q,n_g,k,valid", [
     (13, 200, 1, 0), (13, 200, 7, 0), (9, 130, 64, 0), (8, 50, 64, 0),
     (17, 300, 10, 250),
-    (5, 4000, 10, 0), (9, 9000, 64, 4321),  # gallery split + merge kernel
+    (5, 4000, 10, 0), (9, 9000, 64, 4321),  # gallery splits, one launch
+    (1, 3074, 10, 0), (3, 3074, 10, 0), (256, 3074, 10, 0),
+    (1, 20000, 64, 19000), (3, 1001, 10, 990), (256, 1001, 64, 990),
 ])
 def test_quantized_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
     from textreid_torch.ops.quant import quantize_rows

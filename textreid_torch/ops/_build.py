@@ -48,18 +48,27 @@ SIGNATURES = {
     # is_bf16, stream
     "bigru_pooled_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _P),
-    # q, g, vals, idx, part_vals, part_idx, Q, G, D, k, valid_gallery,
-    # splits, round_bf16, stream
-    "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P),
+    # q, g, vals, idx, part_vals, part_idx, tickets, Q, G, D, k,
+    # valid_gallery, q_tile, splits, round_bf16, stream
+    "topk_similarity_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P),
+    # the kernel it replaced, for comparison (tools/topk_variants.py): q, g,
+    # vals, idx, part_vals, part_idx, Q, G, D, k, valid_gallery, splits,
+    # round_bf16, stream
+    "topk_similarity_f32_tile8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P),
     # x, w, h0, out, B, T, H, reverse, is_bf16, stream
     "gru_scan_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # the W-resident bf16 scan: x, w, h0, out, B, T, H, reverse, stream
     "gru_scan_fwd_resident": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, g_int8, scales, vals, idx, part_vals, part_idx, Q, G, D, k,
-    # valid_gallery, splits, stream
-    "topk_similarity_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P),
+    # q, g_int8, scales, vals, idx, part_vals, part_idx, tickets, Q, G, D,
+    # k, valid_gallery, q_tile, splits, stream
+    "topk_similarity_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
+    # the kernel it replaced, for comparison: q, g_int8, scales, vals, idx,
+    # part_vals, part_idx, Q, G, D, k, valid_gallery, splits, stream
+    "topk_similarity_int8_tile8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _P),
     # qkv, out, B, S, W, heads, scale, causal, is_bf16, stream
     "fused_attention_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, g, dqkv, stats (f32 only, else null), B, S, W, heads, scale,
@@ -186,6 +195,10 @@ def library() -> ctypes.CDLL:
     lib.int8_matmul_requant_plan.argtypes = ([_I, _I]
                                              + [ctypes.POINTER(_I)] * 6)
     lib.int8_matmul_requant_plan.restype = ctypes.c_int
+    # kind (0 f32, 1 bf16, 2 int8), Q, rows, D, out: K2's and K4's plan on
+    # the current device (q_tile, splits, stages, shared bytes, rows a split)
+    lib.topk_similarity_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.topk_similarity_plan.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib
