@@ -33,7 +33,9 @@ before the result line:
    S=193, W=768, 12 heads), the causal CLIP-text shapes (B=128, S=77 and
    B=256, S=100; W=512, 8 heads), S=288 causal and not, S=257 and a ragged
    S=45 at head_dim 32,
-   one token and one sample; K1's forwards (bf16: the W-resident kernel,
+   one token and one sample; K2 and K4 also at D = 100 and 1,024 (the
+   wrappers' zero columns, the kernels' query slices past 768 columns);
+   K1's forwards (bf16: the W-resident kernel,
    f32: the streamed one), pooled-only and training, at B=1, 37, 128 and
    256 (T=105, H=512, ragged lengths and two empty rows), with the bf16
    launch plan of the library held against ``ops/gru.py:resident_plan``;
@@ -96,14 +98,28 @@ before the result line:
    batch 128, 384x128): ``configs/cuhkpedes/moco_gru_clipvitb16_ls_bs128_
    2048.yaml`` (ViT-B/16 + bi-GRU H=512), then the flagship,
    ``moco_gru_cliprn50_ls_bs128_2048.yaml`` (CLIP RN50, res5 stride 1,
-   BatchNorm on batch statistics in both towers, + bi-GRU H=512).  Launch
-   counters are zeroed just before and read just after each: K1's forward
-   2 (the query tower's training forward, the key tower's pooled-only
-   one) and K1's backward 1 per step; K5 24 and K6 12 per ViT step, none
-   per flagship step.  Losses must be finite, the queue pointer advanced,
-   the checkpoint written; the flagship's holds both models' BatchNorm
-   running statistics, moved and apart.  The step's wait on the loader is
-   logged.
+   BatchNorm on batch statistics in both towers, + bi-GRU H=512) trained
+   as shipped: its yaml with no ``SOLVER.EVALUATE_PERIOD`` override, for
+   2 epochs of a few steps with an evaluation after each on a synthetic
+   test split (64 identities x 4 images), ``CHECKPOINT_KEEP 1``, from a
+   seeded CLIP-layout ``ROOT/pretrained/clip/RN50.pt`` that both trunks
+   must hold when training starts (first convolution, a running variance,
+   the positional embedding resized 7x7 -> 24x8).  Launch counters are
+   zeroed just before and read just after each: K1's forward 2 (the query
+   tower's training forward, the key tower's pooled-only one) and K1's
+   backward 1 per step, and K1's pooled-only forward once an evaluation
+   batch; K5 24 and K6 12 per ViT step, none per flagship step.  Losses
+   must be finite, the queue pointer advanced, the checkpoint written; the
+   flagship's holds both models' BatchNorm running statistics, moved and
+   apart; ``top1`` logged and finite each epoch, ``best.pth`` and
+   ``epoch_2.pth`` kept and ``epoch_1.pth`` pruned, ``test_net.main`` on
+   ``best.pth`` within a point of the logged R@1.  Then one epoch plus
+   ``--resume-from auto`` for the second (its losses against the straight
+   run's, RESUME_LOSS_RTOL, cuDNN deterministic for this comparison), and
+   a SIGTERM mid-epoch (``preempt.pth`` with the epoch pinned back, then
+   ``--resume-from auto`` finishing).  Logged: the in-training evaluation,
+   each checkpoint's snapshot and background write, the restart time.  The
+   step's wait on the loader is logged.
 9. One f32 step with the kernels against one with their plain versions,
    from the same state and batch, for each model (cuDNN deterministic and
    without TF32 for this comparison only): loss dicts, every parameter's
@@ -439,7 +455,8 @@ def check_topk_plans():
     lib = _build.library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(n_q, n_g, dim) for n_q in (1, 3, 8, 24, 256, 1000)
-              for n_g in (40, 990, 3074, 98304) for dim in (256, 768)]
+              for n_g in (40, 990, 3074, 98304)
+              for dim in (256, 768) + TOPK_WIDTHS]
     for kind_id, kind in enumerate(ranking.KINDS):
         for n_q, n_rows, dim in shapes:
             out = (ctypes.c_int * 4)()
@@ -870,6 +887,72 @@ def check_k4():
         if n_q == 256:
             worst = max(worst, (vals - pv).abs()[real].max().item())
     return worst
+
+
+# K2 and K4 at embedding widths other than the flagship's 256: one off the
+# int8 kernel's multiple of 16 (the wrappers pad D with zero columns) and
+# one past the 768 columns a block stages at once (the sliced kernels)
+TOPK_WIDTHS = (100, 1024)
+
+
+def check_topk_widths():
+    """K2 (f32 and bf16 compute) and K4 at TOPK_WIDTHS against their plain
+    versions, at one, three and 256 queries over 3,074 rows and 256 over a
+    ragged 1,001 with 990 valid, k = 10 and 64, with duplicated rows at
+    256 queries:
+    K2_TOL and K4's allowance as at D = 256 (unit vectors: f32 sums of up
+    to 1,024 products in another order stay near sqrt(1024) x 2^-24), the
+    same top-k outside exact ties, the larger row of a tie first.  Returns
+    {(kernel, D): worst error} (K4's over its allowance)."""
+    import torch
+    from textreid_torch.ops import ranking
+    from textreid_torch.ops.quant import quantize_rows
+
+    out = {}
+    for dim in TOPK_WIDTHS:
+        for n_q, n_g, k, valid in ((1, 3074, 10, 0), (3, 3074, 64, 0),
+                                   (256, 3074, 10, 0),
+                                   (256, 1001, 64, 990)):
+            q, gal = k2_inputs(n_g, seed=dim + n_q + k, n_q=n_q, dim=dim,
+                               duplicates=n_q >= 8)
+            n_valid = valid or n_g
+            quant = quantize_rows(gal)
+            runs = [("K2 f32", torch.float32), ("K2 bf16", torch.bfloat16),
+                    ("K4", None)]
+            for name, dtype in runs:
+                if dtype is None:
+                    got = ranking.topk_similarity_quantized(
+                        q, quant.values, quant.scales, k, valid)
+                    want = ranking.topk_similarity_quantized_plain(
+                        q, quant.values, quant.scales, k, valid)
+                    allowance = K4_RTOL * want[0].abs() + K4_ATOL
+                else:
+                    got = ranking.topk_similarity(q, gal, k, valid, dtype)
+                    want = ranking.topk_similarity_plain(q, gal, k, valid,
+                                                         dtype)
+                    allowance = torch.full_like(want[0], K2_TOL)
+                torch.cuda.synchronize()
+                real = want[1] >= 0
+                err = ((got[0] - want[0]).abs() / allowance)[real].max()
+                err = err.item()
+                swapped = got[1] != want[1]
+                # an index may differ only where the two scores are within
+                # the allowance (a tie, or sums a last bit apart)
+                near = ((got[0] - want[0]).abs() <= allowance)[swapped]
+                row3 = got[1][3].tolist() if n_q > 3 else []
+                ties_ok = (n_g - 1 not in row3 or 3 not in row3
+                           or row3.index(n_g - 1) < row3.index(3))
+                log(f"{name} Q={n_q} D={dim} G={n_g} k={k} valid={n_valid}"
+                    f": worst error {err:.3f} of its allowance, index "
+                    f"mismatches={int(swapped.sum())}, tie order ok="
+                    f"{ties_ok}")
+                if not math.isfinite(err) or err > 1.0 or not bool(
+                        near.all()) or not ties_ok:
+                    fail(f"{name} at D={dim} Q={n_q} G={n_g} k={k} "
+                         "disagrees with its plain version")
+                key = (name.split()[0], dim)
+                out[key] = max(out.get(key, 0.0), err)
+    return out
 
 
 # -- K7-K9: the int8 encoders' kernels ------------------------------------------
@@ -2193,21 +2276,23 @@ def time_int8_serving(service, base):
 # -- the evaluation slice ------------------------------------------------------
 
 class GridCapture:
-    """Collects what ``PersonSearch.inference`` logs: the metric grid is the
-    last message of a run."""
+    """Collects what ``PersonSearch.inference`` (or the logger ``name``)
+    logs, with each record's time in ``times``: the metric grid is the last
+    message of an evaluation."""
 
-    def __init__(self):
+    def __init__(self, name="PersonSearch.inference"):
         import logging
 
         outer = self
-        self.messages = []
+        self.messages, self.times = [], []
 
         class Handler(logging.Handler):
             def emit(self, record):
                 outer.messages.append(record.getMessage())
+                outer.times.append(record.created)
 
         self.handler = Handler(logging.INFO)
-        self.logger = logging.getLogger("PersonSearch.inference")
+        self.logger = logging.getLogger(name)
 
     def __enter__(self):
         self.logger.addHandler(self.handler)
@@ -2410,13 +2495,17 @@ def drive_training(model_name):
     return counts, state, meters, ckpt
 
 
-def check_training(model_name, counts, state, meters, ckpt):
+def check_training(model_name, counts, state, meters, ckpt,
+                   steps=TRAIN_STEPS, eval_launches=None):
+    """The run's steps, launches (per step, plus ``eval_launches`` of the
+    evaluations), finite losses, queue pointer and checkpoint."""
     import torch
 
-    steps = state.step
-    if steps != TRAIN_STEPS:
-        fail(f"training slice ran {steps} steps, not {TRAIN_STEPS}")
+    if state.step != steps:
+        fail(f"training slice ran {state.step} steps, not {steps}")
     want = {name: n * steps for name, n in TRAIN_MODELS[model_name][1].items()}
+    for name, n in (eval_launches or {}).items():
+        want[name] += n
     if counts != want:
         fail(f"training slice, {model_name}: launches {counts}, expected "
              f"{want}")
@@ -2453,6 +2542,297 @@ def check_training(model_name, counts, state, meters, ckpt):
         f"({os.path.getsize(ckpt) >> 20} MB; {len(stats)} BatchNorm "
         "statistics in each of the query and key models)")
     return losses
+
+
+# The flagship trained as shipped (phase 8): its yaml with no
+# SOLVER.EVALUATE_PERIOD override (1: an evaluation after every epoch on the
+# test split, a best.pth on t2i R@1), CHECKPOINT_KEEP 1, two epochs of
+# TRAIN_STEPS steps, from a seeded CLIP-layout RN50.pt
+PROTOCOL_EPOCHS = 2
+# The resumed epoch's losses against the straight run's epoch 2, bf16 steps
+# from the same state and batches, cuDNN deterministic for both: equal but
+# where cuBLAS picks another algorithm in the resumed run's new state
+# (that reorders an f32 sum: a loss moves by about one bf16 rounding of an
+# activation, 2^-8 relative, averaged over 128 rows)
+RESUME_LOSS_RTOL = 1e-3
+
+
+def write_clip_archive(root):
+    """A seeded CLIP-layout ``ROOT/pretrained/clip/RN50.pt``: the port's
+    ModifiedResNet-50 at CLIP's 224x224 (a 7x7 + 1 positional embedding)
+    under ``visual.``, BatchNorm statistics moved off (0, 1).  Returns the
+    state dict."""
+    import torch
+    from textreid_torch.models.m_resnet import ModifiedResNet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        clip = ModifiedResNet((3, 4, 6, 3), 1024, heads=32,
+                              input_resolution=(224, 224))
+        archive = {}
+        for k, v in clip.state_dict().items():
+            if k.endswith("running_mean"):
+                v = torch.randn(v.shape) * 0.1
+            elif k.endswith("running_var"):
+                v = torch.rand(v.shape) + 0.5
+            archive["visual." + k] = v
+    folder = os.path.join(root, "pretrained", "clip")
+    os.makedirs(folder, exist_ok=True)
+    torch.save(archive, os.path.join(folder, "RN50.pt"))
+    return archive
+
+
+@contextmanager
+def holding_the_archive(archive, seen):
+    """Checks, as ``train_net`` hands its state to ``do_train`` (before the
+    first step), that the query and the key trunk hold ``archive``: the
+    first convolution and a BatchNorm's running variance equal, the
+    attention pool's positional embedding equal to the archive's resized
+    to the trunk's grid.  Appends the grid to ``seen``."""
+    import torch
+    from textreid_torch.engine import trainer
+    from textreid_torch.utils.weight_convert import resize_pos_embed
+
+    real = trainer.do_train
+
+    def checked(cfg, state, *args, **kwargs):
+        for which, model in (("query", state.model),
+                             ("key", state.key_model)):
+            visual = model.visual_model
+            grid = visual.attnpool.spacial_dim
+            pos = torch.from_numpy(resize_pos_embed(
+                archive["visual.attnpool.positional_embedding"].numpy(),
+                grid))
+            if not (torch.equal(visual.conv1.weight.cpu(),
+                                archive["visual.conv1.weight"])
+                    and torch.equal(
+                        visual.layer4[2].bn3.running_var.cpu(),
+                        archive["visual.layer4.2.bn3.running_var"])
+                    and torch.equal(
+                        visual.attnpool.positional_embedding.cpu(), pos)):
+                fail(f"the {which} trunk does not hold the CLIP archive")
+            seen.append(grid)
+        return real(cfg, state, *args, **kwargs)
+
+    with mock.patch.object(trainer, "do_train", checked):
+        yield
+
+
+@contextmanager
+def cudnn_deterministic():
+    import torch
+
+    kept = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = kept
+
+
+def drive_flagship_protocol():
+    """The flagship trained as shipped through ``train_net.main`` at full
+    width: the CLIP archive in both trunks, PROTOCOL_EPOCHS epochs with an
+    evaluation after each, ``best.pth`` and pruning; ``test_net.main`` on
+    ``best.pth``; one epoch plus ``--resume-from auto`` against the
+    straight run; a SIGTERM mid-epoch and the resume from ``preempt.pth``.
+    Returns the straight run's launches (the main path's)."""
+    import re
+    import shutil
+    import signal
+
+    import torch
+    from textreid_torch import test_net, train_net
+    from textreid_torch.config import get_default_cfg
+    from textreid_torch.data import make_data_loader, make_synthetic_dataset
+    from textreid_torch.engine import trainer
+    from textreid_torch.utils.checkpoint import auto_resume_path, read_meta
+
+    t_phase = time.time()
+    name = "CLIP RN50 + bi-GRU (flagship)"
+    root = os.path.join(WORK, "protocol")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "datasets", "cuhkpedes")
+    make_synthetic_dataset(data, num_identities=32 * TRAIN_STEPS,
+                           images_per_id=4, image_size=(384, 128),
+                           vocab_size=512, max_tokens=60, split="train")
+    make_synthetic_dataset(data, num_identities=SPLIT_IDS,
+                           images_per_id=SPLIT_IMAGES_PER_ID,
+                           image_size=(384, 128), vocab_size=512,
+                           max_tokens=60, split="test", seed=1)
+    archive = write_clip_archive(root)
+    opts = ["SOLVER.CHECKPOINT_PERIOD", "1", "SOLVER.CHECKPOINT_KEEP", "1",
+            "SOLVER.LOG_PERIOD", "1", "TPU.DEBUG_NANS", "True",
+            "TPU.ALLOW_RANDOM_VOCAB", "True", "DATALOADER.NUM_WORKERS", "8"]
+
+    def yaml_of(run):  # a copy of the flagship's yaml a run: its own output
+        path = os.path.join(root, "configs", run, "flagship.yaml")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        shutil.copy(os.path.join(REPO, FLAGSHIP_YAML), path)
+        return path
+
+    def out_of(run):
+        return os.path.join(root, "output", run, "flagship")
+
+    def run(run_name, *extra):
+        return train_net.main(["--root", root, "--config-file",
+                               yaml_of(run_name), "--device", "cuda",
+                               *extra, *opts])
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(yaml_of("straight"))
+    cfg.merge_from_list(opts)
+    cfg.ROOT = root
+    eval_batches = len(make_data_loader(cfg, is_train=False)[0])
+    steps = PROTOCOL_EPOCHS * TRAIN_STEPS
+
+    # the straight run: the main path, its launches counted
+    grids = []
+    with GridCapture("PersonSearch") as logs, cudnn_deterministic(), \
+            holding_the_archive(archive, grids):
+        zero_counts()
+        t0 = time.time()
+        state, meters = run("straight", "SOLVER.NUM_EPOCHS",
+                            str(PROTOCOL_EPOCHS))
+        torch.cuda.synchronize()
+        counts = read_counts(TRAIN_KERNELS)
+        straight_s = time.time() - t0
+    out = out_of("straight")
+    # a step's launches as in the other runs (K1 forward 2, backward 1),
+    # and K1's pooled-only forward once an evaluation batch: with 3 steps
+    # an epoch and 2 evaluations of 2 batches (256 pairs, TEST.IMS_PER_BATCH
+    # 128), K1's forward 16 and its backward 6
+    check_training(name, counts, state, meters,
+                   os.path.join(out, f"epoch_{PROTOCOL_EPOCHS}.pth"), steps,
+                   {"bigru_pooled_fwd": eval_batches * PROTOCOL_EPOCHS})
+    if len(grids) != 2 or grids[0] != (24, 8):
+        fail(f"the archive check saw grids {grids}, not the query and key "
+             "trunks' (24, 8)")
+    top1 = list(meters.top1.deque)
+    evals = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+             for m in map(re.compile(
+                 r"Evaluation after epoch (\d+): t2i R@1 ([\d.]+) in "
+                 r"([\d.]+) s").match, logs.messages) if m]
+    if len(top1) != PROTOCOL_EPOCHS or not all(
+            math.isfinite(v) for v in top1) or len(evals) != len(top1):
+        fail(f"in-training evaluation: top1 {top1}, logged {evals}")
+    best = read_meta(os.path.join(out, "best.pth"))
+    kept = sorted(f for f in os.listdir(out) if f.endswith(".pth"))
+    if kept != ["best.pth", f"epoch_{PROTOCOL_EPOCHS}.pth"]:
+        fail(f"checkpoints after the straight run: {kept}")
+    if best["best_top1"] != max(top1) or best["epoch"] != 1 + top1.index(
+            max(top1)):
+        fail(f"best.pth meta {best}, top1 by epoch {top1}")
+    saves = [(m.group(1), float(m.group(2)), float(m.group(3)))
+             for m in map(re.compile(
+                 r"Saved checkpoint (\S+): snapshot ([\d.]+) s, write "
+                 r"([\d.]+) s").match, logs.messages) if m]
+    straight_losses = list(meters.loss.deque)[-TRAIN_STEPS:]
+    log(f"flagship as shipped: train_net.main, {PROTOCOL_EPOCHS} epochs of "
+        f"{TRAIN_STEPS} steps with an evaluation after each ({eval_batches} "
+        f"batches of {cfg.TEST.IMS_PER_BATCH}) in {straight_s:.1f} s; "
+        f"launches {counts}; t2i R@1 by epoch {top1}; best.pth from epoch "
+        f"{best['epoch']}; kept {kept} (CHECKPOINT_KEEP 1); both trunks "
+        f"held the CLIP archive, its positional embedding resized 7x7 -> "
+        f"{grids[0]}")
+    for epoch, r1, secs in evals:
+        log(f"  in-training evaluation after epoch {epoch}: t2i R@1 {r1:.4f}"
+            f" in {secs:.3f} s (f32 weights, bf16 compute)")
+    for path, snap, write in saves:
+        size = (f"{os.path.getsize(path) >> 20} MB" if os.path.exists(path)
+                else "pruned since")
+        log(f"  checkpoint {os.path.basename(path)}: snapshot {snap:.3f} s "
+            f"on the training thread, write {write:.3f} s in the background "
+            f"({size})")
+    del state, meters
+    torch.cuda.empty_cache()
+
+    # test_net on best.pth: bf16 weights and compute, against the logged
+    # R@1 of that epoch (f32 weights, bf16 compute)
+    zero_counts()
+    test_top1 = test_net.main(["--root", root, "--config-file",
+                               yaml_of("straight"), "--checkpoint-file",
+                               os.path.join(out, "best.pth"), "--device",
+                               "cuda", "TPU.ALLOW_RANDOM_VOCAB", "True",
+                               "DATALOADER.NUM_WORKERS", "8"])
+    test_top1 = test_top1["cuhkpedes_test"]
+    if abs(test_top1 - best["best_top1"]) > EVAL_GRID_TOL:
+        fail(f"test_net on best.pth: t2i R@1 {test_top1}, the training log "
+             f"{best['best_top1']} (tolerance {EVAL_GRID_TOL} points)")
+    log(f"  test_net.main on best.pth (bf16 weights): t2i R@1 {test_top1:.4f}"
+        f" against {best['best_top1']:.4f} logged in training (tolerance "
+        f"{EVAL_GRID_TOL} points)")
+
+    # one epoch, then --resume-from auto for the second, deterministic
+    with GridCapture("PersonSearch") as logs, cudnn_deterministic():
+        state, _ = run("halves", "SOLVER.NUM_EPOCHS", "1")
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        state, meters = run("halves", "--resume-from", "auto",
+                            "SOLVER.NUM_EPOCHS", str(PROTOCOL_EPOCHS))
+        torch.cuda.synchronize()
+    started = [t for t, m in zip(logs.times, logs.messages)
+               if m == "Start training"]
+    restart_s = started[-1] - t0
+    resumed = list(meters.loss.deque)
+    if state.step != steps or len(resumed) != TRAIN_STEPS or any(
+            abs(a - b) > RESUME_LOSS_RTOL * abs(b)
+            for a, b in zip(resumed, straight_losses)):
+        fail(f"resumed epoch losses {resumed} against the straight run's "
+             f"{straight_losses} (rtol {RESUME_LOSS_RTOL})")
+    log(f"  1 epoch + --resume-from auto: epoch-2 losses {resumed}, the "
+        f"straight run's {straight_losses} (rtol {RESUME_LOSS_RTOL}; equal "
+        f"bit for bit: {resumed == straight_losses}); restart (main() to "
+        f"the first step: build, archive, resume) {restart_s:.2f} s")
+    del state, meters
+    torch.cuda.empty_cache()
+
+    # a SIGTERM from the loader side on the second step of epoch 2
+    calls = []
+    moves = trainer.to_device
+
+    def to_device(batch, device):
+        calls.append(1)
+        if len(calls) == TRAIN_STEPS + 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return moves(batch, device)
+
+    with mock.patch.object(trainer, "to_device", to_device):
+        state, _ = run("preempted", "SOLVER.NUM_EPOCHS",
+                       str(PROTOCOL_EPOCHS))
+    out = out_of("preempted")
+    meta = read_meta(os.path.join(out, "preempt.pth"))
+    if state.step != TRAIN_STEPS + 2 or meta["epoch"] != 1 or \
+            meta["iteration"] != TRAIN_STEPS + 2:
+        fail(f"preemption: {state.step} steps, preempt.pth meta {meta}")
+    if auto_resume_path(out) != os.path.join(out, "preempt.pth"):
+        fail(f"--resume-from auto would take {auto_resume_path(out)}")
+    del state
+    torch.cuda.empty_cache()
+    state, meters = run("preempted", "--resume-from", "auto",
+                        "SOLVER.NUM_EPOCHS", str(PROTOCOL_EPOCHS))
+    finished = read_meta(os.path.join(out, f"epoch_{PROTOCOL_EPOCHS}.pth"))
+    if state.step != 2 * TRAIN_STEPS + 2 or finished["epoch"] != \
+            PROTOCOL_EPOCHS or not all(math.isfinite(v)
+                                       for v in meters.loss.deque):
+        fail(f"the resume from preempt.pth: {state.step} steps, "
+             f"epoch_{PROTOCOL_EPOCHS}.pth meta {finished}")
+    log(f"  SIGTERM on step {TRAIN_STEPS + 2} (epoch 2): preempt.pth with "
+        f"epoch {meta['epoch']}, iteration {meta['iteration']}; "
+        f"--resume-from auto took it and ran epoch 2 again to step "
+        f"{state.step}")
+    del state, meters
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "output"))  # ~6 GB of checkpoints
+    log(f"flagship as shipped: the phase took {time.time() - t_phase:.1f} s")
+    return counts, {"eval_s": [e[2] for e in evals],
+                    "snapshot_s": [s[1] for s in saves],
+                    "write_s": [s[2] for s in saves], "restart_s": restart_s,
+                    "top1": top1, "test_top1": test_top1}
 
 
 @contextmanager
@@ -2927,6 +3307,7 @@ def main():
     k2_err = check_k2()
     k3_err = check_k3()
     k4_err = check_k4()
+    width_err = check_topk_widths()
     attn_err = check_attention()
     k1_bwd_err = check_k1_grad()
     k9_err, k8_err, k7_err = check_k9(), check_k8(), check_k7()
@@ -2974,10 +3355,13 @@ def main():
 
     train_launches, train_times = {}, {}
     for model_name in TRAIN_MODELS:
-        launched, state, meters, ckpt = drive_training(model_name)
-        check_training(model_name, launched, state, meters, ckpt)
+        if model_name == "CLIP RN50 + bi-GRU (flagship)":
+            launched, protocol = drive_flagship_protocol()
+        else:
+            launched, state, meters, ckpt = drive_training(model_name)
+            check_training(model_name, launched, state, meters, ckpt)
+            del state
         train_launches[model_name] = launched
-        del state
         torch.cuda.empty_cache()
     for model_name in TRAIN_MODELS:
         compare_steps(model_name)
@@ -3049,6 +3433,17 @@ def main():
         f"({int8_times[('search256', False)][1]:.3f} on the device), int8 "
         f"{int8_times[('search256', True)][0]:.3f} "
         f"({int8_times[('search256', True)][1]:.3f}) ({card})")
+    log(f"summary, the flagship as shipped (phase 8): in-training "
+        f"evaluation {', '.join(f'{v:.3f}' for v in protocol['eval_s'])} s "
+        f"(t2i R@1 {protocol['top1']}; test_net on best.pth "
+        f"{protocol['test_top1']:.4f}); checkpoint snapshot "
+        f"{', '.join(f'{v:.3f}' for v in protocol['snapshot_s'])} s, "
+        f"background write "
+        f"{', '.join(f'{v:.3f}' for v in protocol['write_s'])} s; restart "
+        f"{protocol['restart_s']:.2f} s; K2 and K4 at D = 100 and 1,024, "
+        f"worst error over the allowance "
+        + ", ".join(f"{k} D={d} {v:.3f}" for (k, d), v in width_err.items())
+        + f" ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; "
         + "; ".join(f"training {name} {launched}"

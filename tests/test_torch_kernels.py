@@ -112,9 +112,15 @@ def test_topk_plan_fits_and_fills_the_card(n_q, n_rows, dim, kind):
     (256, 3074, 256, "f32", (32, 13, 5)),    # splits of >= 256 rows
     (256, 100, 256, "bf16", (8, 4, 6)),      # too few rows: 8-query tiles
     (256, 98304, 768, "f32", (32, 16, 3)),   # wide rows: a smaller tile
+    (256, 98304, 1024, "f32", (32, 16, 3)),  # past 768: staged in slices,
+    (256, 98304, 4096, "int8", (32, 16, 4)),  # the plan of 768
+    (1, 3074, 1024, "bf16", (8, 132, 6)),
 ])
 def test_topk_plan(n_q, n_rows, dim, kind, want):
     assert ranking.topk_plan(n_q, n_rows, dim, 132, kind)[:3] == want
+    if dim > ranking.SLICE_COLS:
+        assert ranking.topk_plan(n_q, n_rows, dim, 132, kind) == \
+            ranking.topk_plan(n_q, n_rows, ranking.SLICE_COLS, 132, kind)
 
 
 def test_every_topk_variant_edits_text_of_its_source():
@@ -290,6 +296,49 @@ def test_topk_kernel_matches_plain(cuda, n_q, n_g, k, valid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dim", [100, 30, 772, 1024, 1600])
+@pytest.mark.parametrize("n_q,n_g,k,valid", [
+    (1, 3074, 10, 0), (3, 1001, 10, 990), (40, 5000, 64, 4321),
+    (256, 3074, 10, 0)])
+def test_topk_kernels_rank_any_width(cuda, dim, n_q, n_g, k, valid):
+    """K2 (f32 and its bf16 option) and K4 at widths off their multiples
+    (the wrappers pad with zero columns) and past the 768 columns they
+    stage at once (the sliced instantiation): the plain versions' top-k,
+    scores within 1e-5 (f32 sums of up to 1,600 products in another
+    order), one launch each."""
+    from textreid_torch.ops.quant import quantize_rows
+
+    q, gal = _k2_args(n_q, n_g, cuda, dim=dim)
+    quant = quantize_rows(gal)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = ranking.topk_similarity.launches
+        vals, idx = ranking.topk_similarity(q, gal, k, valid, dtype)
+        pv, pi = ranking.topk_similarity_plain(q, gal, k, valid, dtype)
+        torch.cuda.synchronize()
+        assert ranking.topk_similarity.launches == before + 1
+        assert (vals - pv).abs().max().item() <= 1e-5
+        differ = idx != pi
+        assert not differ.any() or (
+            vals[differ] - pv[differ]).abs().max().item() <= 1e-5
+        assert idx[0, 0].item() == (valid or n_g) - 1 if valid == 0 else True
+    before = ranking.topk_similarity_quantized.launches
+    vals, idx = ranking.topk_similarity_quantized(
+        q, quant.values, quant.scales, k=k, valid_gallery=valid)
+    pv, pi = ranking.topk_similarity_quantized_plain(
+        q, quant.values, quant.scales, k, valid)
+    torch.cuda.synchronize()
+    assert ranking.topk_similarity_quantized.launches == before + 1
+    assert ((vals - pv).abs() <= 1e-5 * pv.abs() + 1e-6).all()
+    differ = idx != pi
+    assert not differ.any() or ((vals[differ] - pv[differ]).abs()
+                                <= 1e-5 * pv[differ].abs() + 1e-6).all()
+    padded = ranking.pad_columns(gal, 4)  # a gallery padded once
+    got = ranking.topk_similarity(q, padded, k, valid)
+    want = ranking.topk_similarity(q, gal, k, valid)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_q,n_g,k,valid", [
     (13, 200, 7, 0), (17, 300, 10, 250), (9, 5000, 64, 4321),
     (1, 3074, 10, 0), (3, 1001, 10, 990), (256, 3074, 10, 0)])
@@ -324,8 +373,9 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_topk_wrappers_refuse_bad_inputs_on_the_card(cuda):
-    """K2's and K4's wrappers: k past 64, D past 768 or off its multiple,
-    a wrong dtype, a view that is not contiguous or not 16-byte aligned."""
+    """K2's and K4's wrappers: k past 64, a wrong dtype, a view that is not
+    contiguous or not 16-byte aligned, widths that differ; and their entry
+    points (the wrappers pad D to it) D off its multiple."""
     from textreid_torch.ops.quant import quantize_rows
 
     q, gal = _k2_args(3, 40, cuda)
@@ -336,14 +386,15 @@ def test_topk_wrappers_refuse_bad_inputs_on_the_card(cuda):
         f32(q, gal, k=65)
     with pytest.raises(ValueError, match="k <= 64"):
         int8(q, quant.values, quant.scales, k=0)
-    wide = torch.zeros(3, 772, device=cuda)
-    with pytest.raises(ValueError, match="D <= 768"):
-        f32(wide, wide, k=3)
     with pytest.raises(ValueError, match="D % 4"):
-        f32(q[:, :30].contiguous(), gal[:, :30].contiguous(), k=3)
+        ranking._topk_cuda(q[:, :30].contiguous(),
+                           gal[:, :30].contiguous(), 3, 0)
     with pytest.raises(ValueError, match="D % 16"):
-        int8(q[:, :24].contiguous(), quant.values[:, :24].contiguous(),
-             quant.scales, k=3)
+        ranking._topk_quantized_cuda(q[:, :24].contiguous(),
+                                     quant.values[:, :24].contiguous(),
+                                     quant.scales, 3, 0)
+    with pytest.raises(ValueError, match="queries"):
+        f32(q[:, :20].contiguous(), gal, k=3)
     with pytest.raises(TypeError, match="int8"):
         int8(q, gal, quant.scales, k=3)
     with pytest.raises(ValueError, match="contiguous"):

@@ -146,3 +146,38 @@ def test_cuda_entry_refuses_what_it_cannot_launch(gallery):
                                      5, 0)
     with pytest.raises(TypeError, match="int8"):
         ranking._topk_quantized_cuda(q, pq.values.float(), pq.scales, 5, 0)
+
+
+@pytest.mark.parametrize("dim", [100, 1024])
+def test_any_width_matches_pallas_interpret(dim):
+    """D off the int8 kernel's multiple of 16 (100) and past the 768
+    columns it stages at once (1,024): the wrapper pads the int8 rows and
+    the queries with zero columns, which change neither the row scales nor
+    a score; the plain version equals the JAX kernel's top-k in interpret
+    mode (scores rtol 1e-5, indices equal outside exact ties)."""
+    rng = np.random.RandomState(dim)
+    emb = _unit(rng, 200, dim)
+    emb[120] = emb[3]
+    queries = _unit(rng, 9, dim)
+    queries[0] = emb[3]
+    jq = jax_quant.quantize_rows(jnp.asarray(emb))
+    values = torch.from_numpy(np.array(jq.values))
+    scales = torch.from_numpy(np.array(jq.scales))
+    want_v, want_i = topk_similarity_quantized_padded(
+        jnp.asarray(queries), jq, k=10, query_tile=8, gallery_tile=128,
+        interpret=True)
+    padded = ranking.pad_columns(values, 16)
+    assert padded.shape[1] % 16 == 0
+    assert torch.equal(quant.quantize_rows(ranking.pad_columns(
+        torch.from_numpy(emb), 16)).scales,
+        quant.quantize_rows(torch.from_numpy(emb)).scales)
+    for gal in (values, padded):
+        got_v, got_i = ranking.topk_similarity_quantized(
+            torch.from_numpy(queries), gal, scales, k=10)
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v),
+                                   rtol=1e-5, atol=1e-6)
+        scores = quant.quantized_scores(
+            torch.from_numpy(queries), quant.QuantizedGallery(
+                values, scales)).numpy()
+        _same_outside_ties(got_i.numpy(), np.asarray(want_i), scores)
+        assert got_i[0, :2].tolist() == [120, 3]

@@ -157,3 +157,38 @@ def test_compute_dtype_must_be_f32_or_bf16(dtype):
         topk_similarity(q, q, k=2, compute_dtype=dtype)
     with pytest.raises(TypeError, match="compute_dtype"):
         topk_similarity_plain(q, q, 2, compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("dim", [100, 1024])
+def test_any_width_matches_the_pallas_kernel(dim):
+    """D off the kernel's multiple of 4 (100 is one, so 102) and past the
+    768 columns it stages at once (1,024): the wrapper's zero columns
+    leave the JAX kernel's top-k (``topk_similarity_padded``, which takes
+    any D) unchanged; ties of duplicated rows keep the larger row first."""
+    rng = np.random.RandomState(dim)
+    for width in (dim, dim + 2):
+        q, g = _unit(rng, 9, width), _unit(rng, 70, width)
+        g[50] = g[5]
+        q[0] = g[5]
+        port, jax_out = _both(q, g, 10)
+        _check(port, jax_out)
+        assert port[1][0, :2].tolist() == [50, 5]
+
+
+def test_a_gallery_padded_once_takes_queries_of_its_own_width():
+    """A gallery padded by ``pad_columns`` (as ``RetrievalIndex`` keeps it)
+    ranks unpadded queries: the result of the unpadded gallery, exactly;
+    a width that is not the queries' padded to the multiple raises."""
+    from textreid_torch.ops.ranking import pad_columns
+
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(_unit(rng, 5, 30))
+    g = torch.from_numpy(_unit(rng, 40, 30))
+    padded = pad_columns(g, 4)
+    assert padded.shape == (40, 32) and pad_columns(padded, 4) is padded
+    assert torch.equal(padded[:, 30:], torch.zeros(40, 2))
+    want = topk_similarity_plain(q, g, 6)
+    got = topk_similarity(q, padded, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(RuntimeError):
+        topk_similarity(q[:, :26], padded, 6)

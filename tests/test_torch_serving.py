@@ -416,3 +416,78 @@ def test_a_failed_load_leaves_the_quantized_index_serving(quantized, tmp_path):
         port_index.load_index(path)
     assert port_index._quant_gallery is before
     assert port_index.gallery.shape == (23, 12)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_a_legacy_augmented_index_loads_to_the_jax_gallery(
+        quantized, tmp_path, quantize):
+    """A JAX index file of the legacy mesh layout (``augmented`` set: the
+    gallery as ``[G + pad, D + 1]`` with pad rows and a score column, its
+    int8 rows quantized from that matrix): both packages strip it back to
+    the same ``[G, D]`` gallery, and a quantized index quantizes the clean
+    gallery again instead of taking the stored rows."""
+    jax_index, port_index = quantized
+    clean = np.array(jax_index.gallery)
+    rng = np.random.RandomState(12)
+    aug = np.zeros((clean.shape[0] + 9, clean.shape[1] + 1), np.float32)
+    aug[:clean.shape[0], :-1] = clean
+    aug[:, -1] = rng.randn(len(aug))
+    path = str(tmp_path / "augmented.idx")
+    with open(path, "wb") as f:
+        np.savez(f, gallery=aug, meta=np.asarray(jax_index.gallery_meta),
+                 augmented=np.asarray(True),
+                 quant_values=np.ones(aug.shape, np.int8),
+                 quant_scales=np.ones(len(aug), np.float32))
+    jax_dst = JaxRetrievalIndex(jax_index.model, jax_index.state,
+                                query_batch=4, use_pallas=False,
+                                quantize=quantize)
+    jax_dst.load_index(path)
+    dst = RetrievalIndex(port_index.model, query_batch=4, quantize=quantize)
+    dst.load_index(path)
+    want = np.asarray(jax_dst.gallery)
+    assert dst.gallery.shape == want.shape == clean.shape
+    np.testing.assert_array_equal(dst.gallery.numpy(), want)
+    np.testing.assert_array_equal(dst.gallery_meta, jax_dst.gallery_meta)
+    if quantize:
+        from textreid_torch.ops.quant import quantize_rows
+
+        again = quantize_rows(torch.from_numpy(clean))
+        assert torch.equal(dst._quant_gallery.values, again.values)
+        assert torch.equal(dst._quant_gallery.scales, again.scales)
+    ids, lens = _queries()
+    got = dst.search(ids, lens, k=5)
+    assert got[1].shape == (6, 5) and np.isin(got[1], dst.gallery_meta).all()
+
+
+@pytest.mark.parametrize("dim", [100, 1024])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_search_answers_at_a_width_off_the_kernels_multiple(quantize, dim):
+    """``FEATURE_SIZE`` 100 (off the int8 kernel's multiple of 16) and
+    1,024 (past the 768 columns the kernels stage at once): the index pads
+    its gallery once where it must, and the queries on each call;
+    ``search`` answers with the top-k of the unpadded scores (for the int8
+    gallery, ``quantized_scores`` of the unpadded rows), and the index
+    keeps the unpadded gallery."""
+    from textreid_torch.ops.quant import quantized_scores
+
+    torch.manual_seed(0)
+    model = TextReIDModel(ModifiedResNet(**VISUAL), BiGRUEncoder(**TEXT),
+                          dim, pixel_mean=MEAN, pixel_std=STD).eval()
+    index = RetrievalIndex(model, query_batch=4, quantize=quantize)
+    rng = np.random.RandomState(4)
+    index.build_gallery([rng.randint(0, 255, (8, 64, 32, 3), dtype=np.uint8)
+                         for _ in range(2)], meta=np.arange(100, 116))
+    assert index.gallery.shape == (16, dim)
+    ids, lens = _queries()
+    scores, meta = index.search(ids, lens, k=5)
+    queries = torch.from_numpy(index.encode_queries(ids, lens))
+    if quantize:
+        sim = quantized_scores(queries, index._quant_gallery)
+        assert index._kernel_gallery().shape == (16, -(-dim // 16) * 16)
+    else:
+        sim = queries @ index.gallery.T
+        assert index._kernel_gallery() is index.gallery  # dim % 4 == 0
+    want = torch.sort(sim.flip(1), dim=1, descending=True, stable=True)
+    np.testing.assert_array_equal(meta, 100 + 15 - want.indices[:, :5].numpy())
+    np.testing.assert_allclose(scores, want.values[:, :5].numpy(), rtol=1e-6,
+                               atol=1e-6)

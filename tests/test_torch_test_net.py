@@ -265,7 +265,8 @@ def test_an_orbax_directory_and_a_missing_card_raise(workspace, tmp_path):
     root, ckpt, _, _ = workspace
     argv = ["--root", str(root), "--config-file",
             str(root / "configs" / "tiny" / "eval.yaml")]
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(NotImplementedError, match="not supported; export "
+                       "it to a reference .pth with tools/export_torch.py"):
         test_net.main(argv + ["--checkpoint-file", str(tmp_path),
                               "--device", "cpu"])
     if not torch.cuda.is_available():

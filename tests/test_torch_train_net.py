@@ -1,7 +1,9 @@
 """``python -m textreid_torch.train_net`` on the CPU: one epoch of two MoCo
 steps of a tiny ViT + bi-GRU model on a synthetic CUHK-PEDES train split,
 the same of the flagship (CLIP RN50 + bi-GRU) at 32x16 pixels, and the
-parts that are not ported yet refusing to run."""
+parts that are not ported yet refusing to run.  Evaluation during
+training, checkpoints, resume, warm start and preemption:
+``tests/test_torch_trainer.py``."""
 
 import math
 import os
@@ -111,14 +113,110 @@ def test_the_flagship_trains_one_epoch_on_the_cpu(workspace):
     assert not torch.equal(query, key)
 
 
-def test_evaluation_during_training_raises(workspace):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        _main(workspace, "SOLVER.EVALUATE_PERIOD", "1")
+def test_the_flagship_trains_as_shipped_on_the_cpu(workspace):
+    """The flagship's yaml with no ``SOLVER.EVALUATE_PERIOD`` override (1,
+    its default): at 32x16 pixels, batch 8, two epochs of two steps, an
+    evaluation on a synthetic test split after each, ``best.pth`` from
+    the first evaluation with an R@1 above 0 and any strict gain after it,
+    and ``CHECKPOINT_KEEP 1`` leaving ``epoch_2.pth`` alone."""
+    from textreid_torch.utils.checkpoint import read_meta
+
+    root = workspace / "as_shipped"
+    data = root / "datasets" / "cuhkpedes"
+    make_synthetic_dataset(str(data), num_identities=4, images_per_id=4,
+                           image_size=(32, 16), vocab_size=50, max_tokens=10,
+                           split="train")
+    make_synthetic_dataset(str(data), num_identities=4, images_per_id=2,
+                           image_size=(32, 16), vocab_size=50, max_tokens=10,
+                           split="test", seed=1)
+    state, meters = train_net.main([
+        "--root", str(root), "--config-file",
+        os.path.join(REPO, "configs/cuhkpedes/"
+                     "moco_gru_cliprn50_ls_bs128_2048.yaml"),
+        "--device", "cpu", "INPUT.HEIGHT", "32", "INPUT.WIDTH", "16",
+        "SOLVER.IMS_PER_BATCH", "8", "DATALOADER.IMS_PER_ID", "4",
+        "DATALOADER.NUM_WORKERS", "2", "MODEL.MOCO.K", "32",
+        "MODEL.NUM_CLASSES", "4", "SOLVER.NUM_EPOCHS", "2",
+        "SOLVER.CHECKPOINT_PERIOD", "1", "SOLVER.CHECKPOINT_KEEP", "1",
+        "TEST.IMS_PER_BATCH", "8", "TPU.ALLOW_RANDOM_VOCAB", "True"])
+    out = root / "output" / "cuhkpedes" / "moco_gru_cliprn50_ls_bs128_2048"
+    top1 = list(meters.top1.deque)
+    assert state.step == 4 and len(top1) == 2
+    assert all(math.isfinite(v) for v in top1)
+    assert sorted(p.name for p in out.glob("*.pth")) == [
+        "best.pth", "epoch_2.pth"]
+    best = read_meta(out / "best.pth")
+    assert best["best_top1"] == max(top1) > 0
+    assert best["epoch"] == 1 + top1.index(max(top1))
 
 
-def test_resume_raises(workspace):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        _main(workspace, "--resume-from", "auto")
+def test_the_clip_rn50_archive_loads_into_both_trunks_as_jax_loads_it(
+        workspace, tmp_path):
+    """A CLIP-layout ``ROOT/pretrained/clip/RN50.pt`` (seeded: the port's
+    ModifiedResNet-50 at CLIP's 224x224, BatchNorm statistics moved, under
+    ``visual.`` beside a text-tower key, as a whole archive has it): after
+    ``train_net`` starts the flagship at 32x16 pixels, the query and the
+    key trunk both equal what JAX's ``load_clip_visual`` makes of the same
+    file (carried over with ``state_dict_from_jax``'s layout), exactly but
+    the resized 7x7 -> 2x1 positional embedding (1e-6).  An archive that
+    lacks a key of the trunk raises."""
+    import numpy as np
+
+    from textreid_torch.models.m_resnet import ModifiedResNet
+    from textreid_torch.utils import weight_convert
+    from textreid_tpu.utils.weight_convert import load_clip_visual
+
+    torch.manual_seed(3)
+    clip = ModifiedResNet((3, 4, 6, 3), 1024, heads=32,
+                          input_resolution=(224, 224))
+    gen = torch.Generator().manual_seed(4)
+    archive = {}
+    for k, v in clip.state_dict().items():
+        if k.endswith("running_mean"):
+            v = torch.randn(v.shape, generator=gen) * 0.1
+        elif k.endswith("running_var"):
+            v = torch.rand(v.shape, generator=gen) + 0.5
+        archive["visual." + k] = v
+    archive["token_embedding.weight"] = torch.zeros(4, 8)
+    root = tmp_path / "root"
+    (root / "pretrained" / "clip").mkdir(parents=True)
+    path = root / "pretrained" / "clip" / "RN50.pt"
+    torch.save(archive, path)
+    for item in (workspace / "datasets").iterdir():
+        (root / "datasets").mkdir(exist_ok=True)
+        (root / "datasets" / item.name).symlink_to(item)
+    argv = [
+        "--root", str(root), "--config-file",
+        os.path.join(REPO, "configs/cuhkpedes/"
+                     "moco_gru_cliprn50_ls_bs128_2048.yaml"),
+        "--device", "cpu", "INPUT.HEIGHT", "32", "INPUT.WIDTH", "16",
+        "SOLVER.IMS_PER_BATCH", "8", "DATALOADER.IMS_PER_ID", "4",
+        "DATALOADER.NUM_WORKERS", "2", "MODEL.MOCO.K", "32",
+        "MODEL.NUM_CLASSES", "4", "SOLVER.NUM_EPOCHS", "0",
+        "SOLVER.EVALUATE_PERIOD", "0", "TPU.ALLOW_RANDOM_VOCAB", "True"]
+    state, _ = train_net.main(argv)
+
+    jax = load_clip_visual(str(path), "RN50", (2, 1))
+    want = {}
+    weight_convert._visual(want, "", jax["params"], jax["batch_stats"])
+    pos = "attnpool.positional_embedding"
+    assert want[pos].shape == (3, 2048)
+    for model in (state.model, state.key_model):
+        got = model.visual_model.state_dict()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if k == pos:
+                np.testing.assert_allclose(got[k].numpy(), v, rtol=0,
+                                           atol=1e-6)
+            else:
+                assert torch.equal(got[k], torch.as_tensor(np.asarray(v))), k
+    assert not torch.equal(state.model.visual_model.bn1.running_var,
+                           torch.ones(32))
+
+    del archive["visual.layer4.2.bn3.running_var"]
+    torch.save(archive, path)
+    with pytest.raises(KeyError, match="layer4.2.bn3.running_var"):
+        train_net.main(argv)
 
 
 def test_batchnorm_tower_in_training_raises(workspace):

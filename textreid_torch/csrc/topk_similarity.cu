@@ -17,7 +17,8 @@
 //            (ops/quant.py:quantized_scores): bf16 x int8 is exact in f32,
 //            so only the order of the f32 sum differs from a matmul's.
 // Q [Q, D] f32, G [G, D] f32 (D % 4 == 0) or int8 (D % 16 == 0), scales [G]
-// f32, 1 <= k <= 64, D <= 768, any Q >= 1.
+// f32, 1 <= k <= 64, any D, any Q >= 1 (ops/ranking.py pads D to the
+// multiple with zero columns, which leave every score unchanged).
 //
 // What bounds them on the H100 (D = 256, k = 10; chip_smoke.py:
 // topk_bound).  At one query, bytes: the gallery read once, 1 KB a row in
@@ -66,6 +67,12 @@
 //   conversion anyway, one query needs an 8-wide tile, and the products
 //   take well under half of K4's time at every shape (the selection takes
 //   most).
+// * D > 768 (kSliced): the block stages its query tile 768 columns at a
+//   time (the layout, and so the plan, of D = 768), restaging each slice
+//   for every gallery tile between two consumer barriers; a tile's scores
+//   are still summed over the whole of D, chunk by chunk, before the
+//   selection.  Up to D = 768 the kernel is the unsliced instantiation:
+//   no register or byte of shared memory is added there.
 // * Selection: each score is compared with its query's current k-th entry,
 //   in (value, row) order (ranks_above), kept in shared memory; only the
 //   survivors go, one atomic each, to the query's buffer of 64 candidates.
@@ -131,6 +138,9 @@ constexpr int kMaxStages = 6;
 constexpr int kSmemMax = 232448;
 constexpr int kSplitsMax = 192;  // the lists of a query fit 3 stages
 constexpr int kQTiles[4] = {64, 32, 16, 8};
+// query columns a block stages at once; a wider D is staged a slice at a
+// time (the kSliced instantiation)
+constexpr int kSliceCols = 768;
 
 enum Kind { kF32 = 0, kBf16 = 1, kInt8 = 2 };
 
@@ -150,6 +160,11 @@ __host__ __device__ inline int query_stride(int kind, int dim) {
   if (kind == kF32) return dim * 4;
   const int padded = ((dim + 31) / 32) * 64;
   return ((padded + 127) / 128) * 128 + 32;
+}
+
+// the query columns a block holds at once
+__host__ __device__ constexpr int staged_dim(int dim) {
+  return dim <= kSliceCols ? dim : kSliceCols;
 }
 
 struct Entry {
@@ -217,7 +232,7 @@ Plan make_plan(int kind, int n_q, int n_rows, int dim, int sms) {
   long best_blocks = -1;
   for (int qt : kQTiles) {
     if (qt > cap) continue;
-    const int stages = fit_stages(kind, qt, dim);
+    const int stages = fit_stages(kind, qt, staged_dim(dim));
     if (!stages) continue;
     const int q_tiles = (n_q + qt - 1) / qt;
     const int min_rows = qt == 8 ? 16 : 256;
@@ -227,7 +242,8 @@ Plan make_plan(int kind, int n_q, int n_rows, int dim, int sms) {
     if (splits > by_rows) splits = by_rows;
     if (splits < 1) splits = 1;
     const long blocks = static_cast<long>(q_tiles) * splits;
-    const Plan p = {qt, splits, stages, layout(kind, qt, dim, stages).total};
+    const Plan p = {qt, splits, stages,
+                    layout(kind, qt, staged_dim(dim), stages).total};
     if (blocks * 4 >= static_cast<long>(sms) * 3) return p;
     if (blocks > best_blocks) {
       best = p;
@@ -502,11 +518,54 @@ __device__ __forceinline__ uint32_t append(uint32_t pending, const float* acc,
   return pending;
 }
 
+// Stage columns [col0, col0 + cols) of the block's query tile (rows q0 ..
+// q0 + kQT - 1 of q [n_q, dim]) at q_s, by the consumer threads: f32 as
+// it is, or rounded to bf16 and zero-padded to a multiple of 32 columns;
+// rows past the tile's valid queries are zeros.
+template <int kKind, int kQT>
+__device__ __forceinline__ void stage_queries(const float* __restrict__ q,
+                                              unsigned char* q_s, int q0,
+                                              int nq_tile, int dim, int col0,
+                                              int cols, int qstride,
+                                              int tid) {
+  const float* src = q + static_cast<size_t>(q0) * dim + col0;
+  if constexpr (kKind == kF32) {
+    const int vec = cols / 4;
+#pragma unroll 4
+    for (int i = tid; i < kQT * vec; i += kConsumers) {
+      const int r = i / vec;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nq_tile) {
+        v = *reinterpret_cast<const float4*>(
+            src + static_cast<size_t>(r) * dim + (i - r * vec) * 4);
+      }
+      reinterpret_cast<float4*>(q_s + r * qstride)[i - r * vec] = v;
+    }
+  } else {
+    // rounded to bf16, zero past the slice and past the valid queries
+    const int pairs = (cols + 31) / 32 * 16;
+#pragma unroll 4
+    for (int i = tid; i < kQT * pairs; i += kConsumers) {
+      const int r = i / pairs, e = (i - r * pairs) * 2;
+      float x0 = 0.f, x1 = 0.f;
+      if (r < nq_tile && e < cols) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            src + static_cast<size_t>(r) * dim + e);
+        x0 = v.x;
+        x1 = v.y;
+      }
+      *reinterpret_cast<uint32_t*>(q_s + r * qstride + e * 2) =
+          pack_bf16(x0, x1);
+    }
+  }
+}
+
 // Block (query tile, split): the top-k of kQT queries over the split's
 // gallery rows [split n_rows / splits, (split + 1) n_rows / splits); with
 // one split into vals / idx, else into the [n_q, splits, k] scratch, merged
-// by the query tile's last block.
-template <int kKind, int kQT>
+// by the query tile's last block.  kSliced (D > kSliceCols): the query
+// tile is staged a slice of kSliceCols columns at a time.
+template <int kKind, int kQT, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
                    const float* __restrict__ q,
@@ -520,7 +579,8 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
   // keeps every access below in the shared space
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Layout L = layout(kKind, kQT, dim, stages);
+  const int qdim = kSliced ? kSliceCols : dim;  // query columns staged
+  const Layout L = layout(kKind, kQT, qdim, stages);
   unsigned char* ring = smem + L.ring;
   unsigned char* q_s = smem + L.queries;
   Entry* lists = reinterpret_cast<Entry*>(smem + L.lists);
@@ -544,7 +604,7 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
   const int n_tiles = (row_end - row_begin + kTileRows - 1) / kTileRows;
   const int row_bytes = dim * elem_bytes(kKind);
   const int n_chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
-  const int qstride = query_stride(kKind, dim);
+  const int qstride = query_stride(kKind, qdim);
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -554,34 +614,9 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (tid < kConsumers) {
-    if constexpr (kKind == kF32) {
-      const int vec = dim / 4;
-#pragma unroll 4
-      for (int i = tid; i < kQT * vec; i += kConsumers) {
-        const int r = i / vec;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < nq_tile) {
-          v = *reinterpret_cast<const float4*>(
-              q + static_cast<size_t>(q0 + r) * dim + (i - r * vec) * 4);
-        }
-        reinterpret_cast<float4*>(q_s + r * qstride)[i - r * vec] = v;
-      }
-    } else {
-      // rounded to bf16, zero past D and past the valid queries
-      const int pairs = (dim + 31) / 32 * 16;
-#pragma unroll 4
-      for (int i = tid; i < kQT * pairs; i += kConsumers) {
-        const int r = i / pairs, e = (i - r * pairs) * 2;
-        float x0 = 0.f, x1 = 0.f;
-        if (r < nq_tile && e < dim) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              q + static_cast<size_t>(q0 + r) * dim + e);
-          x0 = v.x;
-          x1 = v.y;
-        }
-        *reinterpret_cast<uint32_t*>(q_s + r * qstride + e * 2) =
-            pack_bf16(x0, x1);
-      }
+    if constexpr (!kSliced) {  // the whole tile, once
+      stage_queries<kKind, kQT>(q, q_s, q0, nq_tile, dim, 0, dim, qstride,
+                                tid);
     }
     for (int i = tid; i < kQT * kKMax; i += kConsumers) {
       lists[i] = Entry{kNegInf, -1};
@@ -639,6 +674,20 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
     }
     for (int c = 0; c < n_chunks; ++c, ++it) {
       const int s = it % stages;
+      int qcol = c * chunk_elems(kKind);  // the chunk's first column in q_s
+      if constexpr (kSliced) {
+        // the chunk opens a slice: stage it once every consumer is done
+        // with the last one
+        const int col0 = qcol / kSliceCols * kSliceCols;
+        if (qcol == col0) {
+          consumers_sync();
+          stage_queries<kKind, kQT>(q, q_s, q0, nq_tile, dim, col0,
+                                    min(kSliceCols, dim - col0), qstride,
+                                    tid);
+          consumers_sync();
+        }
+        qcol -= col0;
+      }
       mbar_wait(&full[s], (it / stages) & 1);
       const unsigned char* stage = ring + s * kStageBytes;
       const int width = min(chunk_elems(kKind), dim - c * chunk_elems(kKind));
@@ -648,7 +697,7 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
         const int r0 = rb * 32 * S::TR + lane;
         const float* qs =
             reinterpret_cast<const float*>(q_s + qb * S::TQ * qstride) +
-            c * chunk_elems(kKind);
+            qcol;
         const int qf = qstride / 4;
 #pragma unroll 2
         for (int d = 0; d < width_q; d += 4) {
@@ -675,7 +724,7 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
         const int gq = lane >> 2, tq = lane & 3;
         const int steps = (width + 31) / 32;
         for (int st = 0; st < steps; ++st) {
-          const int k0 = c * chunk_elems(kKind) + st * 32;
+          const int k0 = qcol + st * 32;
           // A: a thread's rows g and g + 8 at elements 4t..4t+3 (first
           // product) and 16+4t..16+4t+3 (second): the same permutation of
           // k as B's, so the sums are the contract's
@@ -888,14 +937,22 @@ topk_stream_kernel(const __grid_constant__ CUtensorMap g_map,
 using KernelFn = void (*)(CUtensorMap, const float*, const float*, float*,
                           int*, float*, int*, int*, int, int, int, int, int);
 
-template <int kKind>
+// (a sliced 64-query tile does not fit: the plan never asks for one)
+template <int kKind, bool kSliced>
 KernelFn kernel_for(int qt) {
   switch (qt) {
-    case 64: return topk_stream_kernel<kKind, 64>;
-    case 32: return topk_stream_kernel<kKind, 32>;
-    case 16: return topk_stream_kernel<kKind, 16>;
-    default: return topk_stream_kernel<kKind, 8>;
+    case 64: return kSliced ? nullptr : topk_stream_kernel<kKind, 64, false>;
+    case 32: return topk_stream_kernel<kKind, 32, kSliced>;
+    case 16: return topk_stream_kernel<kKind, 16, kSliced>;
+    default: return topk_stream_kernel<kKind, 8, kSliced>;
   }
+}
+
+template <bool kSliced>
+KernelFn kernel_of_kind(int kind, int qt) {
+  return kind == kF32 ? kernel_for<kF32, kSliced>(qt)
+       : kind == kBf16 ? kernel_for<kBf16, kSliced>(qt)
+                       : kernel_for<kInt8, kSliced>(qt);
 }
 
 int sm_count() {
@@ -1000,21 +1057,22 @@ int launch(int kind, const float* q, const unsigned char* g,
   if (!p.qt || p.qt != q_tile || p.splits != splits || k < 1 || k > kKMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  KernelFn fn = kind == kF32 ? kernel_for<kF32>(p.qt)
-              : kind == kBf16 ? kernel_for<kBf16>(p.qt)
-                              : kernel_for<kInt8>(p.qt);
+  const bool sliced = dim > kSliceCols;
+  KernelFn fn = sliced ? kernel_of_kind<true>(kind, p.qt)
+                       : kernel_of_kind<false>(kind, p.qt);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   {  // the shared-memory attribute, once a (device, kernel)
     static std::mutex lock;
-    static int set[64][3][4] = {};
+    static int set[64][3][2][4] = {};
     int dev = 0;
     cudaGetDevice(&dev);
     const int slot = p.qt == 64 ? 0 : p.qt == 32 ? 1 : p.qt == 16 ? 2 : 3;
     std::lock_guard<std::mutex> hold(lock);
-    if (set[dev][kind][slot] < p.smem) {
+    if (set[dev][kind][sliced][slot] < p.smem) {
       const cudaError_t err = cudaFuncSetAttribute(
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
       if (err != cudaSuccess) return static_cast<int>(err);
-      set[dev][kind][slot] = kSmemMax;
+      set[dev][kind][sliced][slot] = kSmemMax;
     }
   }
   CUtensorMap map;
@@ -1032,7 +1090,8 @@ int launch(int kind, const float* q, const unsigned char* g,
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  The Python wrapper checks
-// dtype, shape, contiguity, 16-byte alignment, k <= 64 and D, computes the
+// dtype, shape, contiguity, 16-byte alignment, k <= 64 and D's multiple
+// (it pads D with zero columns to that multiple), computes the
 // plan (ops/ranking.py:topk_plan), allocates the [n_q, splits, k] scratch
 // when splits > 1 and passes its device's ticket counters (zeroed, one a
 // query tile).  Rows at or past valid_gallery are never scored.  round_bf16

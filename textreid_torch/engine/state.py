@@ -54,18 +54,40 @@ class TrainState:
         self.queue_ptr = int(pieces["queue_ptr"])
 
     def state_dict(self) -> dict:
-        """Everything a checkpoint holds (CPU tensors)."""
-        def cpu(sd):
-            return {k: v.detach().cpu() for k, v in sd.items()}
-
-        out = {"model": cpu(self.model.state_dict()),
+        """Everything a checkpoint holds, as a snapshot: every tensor
+        (the optimizer's too) copied to the CPU, so that later in-place
+        updates of the live state do not reach it."""
+        out = {"model": self.model.state_dict(),
                "optimizer": self.optimizer.state_dict(), "step": self.step}
         if self.key_model is not None:
-            out.update(key_model=cpu(self.key_model.state_dict()),
-                       v_queue=self.v_queue.cpu(), t_queue=self.t_queue.cpu(),
-                       id_queue=self.id_queue.cpu(),
-                       queue_ptr=self.queue_ptr)
-        return out
+            out.update(key_model=self.key_model.state_dict(),
+                       v_queue=self.v_queue, t_queue=self.t_queue,
+                       id_queue=self.id_queue, queue_ptr=self.queue_ptr)
+        return _cpu_copy(out)
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore what :meth:`state_dict` gave, in place: both models, the
+        optimizer, ``step``, the queues and the pointer."""
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+        if self.key_model is not None:
+            self.key_model.load_state_dict(sd["key_model"])
+            for name in ("v_queue", "t_queue", "id_queue"):
+                getattr(self, name).copy_(sd[name])
+            self.queue_ptr = int(sd["queue_ptr"])
+
+
+def _cpu_copy(obj):
+    """``obj`` with every tensor in it copied to the CPU (a copy even of a
+    CPU tensor)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _cpu_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu_copy(v) for v in obj)
+    return obj
 
 
 def create_train_state(cfg, model: torch.nn.Module,

@@ -10,6 +10,15 @@ the kernel's contract.  Nothing falls back from one to the other.
 Order is (score desc, gallery row desc): on an exact tie the larger row
 wins.  Slots past the valid rows hold ``NEG_INF`` and row ``-1``.
 
+Any embedding width D ranks, as in the JAX package.  The kernels read a
+row whose bytes are a multiple of 16 (D % 4 == 0 in f32, D % 16 == 0 in
+int8): the wrappers pad D with zero columns, which leave every score
+unchanged, up to that multiple (:func:`pad_columns`).  A gallery may come
+already padded (``serving.RetrievalIndex`` pads its gallery once, when it is
+built or loaded); then only the queries are padded, on each call.  Past
+``SLICE_COLS`` columns the kernels stage their query tiles a slice at a
+time, and still sum each score over the whole of D before the selection.
+
 :func:`topk_similarity_quantized` is the same over an int8 gallery with
 per-row scales, the counterpart of ``ranking_pallas.py:
 topk_similarity_quantized`` and its ``_padded`` wrapper; its plain version
@@ -32,7 +41,34 @@ from .quant import QuantizedGallery, quantized_scores
 
 NEG_INF = -3.0e38
 K_MAX = 64  # the kernel keeps at most 64 entries a query
-D_MAX = 768  # the widest query tile the kernel stages (8 queries at least)
+SLICE_COLS = 768  # query columns the kernel stages at once (csrc: kSliceCols)
+COLUMN_MULTIPLE = {"f32": 4, "int8": 16}  # D's multiple: 16-byte rows
+
+
+def pad_columns(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x [N, D]`` with zero columns appended up to a multiple of
+    ``multiple`` (``x`` itself when D is one)."""
+    extra = -x.shape[1] % multiple
+    if not extra:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[0], extra)], dim=1)
+
+
+def _aligned(queries: torch.Tensor, gallery: torch.Tensor, multiple: int):
+    """``(queries, gallery)`` padded with zero columns to the gallery's
+    width rounded up to ``multiple``; a gallery already padded that way
+    (wider than the queries by less than ``multiple``, to a multiple of
+    it) is not copied again.  Other widths are left for the checks."""
+    d_q, d_g = queries.shape[-1], gallery.shape[-1]
+    if queries.dim() != 2 or gallery.dim() != 2 or not (
+            d_q == d_g or (d_g % multiple == 0 and d_q < d_g
+                           and d_g - d_q < multiple)):
+        return queries, gallery
+    gallery = pad_columns(gallery, multiple)
+    if d_q < gallery.shape[1]:
+        queries = torch.cat([queries, queries.new_zeros(
+            queries.shape[0], gallery.shape[1] - d_q)], dim=1)
+    return queries, gallery
 
 
 def _stable_topk(scores: torch.Tensor, k: int):
@@ -93,9 +129,9 @@ def _check_inputs(queries, gallery, k) -> None:
         raise ValueError(f"need queries [Q, D] and gallery [G, D]; got "
                          f"{tuple(queries.shape)}, {tuple(gallery.shape)}")
     dim = queries.shape[1]
-    if dim % 4 or dim > D_MAX:
-        raise ValueError(f"topk_similarity_f32 needs D % 4 == 0 and "
-                         f"D <= {D_MAX}; got D={dim}")
+    if dim % 4:
+        raise ValueError(f"topk_similarity_f32 needs D % 4 == 0; got "
+                         f"D={dim}")
     if not 1 <= k <= K_MAX:
         raise ValueError(f"topk_similarity_f32 takes 1 <= k <= {K_MAX}; "
                          f"got {k}")
@@ -136,9 +172,11 @@ def _query_stride(kind: str, dim: int) -> int:
 
 def _shared_bytes(kind: str, q_tile: int, dim: int, stages: int) -> int:
     """A block's shared memory (``Layout`` in the ``.cu``): the ring, the
-    query tile, the lists (64 entries a query), the candidate buffers, the
-    thresholds, counts and list lengths, the mbarriers, 16 spare bytes and
-    1 KB of slack to align the ring to the swizzle's atom."""
+    query tile (at most ``SLICE_COLS`` columns of it), the lists (64
+    entries a query), the candidate buffers, the thresholds, counts and
+    list lengths, the mbarriers, 16 spare bytes and 1 KB of slack to align
+    the ring to the swizzle's atom."""
+    dim = min(dim, SLICE_COLS)
     return (stages * TILE_ROWS * CHUNK_BYTES + 1024
             + q_tile * _query_stride(kind, dim)
             + q_tile * K_MAX * 8 + q_tile * CAND_CAP * 8
@@ -308,10 +346,13 @@ def topk_similarity(queries: torch.Tensor, gallery: torch.Tensor,
     ``valid_gallery`` (0 = all rows) masks trailing gallery rows.
     ``compute_dtype=torch.bfloat16`` rounds both (float32) operands to bf16
     before the products, which are still summed in f32; scores then match a
-    bf16-inputs / f32-accumulate product, not the f32 one.  Returns
-    ``([Q, k] f32 scores, [Q, k] int32 rows)``, rows sorted descending.  A
-    CUDA tensor launches ``topk_similarity_f32`` (counted in
+    bf16-inputs / f32-accumulate product, not the f32 one.  Any D: both
+    are padded with zero columns to a multiple of 4, and a gallery so
+    padded already takes queries of its unpadded width.  Returns ``([Q, k]
+    f32 scores, [Q, k] int32 rows)``, rows sorted descending.  A CUDA
+    tensor launches ``topk_similarity_f32`` (counted in
     ``topk_similarity.launches``); a CPU tensor runs the plain version."""
+    queries, gallery = _aligned(queries, gallery, COLUMN_MULTIPLE["f32"])
     if queries.is_cuda:
         return _topk_cuda(queries, gallery, k, valid_gallery, compute_dtype)
     return topk_similarity_plain(queries, gallery, k, valid_gallery,
@@ -327,9 +368,9 @@ def _check_quantized_inputs(queries, values, scales, k) -> None:
         raise ValueError(f"need queries [Q, D] and values [G, D]; got "
                          f"{tuple(queries.shape)}, {tuple(values.shape)}")
     dim = queries.shape[1]
-    if dim % 16 or dim > D_MAX:
-        raise ValueError(f"topk_similarity_int8 needs D % 16 == 0 and "
-                         f"D <= {D_MAX}; got D={dim}")
+    if dim % 16:
+        raise ValueError(f"topk_similarity_int8 needs D % 16 == 0; got "
+                         f"D={dim}")
     if not 1 <= k <= K_MAX:
         raise ValueError(f"topk_similarity_int8 takes 1 <= k <= {K_MAX}; "
                          f"got {k}")
@@ -378,11 +419,13 @@ def topk_similarity_quantized(queries: torch.Tensor, values: torch.Tensor,
 
     ``values [G, D]`` int8 and ``scales [G]`` float32 are
     ``ops.quant.quantize_rows``'s; ``valid_gallery`` (0 = all rows) masks
-    trailing rows.  Returns ``([Q, k] f32 scores, [Q, k] int32 rows)``,
-    sorted descending with the float kernel's tie rule.  A CUDA tensor
-    launches ``topk_similarity_int8`` (counted in
+    trailing rows.  Any D: as :func:`topk_similarity`, to a multiple of 16
+    (zero columns leave the row scales unchanged).  Returns ``([Q, k] f32
+    scores, [Q, k] int32 rows)``, sorted descending with the float kernel's
+    tie rule.  A CUDA tensor launches ``topk_similarity_int8`` (counted in
     ``topk_similarity_quantized.launches``); a CPU tensor runs the plain
     version."""
+    queries, values = _aligned(queries, values, COLUMN_MULTIPLE["int8"])
     if queries.is_cuda:
         return _topk_quantized_cuda(queries, values, scales, k, valid_gallery)
     return topk_similarity_quantized_plain(queries, values, scales, k,

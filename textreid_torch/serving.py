@@ -12,8 +12,12 @@ first gallery batches; :meth:`RetrievalIndex.enable_int8_text` does the same
 for a text-transformer query tower (``models/int8_text.py``).  The index
 file format (npz with ``gallery`` and ``meta``, plus ``quant_values`` and
 ``quant_scales`` from a quantized index) is the JAX package's, so an index
-written by either package loads in the other.  The interface (``search``,
-``search_by_image``, ``load_index``, ``gallery``, ``gallery_meta``) is what
+written by either package loads in the other, the JAX package's legacy
+``augmented`` files too.  The kernels rank any embedding width: a gallery
+whose width is off their multiple is padded with zero columns once, when
+it is built or loaded, and the queries on each call (``ops/ranking.py``).
+The interface (``search``, ``search_by_image``, ``load_index``,
+``gallery``, ``gallery_meta``) is what
 ``textreid_torch.server.RetrievalService`` drives.
 """
 
@@ -28,7 +32,13 @@ import torch
 
 from .models.losses import l2_normalize
 from .ops.quant import QuantizedGallery, quantize_rows, quantized_topk
-from .ops.ranking import K_MAX, topk_similarity, topk_similarity_quantized
+from .ops.ranking import (
+    COLUMN_MULTIPLE,
+    K_MAX,
+    pad_columns,
+    topk_similarity,
+    topk_similarity_quantized,
+)
 
 
 class RetrievalIndex:
@@ -75,6 +85,20 @@ class RetrievalIndex:
         self.image_query_batch = image_query_batch
         self.gallery: Optional[torch.Tensor] = None  # [G, D] f32, normalized
         self.gallery_meta: Optional[np.ndarray] = None
+        # (what the kernel ranks, the same padded for it)
+        self._padded: tuple = (None, None)
+
+    def _kernel_gallery(self) -> torch.Tensor:
+        """What the kernel ranks, the gallery or (``quantize``) its int8
+        values, padded with zero columns to the kernel's multiple of D (the
+        same tensor when D is one): made once for each gallery the index
+        holds."""
+        source = (self._quant_gallery.values if self.quantize
+                  else self.gallery)
+        if self._padded[0] is not source:
+            self._padded = (source, pad_columns(source, COLUMN_MULTIPLE[
+                "int8" if self.quantize else "f32"]))
+        return self._padded[1]
 
     # -- encoders ---------------------------------------------------------
     def _embed_images(self, pixels: torch.Tensor) -> torch.Tensor:
@@ -142,6 +166,7 @@ class RetrievalIndex:
                              else np.arange(gallery.shape[0]))
         if self.quantize:
             self._quant_gallery = quantize_rows(gallery)
+        self._kernel_gallery()
 
     def save_index(self, path: str) -> None:
         """Persist the gallery, its metadata and, from a quantized index,
@@ -160,13 +185,19 @@ class RetrievalIndex:
 
     def load_index(self, path: str) -> None:
         """Load an index written by either package's ``save_index``,
-        quantized or not.  A quantized instance reuses stored int8 rows
-        whose shape matches the gallery and quantizes the gallery again
-        otherwise.  Every member is read before the instance changes, so a
-        failed load leaves the previous gallery serving."""
+        quantized or not.  A legacy file of the JAX package with
+        ``augmented`` set holds its mesh layout, ``[G + pad, D + 1]`` (pad
+        rows and a score column): both are stripped, as the JAX package
+        does.  A quantized instance reuses stored int8 rows whose shape
+        matches the gallery and quantizes the gallery again otherwise
+        (the legacy file's quantized the augmented matrix).  Every member
+        is read before the instance changes, so a failed load leaves the
+        previous gallery serving."""
         with np.load(path) as data:
             meta = data["meta"]
             gallery = data["gallery"]
+            if "augmented" in data.files and bool(data["augmented"]):
+                gallery = gallery[:len(meta), :-1]
             stored = None
             if (self.quantize and "quant_values" in data
                     and data["quant_values"].shape == gallery.shape):
@@ -183,6 +214,7 @@ class RetrievalIndex:
         self.gallery_meta = meta
         self.gallery = gallery
         self._quant_gallery = quant
+        self._kernel_gallery()
 
     # -- queries ----------------------------------------------------------
     @torch.inference_mode()
@@ -217,11 +249,11 @@ class RetrievalIndex:
             quant = self._quant_gallery
             if k <= K_MAX:
                 return topk_similarity_quantized(
-                    queries, quant.values, quant.scales, k=k)
+                    queries, self._kernel_gallery(), quant.scales, k=k)
             return quantized_topk(queries, quant,
                                   min(k, quant.values.shape[0]))
         if k <= K_MAX:
-            return topk_similarity(queries, self.gallery, k=k)
+            return topk_similarity(queries, self._kernel_gallery(), k=k)
         sim = queries @ self.gallery.T
         vals, idx = torch.topk(sim, min(k, self.gallery.shape[0]), dim=1)
         return vals, idx

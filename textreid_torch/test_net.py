@@ -14,8 +14,9 @@ the run writes ``ROOT/output/<config dir>/<config name>/inference/<test
 set>/inference_data.npz`` and a later run replays it instead of encoding.
 
 ``--checkpoint-file`` is a reference-layout ``.pth`` or one of this
-package's ``epoch_N.pth``; an orbax directory of the JAX package raises
-(ROADMAP Queue A item 5).
+package's checkpoints (``best.pth``, ``epoch_N.pth``); an orbax directory
+of the JAX package is not supported (it raises): export it with
+``tools/export_torch.py``.
 """
 
 from __future__ import annotations

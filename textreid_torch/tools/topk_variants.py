@@ -21,9 +21,13 @@ copies of
 ``topk_similarity.cu`` (the one marked "wrong" skips work and is there for
 its time alone: without the selection, the share of a call spent choosing
 the top-k) into ``build/int8_variants/`` (as that tool's) and times each
-one's entry points the same way.  Needs a card:
+one's entry points the same way; ``--against FILE.cu`` adds another
+checkout's ``topk_similarity.cu`` (e.g. the parent commit's, unpacked by
+``git archive`` under ``build/``) to them, so the two trees' kernels are
+timed in turns in one process.  Needs a card:
 
     python -m textreid_torch.tools.topk_variants [--variants] [--breakdown]
+        [--against OTHER/textreid_torch/csrc/topk_similarity.cu]
         [--search-against OTHER_CHECKOUT]
 
 Prints the card's name and power limit, each shape's plan, then the times.
@@ -235,12 +239,16 @@ def _variant_call(lib, entry, args):
     return call
 
 
-def variants(reps=20) -> None:
-    """Build every variant of topk_similarity.cu, then time each one's two
-    entry points in turns at every shape, as issued and queued."""
-    builds = {name: _start_build(f"topk {name}", edits,
-                                 _build.CSRC / "topk_similarity.cu")
-              for name, edits in VARIANTS.items()}
+def variants(reps=20, against=None) -> None:
+    """Build every variant of topk_similarity.cu (and ``against``, another
+    checkout's source, as it is), then time each one's two entry points in
+    turns at every shape, as issued and queued."""
+    sources = {name: (edits, _build.CSRC / "topk_similarity.cu")
+               for name, edits in VARIANTS.items()}
+    if against is not None:
+        sources[f"from {against}"] = ([], against)
+    builds = {name: _start_build(f"topk {name}", edits, source)
+              for name, (edits, source) in sources.items()}
     libs = {}
     for name, (path, proc) in builds.items():
         log, _ = proc.communicate()
@@ -380,6 +388,9 @@ def main(argv=None) -> int:
                         help="also build and time the variants")
     parser.add_argument("--breakdown", action="store_true",
                         help="also print the kernel's cycles by phase")
+    parser.add_argument("--against", type=Path,
+                        help="another checkout's topk_similarity.cu: built "
+                             "and timed with the variants, in turns")
     parser.add_argument("--search-against", type=Path,
                         help="another checkout: time a 256-query "
                              "index.search there and here, in turns")
@@ -401,8 +412,8 @@ def main(argv=None) -> int:
                   f"new {ni:.4f} ms as issued, {nq:.4f} queued; replaced "
                   f"kernel {oi:.4f} / {oq:.4f}; outputs agree: "
                   f"{res['agree']}", flush=True)
-    if args.variants:
-        variants()
+    if args.variants or args.against:
+        variants(against=args.against)
     if args.breakdown:
         breakdown()
     if args.search_against:

@@ -1,33 +1,55 @@
 """Training CLI (counterpart of the JAX package's ``train_net.py``).
 
     python -m textreid_torch.train_net --root ROOT --config-file CFG.yaml \
-        [--device cuda|cpu] [KEY VALUE ...]
+        [--resume-from PATH|auto] [--use-tensorboard] [--device cuda|cpu] \
+        [KEY VALUE ...]
 
-The reference argument surface (``--root``, ``--config-file``, trailing
-dotted config overrides) plus ``--device`` (default ``cuda``, which raises
-when no card is present).  Python, numpy and torch are seeded from
-``cfg.SEED``; the output directory is ``ROOT/output/<config dir>/<config
-name>``, as in the JAX package.  ``ROOT/pretrained/clip/ViT-B-16.pt`` (or
-the archive of the configured ViT) is loaded into the query and key visual
-towers when it is there; otherwise the seeded initialisation is kept and
-logged.
+The reference argument surface (``--root``, ``--config-file``,
+``--resume-from``, ``--use-tensorboard``, trailing dotted config overrides)
+plus ``--device`` (default ``cuda``, which raises when no card is
+present).  Python, numpy and torch are seeded from ``cfg.SEED``; the output
+directory is ``ROOT/output/<config dir>/<config name>``, as in the JAX
+package.  In order:
 
-Not ported yet (each raises, naming its ROADMAP Queue A item):
-``--resume-from`` and a full-model warm start (``MODEL.WEIGHT``) (item 5),
-evaluation during training (item 5).
+1. The model, in train mode.  The CLIP archive of its visual tower, when it
+   is under ``ROOT/pretrained/clip`` (``RN50.pt`` or ``RN101.pt`` for the
+   ModifiedResNets, ``ViT-B-16.pt`` etc. for the ViTs), is loaded into it,
+   BatchNorm running statistics included; otherwise the seeded
+   initialisation is kept and logged.  Then the optimizer and the MoCo
+   state, whose key model is a copy of the query model, so both towers
+   start from the archive.
+2. ``MODEL.WEIGHT`` (other than ``imagenet``): a reference-layout ``.pth``
+   installed as a warm start (``utils/bootstrap.py:
+   install_reference_checkpoint``: the model, the key encoders, the queues
+   and the pointer).
+3. ``--resume-from``: a checkpoint of this package (``epoch_N.pth``,
+   ``best.pth``, ``preempt.pth``) restored whole; ``auto`` takes the newest
+   ``epoch_N.pth`` of the output directory, or ``preempt.pth`` when it is
+   newer (``utils/checkpoint.py:auto_resume_path``).  The epoch budget is
+   this run's ``SOLVER.NUM_EPOCHS``.
+4. ``engine/trainer.py:do_train``: evaluation on the first of
+   ``DATASETS.TEST`` every ``SOLVER.EVALUATE_PERIOD`` epochs with a
+   ``best.pth`` on t2i R@1, ``epoch_N.pth`` every ``CHECKPOINT_PERIOD``
+   epochs pruned to ``CHECKPOINT_KEEP``, and a ``preempt.pth`` on SIGTERM
+   (``TPU.PREEMPT_SAVE``); writes in the background with
+   ``TPU.ASYNC_CHECKPOINT``.
+
+An orbax directory of the JAX package is not read, as ``MODEL.WEIGHT`` or
+``--resume-from``: export it with ``tools/export_torch.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import random
 
 import numpy as np
 import torch
 
-CLIP_ARCHIVES = {"clip_vit_b32": "ViT-B-32", "clip_vit_b16": "ViT-B-16",
-                 "clip_vit_l14": "ViT-L-14"}
+CLIP_VIT_ARCHIVES = {"clip_vit_b32": "ViT-B-32", "clip_vit_b16": "ViT-B-16",
+                     "clip_vit_l14": "ViT-L-14"}
 
 
 def load_clip_state_dict(path: str) -> dict:
@@ -39,54 +61,68 @@ def load_clip_state_dict(path: str) -> dict:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_pretrained_visual(cfg, model, logger) -> None:
-    """CLIP ViT weights into ``model.visual_model`` when the archive is
-    under ``ROOT/pretrained/clip``."""
+def clip_archive(cfg):
+    """``ROOT/pretrained/clip/<archive>.pt`` of the visual tower (the JAX
+    ``train_net.py``'s names), or ``None`` for a tower CLIP has none of."""
     name = cfg.MODEL.VISUAL_MODEL
-    if not name.startswith("clip_vit"):
+    if name.startswith("m_resnet"):
+        arch = "RN101" if name.endswith("101") else "RN50"
+    elif name.startswith("clip_vit"):
+        arch = CLIP_VIT_ARCHIVES.get(name, "ViT-B-16")
+    else:
+        return None
+    return os.path.join(cfg.ROOT, "pretrained", "clip", f"{arch}.pt")
+
+
+def load_pretrained_visual(cfg, model, logger) -> None:
+    """The CLIP archive's visual tower into ``model.visual_model`` when the
+    archive is under ``ROOT/pretrained/clip``; a key the tower does not
+    have, or lacks, raises."""
+    path = clip_archive(cfg)
+    if path is None:
         return
-    path = os.path.join(cfg.ROOT, "pretrained", "clip",
-                        f"{CLIP_ARCHIVES.get(name, 'ViT-B-16')}.pt")
     if not os.path.isfile(path):
         logger.info("No CLIP archive at %s: the visual tower keeps its "
                     "seeded initialisation (SEED %d)", path, cfg.SEED)
         return
-    from .utils.weight_convert import convert_clip_vit
+    from .models.vit import VisionTransformer
+    from .utils.weight_convert import convert_clip_m_resnet, convert_clip_vit
 
-    logger.info("Loading CLIP ViT weights from %s", path)
+    logger.info("Loading CLIP visual weights from %s", path)
     visual = model.visual_model
-    sd = convert_clip_vit(load_clip_state_dict(path), visual.layers,
-                          final_grid=visual.grid, prefix="")
+    if isinstance(visual, VisionTransformer):
+        sd = convert_clip_vit(load_clip_state_dict(path), visual.layers,
+                              final_grid=visual.grid, prefix="")
+    else:
+        sd = convert_clip_m_resnet(load_clip_state_dict(path),
+                                   visual.attnpool.spacial_dim)
     missing, unexpected = visual.load_state_dict(
         {k: torch.as_tensor(v) for k, v in sd.items()}, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
         raise KeyError(f"{path} does not match the visual tower: missing "
                        f"{missing[:8]}, unexpected {unexpected[:8]}")
 
 
-def train(cfg, output_dir: str, device):
-    """Build the model, optimizer and MoCo state, and train.  Returns
-    ``(state, meters)``."""
-    import logging
-
+def train(cfg, output_dir: str, device, resume_from: str = "",
+          use_tensorboard: bool = False):
+    """Build the model, optimizer and MoCo state, warm-start or resume it,
+    and train.  Returns ``(state, meters)``."""
     from .data import make_data_loader
     from .engine import create_train_state, make_train_step
     from .engine.trainer import do_train
     from .models import build_model
     from .solver import make_lr_schedule, make_optimizer
     from .solver.build import apply_freeze
+    from .utils.bootstrap import (
+        install_reference_checkpoint,
+        read_reference_checkpoint,
+    )
+    from .utils.checkpoint import Checkpointer, auto_resume_path
+    from .utils.meters import MetricLogger, TensorboardLogger
     from .utils.platform import compute_dtype
 
     logger = logging.getLogger("PersonSearch.train")
-    if cfg.SOLVER.EVALUATE_PERIOD > 0:
-        raise NotImplementedError(
-            "evaluation during training (SOLVER.EVALUATE_PERIOD > 0) is not "
-            "ported yet (ROADMAP Queue A item 5); pass "
-            "SOLVER.EVALUATE_PERIOD 0")
-    if cfg.MODEL.WEIGHT != "imagenet":
-        raise NotImplementedError(
-            "a full-model warm start (MODEL.WEIGHT) is not ported yet "
-            "(ROADMAP Queue A item 5)")
     train_step = make_train_step(cfg)
     model = build_model(cfg, device, torch.float32,
                         compute_dtype(cfg, device), train=True)
@@ -98,10 +134,43 @@ def train(cfg, output_dir: str, device):
     state = create_train_state(cfg, model, optimizer,
                                cfg.SOLVER.IMS_PER_BATCH)
     data_loader = make_data_loader(cfg, is_train=True)
+    data_loader_val = (make_data_loader(cfg, is_train=False)
+                       if cfg.SOLVER.EVALUATE_PERIOD > 0 else [])
     arguments = {"iteration": 0, "epoch": 0,
                  "max_epoch": cfg.SOLVER.NUM_EPOCHS}
-    meters = do_train(cfg, state, train_step, data_loader,
-                      make_lr_schedule(cfg), output_dir, arguments, device)
+    checkpointer = Checkpointer(output_dir,
+                                async_save=bool(cfg.TPU.ASYNC_CHECKPOINT))
+
+    if cfg.MODEL.WEIGHT != "imagenet":
+        if not os.path.exists(cfg.MODEL.WEIGHT):
+            raise IOError(f"{cfg.MODEL.WEIGHT} is not a checkpoint file")
+        logger.info("Warm start from %s", cfg.MODEL.WEIGHT)
+        install_reference_checkpoint(
+            state, read_reference_checkpoint(cfg.MODEL.WEIGHT))
+    if resume_from == "auto":
+        resume_from = auto_resume_path(output_dir)
+        if resume_from:
+            logger.info("Auto-resuming from %s", resume_from)
+        else:
+            logger.info("No prior checkpoint found; starting fresh")
+    if resume_from:
+        state, meta = checkpointer.resume(resume_from, state)
+        arguments.update(meta)
+        # progress comes from the checkpoint, the budget from this run
+        arguments["max_epoch"] = cfg.SOLVER.NUM_EPOCHS
+
+    if use_tensorboard:
+        meters = TensorboardLogger(os.path.join(output_dir, "tensorboard"),
+                                   start_iter=arguments["iteration"])
+    else:
+        meters = MetricLogger()
+    try:
+        do_train(cfg, state, train_step, data_loader, data_loader_val,
+                 checkpointer, meters, make_lr_schedule(cfg), arguments,
+                 device)
+    finally:
+        if use_tensorboard:
+            meters.close()
     return state, meters
 
 
@@ -110,16 +179,20 @@ def main(argv=None):
     parser.add_argument("--root", default="./", type=str, help="root path")
     parser.add_argument("--config-file", default="", metavar="FILE", type=str)
     parser.add_argument("--resume-from", type=str,
-                        help="checkpoint to resume from (not ported yet)")
+                        help="checkpoint to resume from, or 'auto' (the "
+                             "newest epoch_N.pth, or a newer preempt.pth, "
+                             "of the output directory)")
+    parser.add_argument("--use-tensorboard", action="store_true",
+                        default=False,
+                        help="also write the meters with tensorboardX "
+                             "(when it is installed) under "
+                             "OUTPUT/tensorboard")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                              "cpu")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="dotted config overrides: KEY VALUE ...")
     args = parser.parse_args(argv)
-    if args.resume_from:
-        raise NotImplementedError(
-            "--resume-from is not ported yet (ROADMAP Queue A item 5)")
 
     from .config import get_default_cfg
     from .utils.logger import setup_logger
@@ -144,7 +217,8 @@ def main(argv=None):
     logger.info("Using %s", device)
     logger.info("%s", args)
     logger.info("Running with config:\n%s", cfg)
-    return train(cfg, output_dir, device)
+    return train(cfg, output_dir, device, args.resume_from or "",
+                 args.use_tensorboard)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,167 @@
+"""Training checkpoints (counterpart of ``textreid_tpu/utils/checkpoint.py
+Checkpointer``) as ``torch.save`` files.
+
+A checkpoint ``save_dir/<name>.pth`` holds what ``engine.state.TrainState.
+state_dict`` gives (model, key model, optimizer, ``step``, queues, pointer)
+and ``meta``, the trainer's progress (``epoch``, ``iteration``,
+``max_epoch``, ``best_top1``): the JAX package keeps that in a
+``.meta.json`` beside its orbax directory.  The names are the JAX
+package's: ``best``, ``epoch_N`` and ``preempt``.
+
+* Writes are atomic: a temporary file, then ``os.replace``.
+* ``async_save=True`` (``TPU.ASYNC_CHECKPOINT``, as JAX's orbax
+  ``AsyncCheckpointer``): the state is copied to the CPU on the caller's
+  thread, so the next step's in-place updates cannot race the write, and
+  written to disk on a background thread.  :meth:`Checkpointer.wait`
+  blocks on that write; a save, a read and the end of training wait first.
+  A failed write raises from the next ``wait``.
+* ``prune_epochs(keep)`` keeps the newest ``keep`` ``epoch_N`` files and
+  never touches ``best`` or ``preempt``.
+* ``resume`` restores the whole state and returns ``meta``; ``load`` is a
+  weights-only load (the model and, where the file has it, the key model).
+
+An orbax directory of the JAX package is not read (this package imports
+nothing of orbax): export it to a reference ``.pth`` with
+``tools/export_torch.py``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import threading
+import time
+from typing import Optional
+
+import torch
+
+EPOCH_FILE = re.compile(r"epoch_(\d+)\.pth")
+
+
+def refuse_directory(path: str) -> None:
+    """Raise when ``path`` is a directory (an orbax checkpoint of the JAX
+    package): reading one is not supported."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory (an orbax checkpoint of the JAX "
+            "package?): not supported; export it to a reference .pth with "
+            "tools/export_torch.py")
+
+
+def read_meta(path: str) -> dict:
+    """The ``meta`` of a checkpoint file, without reading its tensors
+    (they are memory-mapped, not loaded)."""
+    return dict(torch.load(path, map_location="cpu", weights_only=True,
+                           mmap=True).get("meta", {}))
+
+
+def epoch_checkpoints(save_dir: str) -> list:
+    """``[(N, file name)]`` of the ``epoch_N.pth`` files, oldest first."""
+    return sorted((int(m.group(1)), name) for name in os.listdir(save_dir)
+                  if (m := EPOCH_FILE.fullmatch(name)))
+
+
+def auto_resume_path(save_dir: str) -> Optional[str]:
+    """What ``--resume-from auto`` resumes from (the JAX ``train_net.py``
+    rule): the newest ``epoch_N.pth``, or ``preempt.pth`` when its meta
+    iteration is strictly newer; ``None`` when there is neither."""
+    epochs = epoch_checkpoints(save_dir) if os.path.isdir(save_dir) else []
+    path = os.path.join(save_dir, epochs[-1][1]) if epochs else None
+    preempt = os.path.join(save_dir, "preempt.pth")
+    if os.path.isfile(preempt) and int(
+            read_meta(preempt).get("iteration", -1)) > (
+            int(read_meta(path).get("iteration", -1)) if path else -1):
+        path = preempt
+    return path
+
+
+class Checkpointer:
+    def __init__(self, save_dir: str = "", async_save: bool = False,
+                 logger: Optional[logging.Logger] = None):
+        self.save_dir = os.path.abspath(save_dir) if save_dir else ""
+        self.async_save = async_save
+        self.logger = logger or logging.getLogger("PersonSearch.checkpoint")
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.save_dir, f"{name}.pth")
+
+    def wait(self) -> None:
+        """Block until the write in flight, if any, is on disk; raise its
+        error if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def save(self, name: str, state, **meta) -> None:
+        """Write ``state`` and ``meta`` to ``<name>.pth`` (in the background
+        with ``async_save``; one write in flight at a time)."""
+        if not self.save_dir:
+            return
+        self.wait()
+        start = time.perf_counter()
+        payload = {**state.state_dict(), "meta": dict(meta)}
+        snapshot_s = time.perf_counter() - start
+        path = self.path(name)
+        if not self.async_save:
+            self._write(payload, path, snapshot_s)
+            return
+        self._writer = threading.Thread(
+            target=self._write_in_background, args=(payload, path, snapshot_s),
+            name=f"checkpoint {name}")
+        self._writer.start()
+
+    def _write_in_background(self, payload, path, snapshot_s) -> None:
+        try:
+            self._write(payload, path, snapshot_s)
+        except BaseException as e:  # raised again by wait()
+            self._error = e
+
+    def _write(self, payload: dict, path: str, snapshot_s: float) -> None:
+        start = time.perf_counter()
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        self.logger.info(
+            "Saved checkpoint %s: snapshot %.3f s, write %.3f s%s", path,
+            snapshot_s, time.perf_counter() - start,
+            " (in the background)" if self.async_save else "")
+
+    def prune_epochs(self, keep: int) -> None:
+        """Delete all but the newest ``keep`` ``epoch_N.pth``
+        (``SOLVER.CHECKPOINT_KEEP``; 0 keeps all).  A write in flight is
+        still a temporary file, so it is neither counted nor deleted."""
+        if keep <= 0 or not self.save_dir:
+            return
+        for _, name in epoch_checkpoints(self.save_dir)[:-keep]:
+            path = os.path.join(self.save_dir, name)
+            self.logger.info("Pruning checkpoint %s", path)
+            os.remove(path)
+
+    def _read(self, path: str) -> dict:
+        refuse_directory(path)
+        self.wait()  # reads see every write that came before
+        self.logger.info("Loading checkpoint from %s", path)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def resume(self, path: str, state):
+        """Restore the whole state (in place) from ``path``; returns
+        ``(state, meta)``."""
+        payload = self._read(path)
+        state.load_state_dict(payload)
+        return state, dict(payload.get("meta", {}))
+
+    def load(self, path: str, state):
+        """Weights-only load: the model and, where both the file and the
+        state have one, the key model; the optimizer, queues and progress
+        keep their values."""
+        payload = self._read(path)
+        state.model.load_state_dict(payload["model"])
+        if state.key_model is not None and "key_model" in payload:
+            state.key_model.load_state_dict(payload["key_model"])
+        return state

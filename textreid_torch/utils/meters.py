@@ -1,5 +1,8 @@
 """Windowed training meters (counterpart of ``textreid_tpu/utils/meters.py``:
-window-20 median and global average per metric)."""
+window-20 median and global average per metric), and
+:class:`TensorboardLogger`, which also writes every update as a scalar
+through ``tensorboardX`` when that package imports, and meters alone when
+it does not (as the JAX package's)."""
 
 from __future__ import annotations
 
@@ -50,3 +53,31 @@ class MetricLogger:
         return self.delimiter.join(
             f"{name}: {m.median:.4f} ({m.global_avg:.4f})"
             for name, m in self.meters.items())
+
+
+class TensorboardLogger(MetricLogger):
+    """MetricLogger that also writes each update through ``tensorboardX``
+    (``train_net --use-tensorboard``), one step of the writer an
+    update."""
+
+    def __init__(self, log_dir: str, start_iter: int = 0,
+                 delimiter: str = "  "):
+        super().__init__(delimiter)
+        self.iteration = start_iter
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self.writer = None
+        else:
+            self.writer = SummaryWriter(log_dir)
+
+    def update(self, **kwargs) -> None:
+        super().update(**kwargs)
+        if self.writer is not None:
+            for k, v in kwargs.items():
+                self.writer.add_scalar(k, float(v), self.iteration)
+        self.iteration += 1
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()

@@ -11,6 +11,8 @@
   query and key models, queues and pointer.
 * :func:`convert_clip_vit` — a CLIP ViT state dict -> the port's
   ``visual_model`` keys, with the position embedding resized.
+* :func:`convert_clip_m_resnet` — the same for a CLIP ModifiedResNet
+  (RN50, RN101), BatchNorm running statistics included.
 * :func:`convert_clip_text` — the text half of a CLIP state dict -> the
   port's ``textual_model`` keys, the positional table resampled to the
   configured context length.
@@ -266,6 +268,25 @@ def convert_clip_vit(sd: Mapping, layers: int, final_grid=None,
     for i in range(layers):
         if f"{prefix}transformer.resblocks.{i}.attn.in_proj_weight" not in out:
             raise KeyError(f"CLIP ViT state dict has no block {i}")
+    return out
+
+
+def convert_clip_m_resnet(sd: Mapping, final_grid) -> dict:
+    """CLIP ModifiedResNet state dict (a whole CLIP archive's ``visual.*``
+    subtree, or the bare tower) -> the port's ``ModifiedResNet`` keys
+    (numpy values), the attention pool's position embedding resized from
+    CLIP's square grid to ``final_grid`` (the JAX package's
+    ``convert_m_resnet``).  The port keeps CLIP's names, so this is the
+    prefix strip and the resize; BatchNorm's ``num_batches_tracked``,
+    which neither package reads, is dropped."""
+    if any(k.startswith("visual.") for k in sd):
+        sd = {k[len("visual."):]: v for k, v in sd.items()
+              if k.startswith("visual.")}
+    out = {k: np.asarray(v) for k, v in sd.items()
+           if not k.endswith("num_batches_tracked")}
+    name = "attnpool.positional_embedding"
+    if name in out and len(out[name]) - 1 != final_grid[0] * final_grid[1]:
+        out[name] = resize_pos_embed(out[name], final_grid)
     return out
 
 
