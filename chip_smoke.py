@@ -119,17 +119,37 @@ before the result line:
    a SIGTERM mid-epoch (``preempt.pth`` with the epoch pinned back, then
    ``--resume-from auto`` finishing).  Logged: the in-training evaluation,
    each checkpoint's snapshot and background write, the restart time.  The
-   step's wait on the loader is logged.
+   step's wait on the loader is logged.  Then every other shipped training
+   yaml the same way, one epoch each (TRAIN_STEPS steps, accum8
+   ACCUM8_STEPS so that its queue wraps), in a workspace of its own:
+   ``moco_gru2l_freeze_cliprn50_ls_bs128_2048`` (2-layer bi-GRU, the text
+   tower and the trunk's stem and layers 1-3 frozen: K1 2 and K3 4 a step,
+   no K1 backward; the frozen parameters bit-identical after the run),
+   ``baseline_gru_cliprn50_ls_bs128`` and ``baseline_gru_rn50_ls_bs128``
+   (the simple head, CLIP RN50 and the torchvision ResNet-50 with a
+   learnable 12k-row table: K1 1 / 1 a step, no key model, no queue),
+   ``moco_fullclip_vitb16_ls_bs128_2048`` (ViT-B/16 + the CLIP text
+   transformer, T=100, from a seeded ``ViT-B-16.pt`` whose visual and text
+   halves both models must hold as training starts: K5 48 and K6 24 a
+   step) and ``moco_gru_cliprn50_ls_bs1024_2048_accum8`` (bs1024 in 8
+   microbatches: K1 24 / 8 a step); each run's launches gated (see
+   TRAIN_MODELS), its losses finite, its queue pointer, its checkpoint
+   restored whole by ``--resume-from``.
 9. One f32 step with the kernels against one with their plain versions,
-   from the same state and batch, for each model (cuDNN deterministic and
-   without TF32 for this comparison only): loss dicts, every parameter's
-   gradient and its update (see STEP_UPDATE_RTOL).
+   from the same state and batch, for the ViT-B/16 model, the flagship
+   and the full-CLIP model (K5 and K6 causal in training; cuDNN
+   deterministic and without TF32 for this comparison only): loss dicts,
+   every parameter's gradient and its update (see STEP_UPDATE_RTOL).
 10. Step time (median, bf16, after warmup) with the kernels and with their
    plain versions, peak device memory, and a ``torch.profiler`` split of
    the step's device time by kernel family (convolutions, BatchNorm, K1
    forward and backward, K5, K6, matrix products, the rest), both ways,
-   for each model; the flagship's is the port's
-   ``moco_train_step_ms_bs128``.  Then K1's backward
+   for the ViT-B/16 model and the flagship; the flagship's is the port's
+   ``moco_train_step_ms_bs128``.  The accum8 step beside the single-pass
+   bs128 flagship step, in turns: step and device ms, peak memory of each
+   (accum8's gated at ACCUM8_PEAK_RATIO of the other's), and one
+   microbatch's pass-1 against pass-2 embeddings (REPLAY_RTOL).  Then K1's
+   backward
    at the step's shape beside its plain version and the plain recompute it
    replaced, and K5 and K6 alone at the ViT-B/16 shape and the served
    causal text shape, beside their plain versions and the library call.
@@ -220,6 +240,17 @@ EVAL_SIM_TOL = 1e-3
 # the CMC/mAP grids agree to this many percent points, not exactly
 EVAL_GRID_TOL = 1.0
 FULLCLIP_YAML = "configs/cuhkpedes/moco_fullclip_vitb16_ls_bs128_2048.yaml"
+SIMPLE_CLIP_YAML = "configs/cuhkpedes/baseline_gru_cliprn50_ls_bs128.yaml"
+SIMPLE_RN_YAML = "configs/cuhkpedes/baseline_gru_rn50_ls_bs128.yaml"
+ACCUM8_YAML = "configs/cuhkpedes/moco_gru_cliprn50_ls_bs1024_2048_accum8.yaml"
+ACCUM8_STEPS = 2  # two steps of 1,024 wrap the queue of 2,048
+# accum8's peak device memory over the single-pass bs128 flagship step's
+ACCUM8_PEAK_RATIO = 1.3
+# the gradient-cache step's pass 1 (no gradient: K1's pooled-only kernel)
+# against its pass 2 (K1's training forward) on one microbatch, bf16: the
+# two K1 forwards agree within K1_TOL (two bf16 ulp of a hidden state), so
+# each embedding within two bf16 ulp of its largest entry
+REPLAY_RTOL = 8e-3
 # K7-K9 against their plain versions: the int8 values equal but for one step
 # on at most this share of the elements (the kernel's row sums, exp and
 # rsqrt differ from torch's in the last bit, which moves a value that lies
@@ -1268,21 +1299,45 @@ SERVE_KERNELS = ("bigru_pooled_fwd", "topk_similarity_f32")
 INT8_SERVE_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd",
                       "topk_similarity_int8", "topk_similarity_f32")
 EVAL_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd")
-TRAIN_KERNELS = ("bigru_pooled_fwd", "bigru_pooled_bwd",
+TRAIN_KERNELS = ("bigru_pooled_fwd", "bigru_pooled_bwd", "gru_scan_fwd",
                  "fused_attention_fwd", "fused_attention_bwd")
-# launches of one MoCo step of the ViT-B/16 + bi-GRU model: K1's forward in
-# the query tower (training forward) and in the key tower (no_grad), its
-# backward once; K5 in 12 blocks of each tower, K6 in the query tower's.
-# The flagship (CLIP RN50 + bi-GRU): K1 the same, no attention kernel (its
-# convolutions and BatchNorms are cuDNN's and PyTorch's)
+
+
+def step_launches(k1=0, k1_bwd=0, k3=0, k5=0, k6=0):
+    return dict(zip(TRAIN_KERNELS, (k1, k1_bwd, k3, k5, k6)))
+
+
+# Launches of one step of each shipped training yaml, from the code: K1's
+# forward once a bi-GRU tower forward (the query tower's under autograd is
+# the training forward, with one backward; the key tower's and a frozen
+# tower's, whose inputs need no gradient, the pooled-only kernel); K3 once a
+# direction of each lower GRU layer; K5 once an attention block a tower
+# forward, K6 once one a backward.
+# * ViT-B/16 + bi-GRU: K1 2 / 1, K5 24 (12 blocks, query and key), K6 12;
+# * the flagship (CLIP RN50 + bi-GRU): K1 2 / 1 (its convolutions and
+#   BatchNorms are cuDNN's and PyTorch's);
+# * the 2-layer frozen model: the text tower frozen (MODEL.FREEZE), so K1
+#   runs pooled-only in both towers, 2 / 0, and K3 2 a tower, 4;
+# * the simple heads: one tower forward, no key model: K1 1 / 1;
+# * full-CLIP (ViT-B/16 + CLIP text transformer, 12 blocks each): K5 48
+#   (24 a model), K6 24, causal in the text tower;
+# * accum8 (bs1024 in 8 microbatches of 128): the key forward, pass 1 (no
+#   gradient: pooled-only) and pass 2 (training forward and backward) of
+#   each microbatch: K1 24 / 8.
 TRAIN_MODELS = {  # name: (yaml, launches of one step)
-    "ViT-B/16 + bi-GRU": (VIT_YAML, {
-        "bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
-        "fused_attention_fwd": 24, "fused_attention_bwd": 12}),
-    "CLIP RN50 + bi-GRU (flagship)": (FLAGSHIP_YAML, {
-        "bigru_pooled_fwd": 2, "bigru_pooled_bwd": 1,
-        "fused_attention_fwd": 0, "fused_attention_bwd": 0}),
+    "ViT-B/16 + bi-GRU": (VIT_YAML, step_launches(2, 1, k5=24, k6=12)),
+    "CLIP RN50 + bi-GRU (flagship)": (FLAGSHIP_YAML, step_launches(2, 1)),
+    "2-layer frozen": (GRU2L_YAML, step_launches(2, 0, 4)),
+    "simple head, CLIP RN50": (SIMPLE_CLIP_YAML, step_launches(1, 1)),
+    "simple head, torchvision RN50": (SIMPLE_RN_YAML, step_launches(1, 1)),
+    "full-CLIP": (FULLCLIP_YAML, step_launches(k5=48, k6=24)),
+    "accum8": (ACCUM8_YAML, step_launches(24, 8)),
 }
+# the f32 step against its plain versions (phase 9) and the timed bf16
+# step (phase 10)
+COMPARED_MODELS = ("ViT-B/16 + bi-GRU", "CLIP RN50 + bi-GRU (flagship)",
+                   "full-CLIP")
+TIMED_MODELS = ("ViT-B/16 + bi-GRU", "CLIP RN50 + bi-GRU (flagship)")
 
 
 # -- phase 3: the slice through its entry points ---------------------------
@@ -2457,48 +2512,167 @@ def time_eval(workspace, rows=3072, batch=128):
 
 # -- the training slice ------------------------------------------
 
-def drive_training(model_name):
-    """``textreid_torch.train_net.main`` on a synthetic train split of
-    TRAIN_STEPS batches, for one of TRAIN_MODELS.  Returns the counts, the
-    state, the meters and the checkpoint's path."""
-    import torch
-    from textreid_torch import train_net
+def yaml_cfg(yaml):
+    from textreid_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, yaml))
+    return cfg
+
+
+def training_split(batch, steps):
+    """``WORK/train<batch>/datasets/cuhkpedes``: a synthetic train split of
+    ``steps`` batches of ``batch`` (4 images an identity) at 384x128,
+    made once."""
     from textreid_torch.data import make_synthetic_dataset
 
+    data = os.path.join(WORK, f"train{batch}", "datasets", "cuhkpedes")
+    if not os.path.isdir(data):
+        make_synthetic_dataset(data, num_identities=batch // 4 * steps,
+                               images_per_id=4, image_size=(384, 128),
+                               vocab_size=512, max_tokens=60, split="train")
+    return data
+
+
+def write_fullclip_archive(root):
+    """A seeded CLIP-layout ``ROOT/pretrained/clip/ViT-B-16.pt``: the port's
+    ViT-B/16 at CLIP's 224x224 (a 14x14 + 1 positional table) under
+    ``visual.`` and its CLIP text transformer at 77 positions at the top
+    level.  Returns the state dict."""
+    import torch
+    from textreid_torch.models.text_transformer import TextTransformer
+    from textreid_torch.models.vit import VisionTransformer
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(12)
+        visual = VisionTransformer((224, 224), patch_size=16, width=768,
+                                   layers=12, heads=12, output_dim=512)
+        text = TextTransformer(context_length=77)
+        archive = {"visual." + k: v for k, v in visual.state_dict().items()}
+        archive.update({k: v + 0.01 * torch.randn(v.shape)
+                        for k, v in text.state_dict().items()})
+    folder = os.path.join(root, "pretrained", "clip")
+    os.makedirs(folder, exist_ok=True)
+    torch.save(archive, os.path.join(folder, "ViT-B-16.pt"))
+    return archive
+
+
+@contextmanager
+def watching_the_start(frozen, archive=None):
+    """As ``train_net`` hands its state to ``do_train`` (before the first
+    step): a copy of every frozen parameter of the query model into
+    ``frozen``; with ``archive`` (a full-CLIP ``ViT-B-16.pt``), a check
+    that the query and the key text towers hold its text half (the token
+    table equal, the positional table equal to the archive's resampled to
+    the tower's context length) and the ViTs its visual half."""
+    import torch
+    from textreid_torch.engine import trainer
+    from textreid_torch.utils.weight_convert import convert_clip_text
+
+    real = trainer.do_train
+
+    def checked(cfg, state, *args, **kwargs):
+        frozen.update({n: p.detach().cpu().clone()
+                       for n, p in state.model.named_parameters()
+                       if not p.requires_grad})
+        if archive is not None:
+            tower = state.model.textual_model
+            text = convert_clip_text(archive, tower.layers,
+                                     tower.context_length, prefix="")
+            for which, model in (("query", state.model),
+                                 ("key", state.key_model)):
+                tower = model.textual_model
+                if not (torch.equal(tower.token_embedding.weight.cpu(),
+                                    torch.as_tensor(text[
+                                        "token_embedding.weight"]))
+                        and torch.equal(tower.positional_embedding.cpu(),
+                                        torch.as_tensor(text[
+                                            "positional_embedding"]))
+                        and torch.equal(
+                            model.visual_model.conv1.weight.cpu(),
+                            archive["visual.conv1.weight"])):
+                    fail(f"the {which} towers do not hold the CLIP archive")
+        return real(cfg, state, *args, **kwargs)
+
+    with mock.patch.object(trainer, "do_train", checked):
+        yield
+
+
+def drive_training(model_name):
+    """``textreid_torch.train_net.main`` on a synthetic train split, one
+    epoch of TRAIN_STEPS batches (ACCUM8_STEPS for accum8), for one of
+    TRAIN_MODELS, in a workspace of its own (the full-CLIP model's with a
+    seeded ``ViT-B-16.pt``, whose halves both towers must hold as training
+    starts); then the run's checks (:func:`check_training`) and its
+    checkpoint through ``--resume-from``.  Returns the launches."""
+    import shutil
+
+    import torch
+    from textreid_torch import train_net
+
+    t0 = time.time()
     yaml = TRAIN_MODELS[model_name][0]
-    root = os.path.join(WORK, "train")
-    if not os.path.isdir(os.path.join(root, "datasets", "cuhkpedes")):
-        make_synthetic_dataset(
-            os.path.join(root, "datasets", "cuhkpedes"),
-            num_identities=32 * TRAIN_STEPS, images_per_id=4,
-            image_size=(384, 128), vocab_size=512, max_tokens=60,
-            split="train")
+    cfg = yaml_cfg(yaml)
+    batch = cfg.SOLVER.IMS_PER_BATCH
+    steps = ACCUM8_STEPS if batch > 128 else TRAIN_STEPS
+    data = training_split(batch, steps)
+    root = os.path.join(WORK, "train_" + "".join(
+        c if c.isalnum() else "_" for c in model_name))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "datasets"))
+    os.symlink(data, os.path.join(root, "datasets", "cuhkpedes"))
+    archive = (write_fullclip_archive(root) if model_name == "full-CLIP"
+               else None)
     argv = ["--root", root, "--config-file", os.path.join(REPO, yaml),
             "--device", "cuda", "SOLVER.EVALUATE_PERIOD", "0",
             "SOLVER.NUM_EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
             "SOLVER.LOG_PERIOD", "1", "TPU.DEBUG_NANS", "True",
             "TPU.ALLOW_RANDOM_VOCAB", "True", "DATALOADER.NUM_WORKERS", "8"]
+    frozen = {}
     zero_counts()
-    t0 = time.time()
-    state, meters = train_net.main(argv)
+    t_run = time.time()
+    with watching_the_start(frozen, archive):
+        state, meters = train_net.main(argv)
     torch.cuda.synchronize()
+    run_s = time.time() - t_run
     counts = read_counts(TRAIN_KERNELS)
     waits = list(meters.data.deque)
     log(f"training slice, {model_name}: train_net.main, {state.step} steps "
-        f"in {time.time() - t0:.1f} s; launches {counts}; the step waited "
+        f"in {run_s:.1f} s; launches {counts}; the step waited "
         f"on the loader {', '.join(f'{w * 1e3:.1f}' for w in waits)} ms "
         f"(step times {', '.join(f'{v * 1e3:.1f}' for v in meters.time.deque)}"
         f" ms, the first with the tower's warmup)")
     ckpt = os.path.join(root, "output", "cuhkpedes",
                         os.path.splitext(os.path.basename(yaml))[0],
                         "epoch_1.pth")
-    return counts, state, meters, ckpt
+    check_training(model_name, counts, state, meters, ckpt, steps=steps,
+                   batch=batch)
+    if cfg.MODEL.FREEZE != bool(frozen):
+        fail(f"{model_name}: MODEL.FREEZE but no frozen parameter, or the "
+             "reverse")
+    moved = [n for n, p in state.model.named_parameters()
+             if n in frozen and not torch.equal(p.detach().cpu(), frozen[n])]
+    if moved:
+        fail(f"{model_name}: frozen parameters moved: {moved[:4]}")
+    resumed, _ = train_net.main(["--resume-from", ckpt] + argv)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    if resumed.step != steps or any(
+            not torch.equal(v.cpu(), saved["model"][k])
+            for k, v in resumed.model.state_dict().items()):
+        fail(f"{model_name}: --resume-from {ckpt} does not restore the run")
+    log(f"training slice, {model_name}: {len(frozen)} frozen parameters "
+        f"bit-identical after the run; --resume-from restores step "
+        f"{resumed.step} and every tensor of the model; phase "
+        f"{time.time() - t0:.1f} s ({card_line()})")
+    del state, resumed, saved
+    shutil.rmtree(os.path.join(root, "output"), ignore_errors=True)
+    return counts
 
 
 def check_training(model_name, counts, state, meters, ckpt,
-                   steps=TRAIN_STEPS, eval_launches=None):
+                   steps=TRAIN_STEPS, eval_launches=None, batch=128):
     """The run's steps, launches (per step, plus ``eval_launches`` of the
-    evaluations), finite losses, queue pointer and checkpoint."""
+    evaluations), finite losses, queue pointer (MoCo) and checkpoint."""
     import torch
 
     if state.step != steps:
@@ -2512,35 +2686,41 @@ def check_training(model_name, counts, state, meters, ckpt,
     losses = list(meters.loss.deque)
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         fail(f"training losses {losses}")
-    if state.queue_ptr != steps * 128 % 2048:
+    moco = state.key_model is not None
+    if moco and state.queue_ptr != steps * batch % 2048:
         fail(f"queue_ptr {state.queue_ptr} after {steps} steps")
     if not os.path.isfile(ckpt):
         fail(f"no checkpoint at {ckpt}")
     saved = torch.load(ckpt, map_location="cpu", weights_only=False)
-    if saved["queue_ptr"] != state.queue_ptr or saved["meta"]["iteration"] \
-            != steps or not torch.isfinite(saved["v_queue"]).all():
+    if saved["meta"]["iteration"] != steps or moco != ("key_model" in saved):
         fail("the checkpoint does not hold the run's state")
-    # BatchNorm towers: both models' running statistics are in the
-    # checkpoint, finite, moved off their start (mean 0, var 1) by the
-    # batches, and apart (the key encoders' come from the key forward)
+    if moco and (saved["queue_ptr"] != state.queue_ptr
+                 or not torch.isfinite(saved["v_queue"]).all()):
+        fail("the checkpoint does not hold the run's queue")
+    # BatchNorm towers: the running statistics are in the checkpoint,
+    # finite, moved off their start (mean 0, var 1) by the batches, and
+    # for MoCo apart from the key model's (the key forward moves those)
     stats = [k for k in saved["model"] if k.endswith(
         (".running_mean", ".running_var"))]
     if stats:
         for k in stats:
-            q, key = saved["model"][k], saved["key_model"].get(k)
+            q = saved["model"][k]
+            key = saved["key_model"].get(k) if moco else q
             if key is None or not (torch.isfinite(q).all()
                                    and torch.isfinite(key).all()):
                 fail(f"the checkpoint's BatchNorm statistic {k} is missing "
                      "or not finite")
         name = "visual_model.layer4.0.bn3.running_var"
-        q, key = saved["model"][name], saved["key_model"][name]
-        if torch.equal(q, torch.ones_like(q)) or torch.equal(q, key):
+        q = saved["model"][name]
+        if torch.equal(q, torch.ones_like(q)) or (
+                moco and torch.equal(q, saved["key_model"][name])):
             fail(f"{name} did not move, or equals the key model's")
+    models = "the query and the key model" if moco else "the model"
     log(f"training slice, {model_name}: losses "
         f"{[round(v, 4) for v in losses]}, queue_ptr {state.queue_ptr}, "
         f"checkpoint {os.path.relpath(ckpt, REPO)} "
         f"({os.path.getsize(ckpt) >> 20} MB; {len(stats)} BatchNorm "
-        "statistics in each of the query and key models)")
+        f"statistics in each of {models})")
     return losses
 
 
@@ -2856,38 +3036,37 @@ def plain_train_kernels():
 
 
 def train_setup(model_name, compute_dtype_name):
-    """Full-width MoCo state of one of TRAIN_MODELS on the card and one
-    device batch of 32 identities x 4."""
+    """Full-width train state of one of TRAIN_MODELS on the card and one
+    device batch of its IMS_PER_BATCH (B / 4 identities x 4)."""
     import torch
-    from textreid_torch.config import get_default_cfg
     from textreid_torch.engine import create_train_state, make_train_step
     from textreid_torch.models import build_model
     from textreid_torch.solver import make_optimizer, set_learning_rate
     from textreid_torch.utils.platform import compute_dtype
 
-    cfg = get_default_cfg()
-    cfg.merge_from_file(os.path.join(REPO, TRAIN_MODELS[model_name][0]))
+    cfg = yaml_cfg(TRAIN_MODELS[model_name][0])
     cfg.TPU.ALLOW_RANDOM_VOCAB = True
     cfg.TPU.COMPUTE_DTYPE = compute_dtype_name
+    size = cfg.SOLVER.IMS_PER_BATCH
     model = build_model(cfg, "cuda", torch.float32,
                         compute_dtype(cfg, "cuda"), train=True)
 
     def state_of(m):
         opt = make_optimizer(cfg, m)
         set_learning_rate(opt, cfg.SOLVER.BASE_LR)
-        return create_train_state(cfg, m, opt, 128)
+        return create_train_state(cfg, m, opt, size)
 
     rng = np.random.RandomState(11)
     seq = cfg.INPUT.MAX_TEXT_LENGTH
-    lengths = rng.randint(5, seq + 1, 128).astype(np.int32)
-    ids = np.zeros((128, seq), np.int64)
+    lengths = rng.randint(5, seq + 1, size).astype(np.int32)
+    ids = np.zeros((size, seq), np.int64)
     for i, n in enumerate(lengths):
         ids[i, :n] = rng.randint(1, 512, n)
-    erase = np.zeros((128, 5), np.int32)
+    erase = np.zeros((size, 5), np.int32)
     erase[::4] = [1, 100, 20, 80, 40]
-    batch = {"pixels": rng.randint(0, 256, (128, 384, 128, 3), np.uint8),
+    batch = {"pixels": rng.randint(0, 256, (size, 384, 128, 3), np.uint8),
              "erase": erase, "token_ids": ids, "lengths": lengths,
-             "pids": np.repeat(np.arange(32), 4)}
+             "pids": np.repeat(np.arange(size // 4), 4)}
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     return cfg, model, state_of, make_train_step(cfg), batch
 
@@ -2898,8 +3077,11 @@ def compare_steps(model_name):
     algorithms and full f32 (no TF32) for this comparison only, so that the
     two steps' convolutions compute the same sums and the steps differ by
     the kernels alone."""
+    t0 = time.time()
     with cudnn_exact():
-        return _compare_steps(model_name)
+        out = _compare_steps(model_name)
+    log(f"f32 step, {model_name}: phase {time.time() - t0:.1f} s")
+    return out
 
 
 @contextmanager
@@ -2950,13 +3132,13 @@ def _compare_steps(model_name):
              f"{read_counts(TRAIN_KERNELS)}")
     # where the kernel's and the plain forward's f32 states cross at a
     # near-tie, the two steps' pool gradients go to different steps
-    (args,) = query_gates
-    flips = int((gru.bigru_pooled_fwd_train(*args)[3]
-                 != gru.bigru_pooled_fwd_train_plain(*args)[3]).sum())
-    log(f"f32 step, {model_name}, text tower: the kernel's and the plain "
-        f"forward's argmax "
-        f"differ at {flips} of {args[4].numel() * 2 * args[2].shape[0]} "
-        f"(row, unit) maxima")
+    flips = 0
+    for args in query_gates:  # none in a text transformer
+        flips = int((gru.bigru_pooled_fwd_train(*args)[3]
+                     != gru.bigru_pooled_fwd_train_plain(*args)[3]).sum())
+        log(f"f32 step, {model_name}, text tower: the kernel's and the "
+            f"plain forward's argmax differ at {flips} of "
+            f"{args[4].numel() * 2 * args[2].shape[0]} (row, unit) maxima")
     loss_err = 0.0
     for name in want:
         a, b = float(got[name]), float(want[name])
@@ -3145,6 +3327,106 @@ def time_training(model_name, reps=8):
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, peak=peak, profile=profile,
                 plain_profile=plain_profile)
+
+
+def time_accum8(reps=3):
+    """accum8's step (bs1024 in 8 microbatches of 128, the gradient-cache
+    step) beside the single-pass bs128 flagship step, bf16: the peak device
+    memory of a step of each with its state the only one on the card
+    (gated: accum8's at most ACCUM8_PEAK_RATIO of the flagship's), the
+    pass-1 against pass-2 embeddings of one microbatch (REPLAY_RTOL), then
+    the step time in turns (flagship, accum8, accum8, flagship: medians)
+    and the device time a step (``torch.profiler``)."""
+    import gc
+
+    import torch
+    from textreid_torch.engine.grad_cache import split_micro
+    from textreid_torch.engine.steps import query_forward
+    from textreid_torch.models.common import running_stats_frozen
+
+    t0 = time.time()
+    flagship = "CLIP RN50 + bi-GRU (flagship)"
+
+    def setup(name):
+        cfg, model, state_of, step, batch = train_setup(name, "bfloat16")
+        return cfg, (step, state_of(model), batch)
+
+    def peak(step, state, batch):
+        step(state, batch)  # warmup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    def timed(step, state, batch, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t1) * 1000)
+        return out
+
+    _, single = setup(flagship)
+    single_peak = peak(*single)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, accum = setup("accum8")
+    accum_peak = peak(*accum)
+    _, state, batch = accum
+    micro = split_micro(batch, cfg.SOLVER.GRAD_ACCUM_STEPS)[0]
+    with running_stats_frozen(state.model):
+        with torch.no_grad():
+            pass1 = query_forward(state.model, micro, False, False)
+        pass2 = [e.detach() for e in query_forward(state.model, micro,
+                                                   False, False)]
+    replay = max(((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(pass1, pass2))
+    log(f"accum8, one microbatch of 128: pass 1 (no gradient, K1 "
+        f"pooled-only) against pass 2 (K1's training forward): embeddings "
+        f"within {replay:.3e} of their largest entry (tol {REPLAY_RTOL:.0e})")
+    if not replay <= REPLAY_RTOL:
+        fail(f"accum8: pass 1 and pass 2 embeddings differ by {replay:.3e}")
+    del pass1, pass2
+
+    _, single = setup(flagship)
+    timed(*single, 2)
+    single_ms = timed(*single, 8)
+    accum_ms = timed(*accum, reps)
+    accum_ms += timed(*accum, reps)
+    single_ms += timed(*single, 8)
+    step, state, batch = accum
+    accum_prof = device_profile(lambda: step(state, batch), 1,
+                                STEP_FAMILIES, "the bf16 accum8 step")
+    step, state, batch = single
+    single_prof = device_profile(lambda: step(state, batch), 2,
+                                 STEP_FAMILIES, "the bf16 bs128 step")
+    out = dict(
+        ms=float(np.median(accum_ms)), single_ms=float(np.median(single_ms)),
+        peak=accum_peak, single_peak=single_peak,
+        device=accum_prof["total"] if accum_prof else float("nan"),
+        single_device=single_prof["total"] if single_prof else float("nan"),
+        replay=replay)
+    log(f"time train step bf16, accum8 (B=1024 in 8 x 128, CLIP RN50 + "
+        f"bi-GRU, 384x128, K=2048) against the single-pass flagship "
+        f"(B=128), in turns: median {out['ms']:.1f} ms "
+        f"({', '.join(f'{v:.1f}' for v in accum_ms)}) against "
+        f"{out['single_ms']:.2f} ms; device {out['device']:.1f} ms against "
+        f"{out['single_device']:.2f} ms; peak memory "
+        f"{accum_peak / 2**30:.2f} GiB against {single_peak / 2**30:.2f} "
+        f"GiB ({accum_peak / single_peak:.3f}x; gate "
+        f"{ACCUM8_PEAK_RATIO}x); phase {time.time() - t0:.1f} s "
+        f"({card_line()})")
+    if not accum_peak <= ACCUM8_PEAK_RATIO * single_peak:
+        fail(f"accum8 peak memory {accum_peak / 2**30:.2f} GiB is over "
+             f"{ACCUM8_PEAK_RATIO} x {single_peak / 2**30:.2f} GiB")
+    del accum, single, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_k1_backward():
@@ -3358,15 +3640,15 @@ def main():
         if model_name == "CLIP RN50 + bi-GRU (flagship)":
             launched, protocol = drive_flagship_protocol()
         else:
-            launched, state, meters, ckpt = drive_training(model_name)
-            check_training(model_name, launched, state, meters, ckpt)
-            del state
+            launched = drive_training(model_name)
         train_launches[model_name] = launched
         torch.cuda.empty_cache()
-    for model_name in TRAIN_MODELS:
+    for model_name in COMPARED_MODELS:
         compare_steps(model_name)
+    for model_name in TIMED_MODELS:
         train_times[model_name] = time_training(model_name)
-    vit_train, rn_train = (train_times[name] for name in TRAIN_MODELS)
+    vit_train, rn_train = (train_times[name] for name in TIMED_MODELS)
+    accum = time_accum8()
     k1_times = time_k1_backward()
     attn_times = time_attention()
     topk_times = time_topk()  # after every host-paced timing, as the profile
@@ -3392,6 +3674,13 @@ def main():
         f"{rn_train['peak'] / 2**30:.2f} GiB; K1 backward kernel "
         f"{k1_times[('bwd', 'bfloat16')]:.3f} ms (the plain recompute it "
         f"replaced {k1_times[('recompute', 'bfloat16')]:.2f} ms) ({card})")
+    log(f"summary, the gradient-cache step (accum8, bs1024 in 8 x 128): "
+        f"{accum['ms']:.1f} ms a step, device {accum['device']:.1f} ms, peak "
+        f"{accum['peak'] / 2**30:.2f} GiB, against the single-pass bs128 "
+        f"flagship step {accum['single_ms']:.2f} ms, device "
+        f"{accum['single_device']:.2f} ms, peak "
+        f"{accum['single_peak'] / 2**30:.2f} GiB, in the same call; pass 1 "
+        f"against pass 2 embeddings {accum['replay']:.3e} ({card})")
     log(f"summary, int8 encoders of the full-CLIP model: gallery encode "
         f"{enc_times[('encode', 'int8')]:.1f} img/s (bf16 float tower "
         f"{enc_times[('encode', 'float')]:.1f}); text encode B=256 "

@@ -191,9 +191,20 @@ def test_fused_last_layer_equals_the_pooled_plain_layers(two_layer_pair):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
-def test_multi_layer_dropout_in_training_is_refused(two_layer_pair):
-    _, _, port, ids = two_layer_pair
-    trainer = BiGRUEncoder(hidden_dim=16, vocab_size=30, embed_size=8,
-                           num_layers=2, dropout_rate=0.3).train()
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        trainer(torch.from_numpy(ids), torch.from_numpy(LENGTHS))
+def test_multi_layer_tower_in_training_computes_its_eval_output(
+        two_layer_pair):
+    """The 2-layer yaml's ``DROPOUT_KEEP_PROB: 0.7`` is never applied: in
+    train mode the port's tower computes its eval output, as the JAX
+    step's does (its ``encode_text`` leaves ``deterministic`` at True, so
+    that dropout never runs); atol 1e-5 against the JAX encoder so
+    called."""
+    jax_enc, variables, port, ids = two_layer_pair
+    lens = torch.from_numpy(LENGTHS)
+    with torch.no_grad():
+        want = port.eval()(torch.from_numpy(ids), lens)
+        got = port.train()(torch.from_numpy(ids), lens)
+        port.eval()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    ref = np.asarray(jax_enc.apply(variables, jnp.asarray(ids),
+                                   jnp.asarray(LENGTHS)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)

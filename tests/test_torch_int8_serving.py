@@ -44,6 +44,8 @@ from textreid_torch.utils.weight_convert import (
     state_dict_from_jax,
 )
 
+from test_torch_isolation import person_search_logger  # noqa: F401
+
 torch.set_num_threads(2)
 
 TINY = """
@@ -130,10 +132,17 @@ def test_build_model_takes_the_text_transformer(workspace):
     assert sd["embed_model.t_embed_layer.weight"].shape == (32, 32)
 
 
-def test_training_the_text_transformer_names_its_roadmap_item(workspace):
+def test_build_model_builds_the_full_clip_model_for_training(workspace):
+    """``build_model(train=True)`` builds the full-CLIP model, in train
+    mode, with the seeded weights of the serving build (its train step:
+    ``tests/test_torch_train_fullclip.py``)."""
     cfg = _cfg(get_default_cfg, workspace[0])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        build_model(cfg, "cpu", train=True)
+    model = build_model(cfg, "cpu", train=True)
+    assert model.training and model.textual_model.training
+    assert isinstance(model.textual_model, TextTransformer)
+    served = build_model(cfg, "cpu").state_dict()
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, served[name]), name
 
 
 def test_int8_encode_routes_a_vit_to_the_int8_tower(workspace):

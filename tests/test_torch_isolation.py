@@ -1,6 +1,7 @@
 """The port stands on torch alone, and nothing in it hides a missing card or
 a missing kernel behind a CPU fallback."""
 
+import logging
 import os
 import subprocess
 import sys
@@ -9,6 +10,25 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def person_search_logger():
+    """The port's entry points call ``setup_logger("PersonSearch")``, which
+    turns the process-wide logger's ``propagate`` off and adds handlers:
+    after this file the logger is put back as it was, so that a later file
+    in the same process (``caplog`` in ``tests/test_checkpoint_align.py``)
+    still sees its records.  Files that call an entry point import this
+    fixture."""
+    logger = logging.getLogger("PersonSearch")
+    saved = logger.propagate, logger.level, list(logger.handlers)
+    yield
+    for handler in logger.handlers:
+        if handler not in saved[2]:
+            handler.close()
+    logger.handlers[:] = saved[2]
+    logger.propagate = saved[0]
+    logger.setLevel(saved[1])
 
 
 def test_port_never_imports_jax():
@@ -29,7 +49,8 @@ def test_port_never_imports_jax():
         "             'ops.requant', 'ops.int8_mm', 'models.int8_vit',\n"
         "             'models.int8_text', 'models.text_transformer',\n"
         "             'evaluation.metrics', 'config.defaults', 'config.node',\n"
-        "             'data.loader', 'data.datasets'):\n"
+        "             'data.loader', 'data.datasets', 'engine.grad_cache',\n"
+        "             'models.resnet'):\n"
         "    assert 'textreid_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m == 'textreid_tpu' or m.startswith(\n"

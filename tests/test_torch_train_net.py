@@ -1,7 +1,8 @@
 """``python -m textreid_torch.train_net`` on the CPU: one epoch of two MoCo
 steps of a tiny ViT + bi-GRU model on a synthetic CUHK-PEDES train split,
-the same of the flagship (CLIP RN50 + bi-GRU) at 32x16 pixels, and the
-parts that are not ported yet refusing to run.  Evaluation during
+the same of the flagship (CLIP RN50 + bi-GRU) and of the torchvision
+ResNet-50 baseline (simple head) at 32x16 pixels.  Every shipped yaml for
+one step: ``tests/test_torch_train_configs.py``.  Evaluation during
 training, checkpoints, resume, warm start and preemption:
 ``tests/test_torch_trainer.py``."""
 
@@ -16,6 +17,8 @@ import torch
 
 from textreid_torch import train_net
 from textreid_torch.data import make_synthetic_dataset
+
+from test_torch_isolation import person_search_logger  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -219,11 +222,35 @@ def test_the_clip_rn50_archive_loads_into_both_trunks_as_jax_loads_it(
         train_net.main(argv)
 
 
-def test_batchnorm_tower_in_training_raises(workspace):
-    """The torchvision BatchNorm towers are not ported; the CLIP
-    ModifiedResNet's trains (tests/test_torch_train_step_bn.py)."""
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        _main(workspace, "MODEL.VISUAL_MODEL", "resnet50")
+def test_the_torchvision_resnet50_trains_one_epoch_on_the_cpu(workspace):
+    """``baseline_gru_rn50_ls_bs128.yaml`` (torchvision ResNet-50 + bi-GRU
+    over a learnable 12k-row table, simple head) at 32x16 pixels, batch 8:
+    two finite steps; the checkpoint holds no key model and no queue; the
+    trunk's running statistics moved, and the token table trains."""
+    state, meters = train_net.main([
+        "--root", str(workspace), "--config-file",
+        os.path.join(REPO, "configs/cuhkpedes/"
+                     "baseline_gru_rn50_ls_bs128.yaml"),
+        "--device", "cpu", "INPUT.HEIGHT", "32", "INPUT.WIDTH", "16",
+        "SOLVER.IMS_PER_BATCH", "8", "DATALOADER.IMS_PER_ID", "4",
+        "DATALOADER.NUM_WORKERS", "2", "MODEL.NUM_CLASSES", "4",
+        "SOLVER.NUM_EPOCHS", "1", "SOLVER.EVALUATE_PERIOD", "0",
+        "SOLVER.CHECKPOINT_PERIOD", "1", "SOLVER.LOG_PERIOD", "1",
+        "TPU.DEBUG_NANS", "True"])
+    assert state.step == 2 and state.key_model is None
+    losses = list(meters.loss.deque)
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert set(meters.meters) >= {"instance_loss", "global_align_loss"}
+    ckpt = torch.load(workspace / "output" / "cuhkpedes" /
+                      "baseline_gru_rn50_ls_bs128" / "epoch_1.pth",
+                      weights_only=False)
+    assert {"model", "optimizer", "meta"} <= set(ckpt)
+    assert not {"key_model", "v_queue", "queue_ptr"} & set(ckpt)
+    var = ckpt["model"]["visual_model.layer4.2.bn3.running_var"]
+    assert torch.isfinite(var).all() and not torch.equal(
+        var, torch.ones_like(var))
+    # the learnable table trains: the last step's gradient reached it
+    assert state.model.textual_model.embed.weight.grad.abs().sum() > 0
 
 
 def test_cuda_without_a_card_raises(workspace):

@@ -44,6 +44,7 @@ from textreid_torch.utils.meters import MetricLogger
 from textreid_torch.utils.preempt import PreemptionGuard
 from textreid_torch.utils.weight_convert import train_state_from_jax
 
+from test_torch_isolation import person_search_logger  # noqa: F401
 from test_torch_train_step import frozen_table, jax_model, make_batch
 from test_torch_train_step import perturb_biases, tiny_cfg
 from test_torch_train_step_bn import RN_SPEC, _pieces, perturb_bn

@@ -37,14 +37,18 @@ class TrainState:
 
     def load(self, pieces: dict) -> None:
         """Install ``utils.weight_convert.train_state_from_jax`` output:
-        both models' weights (frozen token table included), the queues and
-        the pointer."""
-        device = self.v_queue.device
-        for model, sd in ((self.model, pieces["model"]),
-                          (self.key_model, pieces["key_model"])):
+        the model's weights (frozen token table included) and, for MoCo,
+        the key model's, the queues and the pointer."""
+        models = [(self.model, pieces["model"])]
+        if self.key_model is not None:
+            models.append((self.key_model, pieces["key_model"]))
+        for model, sd in models:
             model.load_state_dict(
                 {k: torch.as_tensor(np.array(v)) for k, v in sd.items()},
                 strict=True)
+        if self.key_model is None:
+            return
+        device = self.v_queue.device
         self.v_queue = torch.tensor(np.array(pieces["v_queue"]),
                                     dtype=torch.float32, device=device)
         self.t_queue = torch.tensor(np.array(pieces["t_queue"]),

@@ -1,7 +1,8 @@
-"""The MoCo train step and the eval-path encode step (counterpart of
+"""The train steps and the eval-path encode step (counterpart of
 ``textreid_tpu/engine/steps.py``).
 
-Order is the JAX step's (``moco_train_step``), which is the reference's:
+The MoCo step's order is the JAX step's (``moco_train_step``), which is
+the reference's:
 
 1. EMA of the key encoders from the *pre-update* query parameters;
 2. key forward under ``no_grad`` with the updated key encoders; with
@@ -10,6 +11,16 @@ Order is the JAX step's (``moco_train_step``), which is the reference's:
    queue negatives masked by an additive ``-inf``;
 4. the optimizer step;
 5. enqueue of the keys after the loss.
+
+The simple head's step (``simple_train_step``) is the query forward, the
+instance and global-align losses and the optimizer step: no key model, no
+queue.  ``SOLVER.GRAD_ACCUM_STEPS > 1`` takes the gradient-cache step of
+``engine/grad_cache.py`` for either head.  ``TPU.REMAT`` runs the query
+image tower under ``torch.utils.checkpoint``: its activations are dropped
+after the forward and recomputed in the backward, with the BatchNorm
+running statistics held still during the recompute
+(``models/common.py:running_stats_frozen``), so they move once a step, as
+JAX's ``jax.checkpoint`` leaves them.
 
 Mixed precision: parameters and the optimizer's moments are f32.  The
 towers, embed layers and projectors run in the model's ``compute_dtype``
@@ -24,11 +35,14 @@ too.  Embeddings are cast to f32 before the losses, as in JAX.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from contextlib import nullcontext
+from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import losses
+from ..models.common import running_stats_frozen
 from .state import TrainState
 
 # InfoNCE temperature (reference moco_head/loss.py:18)
@@ -44,6 +58,18 @@ def enqueue(state: TrainState, v_k: torch.Tensor, t_k: torch.Tensor,
     state.t_queue[ptr:ptr + n] = t_k
     state.id_queue[ptr:ptr + n] = ids
     state.queue_ptr = (ptr + n) % state.id_queue.shape[0]
+
+
+def simple_loss_tail(projection, v_embed, t_embed, labels,
+                     epsilon: float) -> Dict[str, torch.Tensor]:
+    """The simple head's losses on f32 embeddings (reference
+    simple_head/head.py:33-47): instance and global-align."""
+    return {
+        "instance_loss": losses.instance_loss(
+            projection, v_embed, t_embed, labels, epsilon=epsilon),
+        "global_align_loss": losses.global_align_loss(v_embed, t_embed,
+                                                      labels),
+    }
 
 
 def moco_loss_tail(projection, v_embed, t_embed, v_q, t_q, v_k, t_k, ids,
@@ -66,6 +92,15 @@ def moco_loss_tail(projection, v_embed, t_embed, v_q, t_q, v_k, t_k, ids,
     }
 
 
+def moco_ema(state: TrainState, momentum: float) -> None:
+    """``key = m key + (1 - m) query`` over the parameters, in place."""
+    with torch.no_grad():
+        key_params = list(state.key_model.parameters())
+        torch._foreach_mul_(key_params, momentum)
+        torch._foreach_add_(key_params, list(state.model.parameters()),
+                            alpha=1.0 - momentum)
+
+
 @torch.no_grad()
 def moco_key_forward(model, key_model, use_fc: bool, batch):
     """L2-normalised f32 key embeddings ``(v_k, t_k)``."""
@@ -80,23 +115,65 @@ def moco_key_forward(model, key_model, use_fc: bool, batch):
             losses.l2_normalize(t_k.float(), dim=1))
 
 
-def moco_losses(model, state: TrainState, use_fc: bool, epsilon: float,
-                batch, v_k, t_k) -> Dict[str, torch.Tensor]:
-    """The query forward and the loss dict (differentiable)."""
-    v_feat = model.encode_image(batch["pixels"], batch.get("erase"))
+def encode_image_train(model, pixels, erase, remat: bool) -> torch.Tensor:
+    """The query image tower in train mode; with ``remat`` (and grad on)
+    under ``torch.utils.checkpoint``, the recompute leaving the BatchNorm
+    running statistics alone."""
+    if remat and torch.is_grad_enabled():
+        # context_fn: (the forward's context, the recompute's)
+        return checkpoint(model.encode_image, pixels, erase,
+                          use_reentrant=False,
+                          context_fn=lambda: (nullcontext(),
+                                              running_stats_frozen(model)))
+    return model.encode_image(pixels, erase)
+
+
+def query_forward(model, batch, use_fc: Optional[bool], remat: bool):
+    """The query towers to f32 embeddings: ``(v_embed, t_embed)`` for the
+    simple head (``use_fc`` None), else ``(v_embed, t_embed, v_q, t_q)``
+    with the MoCo queries L2-normalised (``MOCO.FC``: through the
+    projectors)."""
+    v_feat = encode_image_train(model, batch["pixels"], batch.get("erase"),
+                                remat)
     t_feat = model.encode_text(batch["token_ids"], batch["lengths"])
     v_embed = model.embed_image(v_feat).float()
     t_embed = model.embed_text(t_feat).float()
+    if use_fc is None:
+        return v_embed, t_embed
     if use_fc:
         v_q, t_q = model.project_image(v_feat), model.project_text(t_feat)
     else:
         v_q, t_q = v_embed, t_embed
-    v_q = losses.l2_normalize(v_q.float(), dim=1)
-    t_q = losses.l2_normalize(t_q.float(), dim=1)
-    return moco_loss_tail(
-        model.projection.float(), v_embed, t_embed, v_q, t_q, v_k, t_k,
-        batch["pids"].long(), state.id_queue, state.v_queue, state.t_queue,
-        epsilon, MOCO_TEMPERATURE)
+    return (v_embed, t_embed, losses.l2_normalize(v_q.float(), dim=1),
+            losses.l2_normalize(t_q.float(), dim=1))
+
+
+def finish_step(state: TrainState, loss_dict) -> dict:
+    """Optimizer step and the metrics: every loss and their sum, as 0-d
+    device tensors.  The gradients are in ``.grad``."""
+    state.optimizer.step()
+    state.step += 1
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    metrics["loss"] = sum(metrics.values())
+    return metrics
+
+
+def simple_train_step(cfg) -> Callable[[TrainState, dict], dict]:
+    """``step(state, batch) -> metrics``: one simple-head step (reference
+    simple_head/head.py:33-47), updating ``state`` in place."""
+    epsilon = float(cfg.MODEL.EMBEDDING.EPSILON)
+    remat = bool(cfg.TPU.REMAT)
+
+    def step(state: TrainState, batch) -> dict:
+        state.optimizer.zero_grad(set_to_none=True)
+        v_embed, t_embed = query_forward(state.model, batch, None, remat)
+        loss_dict = simple_loss_tail(state.model.projection.float(),
+                                     v_embed, t_embed, batch["pids"].long(),
+                                     epsilon)
+        sum(loss_dict.values()).backward()
+        return finish_step(state, loss_dict)
+
+    return step
 
 
 def moco_train_step(cfg) -> Callable[[TrainState, dict], dict]:
@@ -107,25 +184,22 @@ def moco_train_step(cfg) -> Callable[[TrainState, dict], dict]:
     momentum = float(cfg.MODEL.MOCO.M)
     use_fc = bool(cfg.MODEL.MOCO.FC)
     epsilon = float(cfg.MODEL.EMBEDDING.EPSILON)
+    remat = bool(cfg.TPU.REMAT)
 
     def step(state: TrainState, batch) -> dict:
-        model, key_model = state.model, state.key_model
-        with torch.no_grad():
-            key_params = list(key_model.parameters())
-            torch._foreach_mul_(key_params, momentum)
-            torch._foreach_add_(key_params, list(model.parameters()),
-                                alpha=1.0 - momentum)
-        v_k, t_k = moco_key_forward(model, key_model, use_fc, batch)
+        model = state.model
+        moco_ema(state, momentum)
+        v_k, t_k = moco_key_forward(model, state.key_model, use_fc, batch)
         state.optimizer.zero_grad(set_to_none=True)
-        loss_dict = moco_losses(model, state, use_fc, epsilon, batch, v_k,
-                                t_k)
-        total = sum(loss_dict.values())
-        total.backward()
-        state.optimizer.step()
-        enqueue(state, v_k, t_k, batch["pids"].long())
-        state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["loss"] = total.detach()
+        ids = batch["pids"].long()
+        loss_dict = moco_loss_tail(
+            model.projection.float(),
+            *query_forward(model, batch, use_fc, remat), v_k, t_k, ids,
+            state.id_queue, state.v_queue, state.t_queue, epsilon,
+            MOCO_TEMPERATURE)
+        sum(loss_dict.values()).backward()
+        metrics = finish_step(state, loss_dict)
+        enqueue(state, v_k, t_k, ids)
         return metrics
 
     return step
@@ -145,16 +219,13 @@ def encode_step(model, batch):
 
 
 def make_train_step(cfg) -> Callable[[TrainState, dict], dict]:
-    if int(cfg.SOLVER.GRAD_ACCUM_STEPS) > 1:
-        raise NotImplementedError(
-            "SOLVER.GRAD_ACCUM_STEPS > 1 (engine/grad_cache.py) is not "
-            "ported yet (ROADMAP Queue A item 8)")
-    if cfg.MODEL.EMBEDDING.EMBED_HEAD != "moco":
-        raise NotImplementedError(
-            "the simple embedding head's train step is not ported yet "
-            "(ROADMAP Queue A item 3)")
-    if cfg.TPU.REMAT:
-        raise NotImplementedError(
-            "TPU.REMAT (recomputing the image tower in the backward) is not "
-            "ported yet (ROADMAP Queue A item 3)")
-    return moco_train_step(cfg)
+    """The step ``cfg`` trains with: the gradient-cache step when
+    ``SOLVER.GRAD_ACCUM_STEPS > 1``, else the single-pass step of the
+    embedding head (``textreid_tpu/engine/steps.py:make_train_step``)."""
+    n_micro = int(cfg.SOLVER.GRAD_ACCUM_STEPS)
+    if n_micro > 1:
+        from .grad_cache import make_grad_cache_step
+        return make_grad_cache_step(cfg, n_micro)
+    if cfg.MODEL.EMBEDDING.EMBED_HEAD == "moco":
+        return moco_train_step(cfg)
+    return simple_train_step(cfg)

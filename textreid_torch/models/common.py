@@ -10,9 +10,16 @@ differentiable, so gradients reach the masters in f32.
 ``torch.nn.BatchNorm2d``: the batch statistics are f32 whatever the input
 dtype, the scale and bias stay f32 inside the normalisation, and the
 running variance moves towards the *biased* batch variance (torch's module
-uses the unbiased one, ``n / (n - 1)`` larger)."""
+uses the unbiased one, ``n / (n - 1)`` larger).
+
+:func:`running_stats_frozen` holds the running statistics still across a
+forward that replays one already taken: ``TPU.REMAT``'s recompute in the
+backward and the gradient-cache step's second pass.  In train mode the
+output depends on the batch statistics alone, so the replay is exact."""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +45,25 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                     conv.padding, conv.dilation, conv.groups)
 
 
+@contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Train-mode :func:`batch_norm` leaves the running statistics of
+    every BatchNorm in ``module`` where they are while this is open (a
+    flag on each BatchNorm, not on the thread: autograd runs a CUDA
+    backward, and so a checkpoint's recompute, on a thread of its own).
+    Nests."""
+    bns = [m for m in module.modules()
+           if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    saved = [getattr(bn, "stats_frozen", False) for bn in bns]
+    for bn in bns:
+        bn.stats_frozen = True
+    try:
+        yield
+    finally:
+        for bn, value in zip(bns, saved):
+            bn.stats_frozen = value
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """``bn`` over the channels of NCHW ``x``, in ``x``'s dtype.
 
@@ -59,6 +85,8 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
                             False, 0.0, bn.eps)
     out, mean, invstd = torch.native_batch_norm(
         x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+    if getattr(bn, "stats_frozen", False):
+        return out
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)

@@ -13,8 +13,13 @@ The last layer runs the fused scan with pooling of ``ops/gru.py``
 (``bigru_pooled_scan``), every layer before it the one-direction scan
 (``gru_scan``) once per direction, the composition of the JAX encoder with
 ``use_pallas=True``: on CUDA the hand-written kernels, on the CPU their
-plain versions.  Inter-layer dropout is a training feature and not ported:
-a multi-layer encoder in train mode raises.
+plain versions.  ``MODEL.GRU.DROPOUT_KEEP_PROB`` (inter-layer dropout) is
+never applied, in training either, as in the JAX step:
+``textreid_tpu/models/model.py:152-153`` calls the tower with
+``deterministic`` left at its default ``True``
+(``textreid_tpu/models/gru.py:208``, the dropout at ``:275-277``), and no
+dropout RNG is passed anywhere in that package.  So a multi-layer tower in
+train mode computes its eval output.
 
 Parameter names follow the reference torch layout (``embed.*``,
 ``gru.weight_ih_l0``, ``gru.weight_hh_l0`` and their ``_reverse`` pair);
@@ -83,12 +88,10 @@ class BiGRUEncoder(nn.Module):
                  embed_size: int = 512, num_layers: int = 1,
                  use_onehot: str = "yes",
                  frozen_table: Optional[np.ndarray] = None,
-                 allow_random_table: bool = False, pool_mode: str = "batch",
-                 dropout_rate: float = 0.0):
+                 allow_random_table: bool = False, pool_mode: str = "batch"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
-        self.dropout_rate = dropout_rate  # between layers, training only
         self.pool_mode = pool_mode
         self.embed: Optional[nn.Module] = None
         if use_onehot == "yes":
@@ -145,10 +148,6 @@ class BiGRUEncoder(nn.Module):
             return (inputs.reshape(batch * seq, -1) @ w_ih.T).reshape(
                 batch, seq, -1)
 
-        if self.num_layers > 1 and self.training and self.dropout_rate > 0:
-            raise NotImplementedError(
-                "inter-layer GRU dropout in training is not ported yet "
-                "(ROADMAP Queue A item 3)")
         # K3 does not mask by length: positions t >= len are dealt with by
         # reverse_padded's clipped gather and by the last layer's t < len
         h0 = x.new_zeros(batch, self.hidden_dim)
@@ -174,7 +173,9 @@ class BiGRUEncoder(nn.Module):
 
 
 def build_bigru(cfg, frozen_table=None) -> BiGRUEncoder:
-    """Constructor mirroring ``textreid_tpu/models/gru.py:build_bigru``."""
+    """Constructor mirroring ``textreid_tpu/models/gru.py:build_bigru``
+    (``DROPOUT_KEEP_PROB`` is read by nothing: see the module's
+    docstring)."""
     return BiGRUEncoder(
         hidden_dim=cfg.MODEL.GRU.NUM_UNITS,
         vocab_size=cfg.MODEL.GRU.VOCABULARY_SIZE,
@@ -183,5 +184,4 @@ def build_bigru(cfg, frozen_table=None) -> BiGRUEncoder:
         use_onehot=cfg.MODEL.GRU.ONEHOT,
         frozen_table=frozen_table,
         allow_random_table=bool(cfg.TPU.ALLOW_RANDOM_VOCAB),
-        dropout_rate=1.0 - cfg.MODEL.GRU.DROPOUT_KEEP_PROB,
     )

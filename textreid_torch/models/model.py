@@ -24,13 +24,11 @@ from ..utils.vocab import frozen_table_initializer
 from .common import linear
 from .gru import build_bigru
 from .m_resnet import build_m_resnet
+from .resnet import ARCH_LAYERS, build_resnet
 from .text_transformer import build_text_transformer
 from .vit import build_vit
 
 M_RESNETS = ("m_resnet", "m_resnet50", "m_resnet101")
-# the torchvision BatchNorm towers, which the port does not build yet
-TORCHVISION_RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101",
-                       "resnet152")
 TEXT_TRANSFORMERS = ("transformer", "clip_transformer")
 
 
@@ -168,11 +166,11 @@ def build_visual_model(cfg) -> nn.Module:
     name = cfg.MODEL.VISUAL_MODEL
     if name in M_RESNETS:
         return build_m_resnet(cfg)
+    if name in ARCH_LAYERS:
+        return build_resnet(cfg)
     if name.startswith("clip_vit") or name == "vit":
         return build_vit(cfg)
-    raise NotImplementedError(
-        f"visual tower {name!r} is not ported yet (ROADMAP Queue A item 10: "
-        "torchvision ResNet)")
+    raise NotImplementedError(f"unknown visual tower {name!r}")
 
 
 def build_textual_model(cfg, frozen_table=None) -> nn.Module:
@@ -190,20 +188,8 @@ def build_model(cfg, device="cpu", dtype=torch.float32,
                 train: bool = False) -> TextReIDModel:
     """Seeded (``cfg.SEED``) model for ``cfg`` on ``device``, parameters in
     ``dtype``, towers running in ``compute_dtype`` (default ``dtype``).
-    ``train=True`` returns it in train mode (the CLIP ModifiedResNet's
-    BatchNorm then runs on batch statistics, ``models/common.batch_norm``)
-    and refuses the torchvision BatchNorm towers, which are not ported, and
-    the text transformer, whose train step no parity test covers."""
-    name = cfg.MODEL.VISUAL_MODEL
-    if train and name in TORCHVISION_RESNETS:
-        raise NotImplementedError(
-            f"training the torchvision BatchNorm tower {name!r} is not "
-            "ported yet (ROADMAP Queue A item 10: torchvision ResNet)")
-    if train and cfg.MODEL.TEXTUAL_MODEL in TEXT_TRANSFORMERS:
-        raise NotImplementedError(
-            "training the CLIP text transformer is not ported yet (ROADMAP "
-            "Queue A item 7: a two-step parity test of the full-CLIP train "
-            "step); the tower serves and evaluates")
+    ``train=True`` returns it in train mode (the ResNets' BatchNorm then
+    runs on batch statistics, ``models/common.batch_norm``)."""
     table_init = frozen_table_initializer(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.SEED)

@@ -8,10 +8,15 @@
 * ``Adam`` is ``torch.optim.Adam`` with coupled L2 (``weight_decay`` is
   added to the gradient before the moments, as optax's
   ``add_decayed_weights`` ahead of ``scale_by_adam``), eps 1e-8 and betas
-  (``ADAM_ALPHA``, ``ADAM_BETA``).  Every shipped config trains with
-  Adam; ``AdamW`` and ``SGD`` are not ported yet.
-* ``MODEL.FREEZE`` stops the text tower (and the ModifiedResNet stem and
-  layers 1-3) with ``requires_grad=False``, the rules of ``freeze_mask``.
+  (``ADAM_ALPHA``, ``ADAM_BETA``).  ``AdamW`` is ``torch.optim.AdamW``:
+  the decay decoupled, ``p -= lr (adam + wd p)`` with the group's lr, as
+  the JAX chain's ``add_decayed_weights`` after ``scale_by_adam`` and
+  before the lr scale.  ``SGD`` is ``torch.optim.SGD`` with coupled L2,
+  heavy-ball ``SGD_MOMENTUM`` (no dampening, no Nesterov: optax's
+  ``trace``).  Every shipped config trains with Adam.
+* ``MODEL.FREEZE`` stops the text tower (and a ResNet's stem and layers
+  1-3, CLIP's or torchvision's) with ``requires_grad=False``, the rules of
+  ``freeze_mask``.
 * The warmup + {step, exp, poly, cosine, linear} schedule is a function of
   the 0-based epoch, on the host.
 """
@@ -70,13 +75,13 @@ def make_lr_schedule(cfg) -> Callable[[int], float]:
 
 
 def apply_freeze(model) -> None:
-    """``MODEL.FREEZE``: the text tower, and the ModifiedResNet stem and
-    layers 1-3, stop training (``freeze_mask``'s rules; the ViT has none
-    of those names in the JAX package, so none of its parameters
-    freeze)."""
+    """``MODEL.FREEZE``: the text tower, and a ResNet's stem and layers
+    1-3, stop training (``freeze_mask``'s rules; the ViT has none of those
+    names in the JAX package, so none of its parameters freeze)."""
     from ..models.m_resnet import ModifiedResNet
+    from ..models.resnet import ResNet
 
-    resnet = isinstance(model.visual_model, ModifiedResNet)
+    resnet = isinstance(model.visual_model, (ModifiedResNet, ResNet))
     for name, p in model.named_parameters():
         if name.startswith("textual_model.") or (
                 resnet and name.startswith("visual_model.")
@@ -104,13 +109,16 @@ def param_groups(cfg, model) -> list:
 def make_optimizer(cfg, model) -> torch.optim.Optimizer:
     """The solver over ``model``'s trainable parameters (call
     :func:`apply_freeze` first when ``MODEL.FREEZE``)."""
-    if cfg.SOLVER.OPTIMIZER != "Adam":
-        raise NotImplementedError(
-            f"SOLVER.OPTIMIZER {cfg.SOLVER.OPTIMIZER!r} is not ported yet "
-            "(ROADMAP Queue A item 3)")
-    return torch.optim.Adam(
-        param_groups(cfg, model), lr=cfg.SOLVER.BASE_LR, eps=1e-8,
-        betas=(cfg.SOLVER.ADAM_ALPHA, cfg.SOLVER.ADAM_BETA))
+    name = cfg.SOLVER.OPTIMIZER
+    groups, lr = param_groups(cfg, model), cfg.SOLVER.BASE_LR
+    if name in ("Adam", "AdamW"):
+        adam = torch.optim.Adam if name == "Adam" else torch.optim.AdamW
+        return adam(groups, lr=lr, eps=1e-8,
+                    betas=(cfg.SOLVER.ADAM_ALPHA, cfg.SOLVER.ADAM_BETA))
+    if name == "SGD":
+        return torch.optim.SGD(groups, lr=lr,
+                               momentum=cfg.SOLVER.SGD_MOMENTUM)
+    raise NotImplementedError(name)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -15,9 +15,14 @@ package.  In order:
    is under ``ROOT/pretrained/clip`` (``RN50.pt`` or ``RN101.pt`` for the
    ModifiedResNets, ``ViT-B-16.pt`` etc. for the ViTs), is loaded into it,
    BatchNorm running statistics included; otherwise the seeded
-   initialisation is kept and logged.  Then the optimizer and the MoCo
-   state, whose key model is a copy of the query model, so both towers
-   start from the archive.
+   initialisation is kept and logged.  A CLIP text transformer takes the
+   text half of the same archive, its positional table resampled to
+   ``CONTEXT_LENGTH``; when the visual tower has no CLIP archive there
+   (a torchvision ResNet, or the file is absent), the first of
+   ``ViT-B-16.pt``, ``ViT-B-32.pt``, ``RN50.pt``, ``RN101.pt``,
+   ``ViT-L-14.pt`` found, the JAX ``train_net.py``'s order.  Then the
+   optimizer and the MoCo state, whose key model is a copy of the query
+   model, so both towers start from the archive.
 2. ``MODEL.WEIGHT`` (other than ``imagenet``): a reference-layout ``.pth``
    installed as a warm start (``utils/bootstrap.py:
    install_reference_checkpoint``: the model, the key encoders, the queues
@@ -74,34 +79,69 @@ def clip_archive(cfg):
     return os.path.join(cfg.ROOT, "pretrained", "clip", f"{arch}.pt")
 
 
-def load_pretrained_visual(cfg, model, logger) -> None:
-    """The CLIP archive's visual tower into ``model.visual_model`` when the
-    archive is under ``ROOT/pretrained/clip``; a key the tower does not
-    have, or lacks, raises."""
-    path = clip_archive(cfg)
-    if path is None:
-        return
-    if not os.path.isfile(path):
-        logger.info("No CLIP archive at %s: the visual tower keeps its "
-                    "seeded initialisation (SEED %d)", path, cfg.SEED)
-        return
-    from .models.vit import VisionTransformer
-    from .utils.weight_convert import convert_clip_m_resnet, convert_clip_vit
+# any CLIP archive holds a text tower: the JAX train_net.py's search order
+# when the visual tower's own archive is not there
+CLIP_TEXT_ARCHIVES = ("ViT-B-16.pt", "ViT-B-32.pt", "RN50.pt", "RN101.pt",
+                      "ViT-L-14.pt")
 
-    logger.info("Loading CLIP visual weights from %s", path)
-    visual = model.visual_model
-    if isinstance(visual, VisionTransformer):
-        sd = convert_clip_vit(load_clip_state_dict(path), visual.layers,
-                              final_grid=visual.grid, prefix="")
-    else:
-        sd = convert_clip_m_resnet(load_clip_state_dict(path),
-                                   visual.attnpool.spacial_dim)
-    missing, unexpected = visual.load_state_dict(
+
+def _load_into(module, sd: dict, path: str, what: str) -> None:
+    """``sd`` into ``module``; a key the module does not have, or lacks
+    (``num_batches_tracked`` aside), raises."""
+    missing, unexpected = module.load_state_dict(
         {k: torch.as_tensor(v) for k, v in sd.items()}, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
-        raise KeyError(f"{path} does not match the visual tower: missing "
+        raise KeyError(f"{path} does not match the {what}: missing "
                        f"{missing[:8]}, unexpected {unexpected[:8]}")
+
+
+def load_pretrained(cfg, model, logger) -> None:
+    """The CLIP archive's visual tower into ``model.visual_model`` when the
+    archive is under ``ROOT/pretrained/clip``, and the text half of a CLIP
+    archive into a text transformer (see the module's docstring).  The
+    archive is read once."""
+    from .models.model import TEXT_TRANSFORMERS
+    from .models.vit import VisionTransformer
+    from .utils.weight_convert import (
+        convert_clip_m_resnet,
+        convert_clip_text,
+        convert_clip_vit,
+    )
+
+    path, sd = clip_archive(cfg), None
+    if path is not None and not os.path.isfile(path):
+        logger.info("No CLIP archive at %s: the visual tower keeps its "
+                    "seeded initialisation (SEED %d)", path, cfg.SEED)
+        path = None
+    if path is not None:
+        logger.info("Loading CLIP visual weights from %s", path)
+        sd = load_clip_state_dict(path)
+        visual = model.visual_model
+        if isinstance(visual, VisionTransformer):
+            tower = convert_clip_vit(sd, visual.layers,
+                                     final_grid=visual.grid, prefix="")
+        else:
+            tower = convert_clip_m_resnet(sd, visual.attnpool.spacial_dim)
+        _load_into(visual, tower, path, "visual tower")
+    if cfg.MODEL.TEXTUAL_MODEL not in TEXT_TRANSFORMERS:
+        return
+    if path is None:
+        clip_dir = os.path.join(cfg.ROOT, "pretrained", "clip")
+        path = next((os.path.join(clip_dir, name)
+                     for name in CLIP_TEXT_ARCHIVES
+                     if os.path.isfile(os.path.join(clip_dir, name))), None)
+    if path is None:
+        logger.info("No CLIP archive under ROOT/pretrained/clip: the text "
+                    "tower keeps its seeded initialisation (SEED %d)",
+                    cfg.SEED)
+        return
+    logger.info("Loading CLIP text weights from %s", path)
+    if sd is None:
+        sd = load_clip_state_dict(path)
+    text = model.textual_model
+    _load_into(text, convert_clip_text(sd, text.layers, text.context_length,
+                                       prefix=""), path, "text tower")
 
 
 def train(cfg, output_dir: str, device, resume_from: str = "",
@@ -126,7 +166,7 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
     train_step = make_train_step(cfg)
     model = build_model(cfg, device, torch.float32,
                         compute_dtype(cfg, device), train=True)
-    load_pretrained_visual(cfg, model, logger)
+    load_pretrained(cfg, model, logger)
     if cfg.MODEL.FREEZE:
         apply_freeze(model)
         logger.info("MODEL.FREEZE: the text tower is frozen")

@@ -2,8 +2,9 @@
 
 * :func:`state_dict_from_jax` — the JAX ``TrainState`` pieces (as numpy
   arrays) -> a reference-layout state dict for the port's model: query
-  towers (CLIP ModifiedResNet or ViT, bi-GRU), embed layers, MoCo
-  projectors and the loss projection.  It is the inverse of
+  towers (CLIP ModifiedResNet, torchvision ResNet or ViT; bi-GRU or text
+  transformer), embed layers, MoCo projectors and the loss projection.
+  It is the inverse of
   ``textreid_tpu/utils/weight_convert.py``'s importers, written again in
   numpy alone (the port never imports JAX), and it also carries the frozen
   token table, which the reference layout has no slot for.
@@ -79,15 +80,18 @@ def _dense(out: dict, prefix: str, p: dict) -> None:
 
 
 def _visual(out: dict, prefix: str, params: dict, stats: dict) -> None:
-    """CLIP ModifiedResNet: the inverse of ``convert_m_resnet``."""
-    for i in (1, 2, 3):
+    """A ResNet: the inverse of ``convert_m_resnet`` (CLIP's
+    ModifiedResNet: a 3-convolution stem, 3-convolution blocks, the
+    attention pool) and of ``convert_resnet`` (torchvision's: one stem
+    convolution, 2- or 3-convolution blocks)."""
+    for i in (i for i in (1, 2, 3) if f"conv{i}" in params):
         out[f"{prefix}conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
         _bn(out, f"{prefix}bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
     for name in (k for k in params if k.startswith("layer")):
         stage, block = name[len("layer"):].split("_")
         src = f"{prefix}layer{stage}.{block}"
         bp, bs = params[name], stats[name]
-        for i in (1, 2, 3):
+        for i in (i for i in (1, 2, 3) if f"conv{i}" in bp):
             out[f"{src}.conv{i}.weight"] = _conv(bp[f"conv{i}"]["kernel"])
             _bn(out, f"{src}.bn{i}", bp[f"bn{i}"], bs[f"bn{i}"])
         if "downsample_conv" in bp:
@@ -95,6 +99,8 @@ def _visual(out: dict, prefix: str, params: dict, stats: dict) -> None:
                 bp["downsample_conv"]["kernel"])
             _bn(out, f"{src}.downsample.1", bp["downsample_bn"],
                 bs["downsample_bn"])
+    if "attnpool" not in params:
+        return
     attn = params["attnpool"]
     out[f"{prefix}attnpool.positional_embedding"] = attn["positional_embedding"]
     for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
@@ -197,7 +203,10 @@ def train_state_from_jax(pieces: dict) -> dict:
     state dicts (see :func:`state_dict_from_jax`; the key model is built
     from ``key_params``/``key_batch_stats``) plus ``v_queue``, ``t_queue``
     ``[K, D]``, ``id_queue [K]`` and ``queue_ptr`` as numpy values, for
-    ``engine.state.TrainState.load``."""
+    ``engine.state.TrainState.load``; a simple head's (no ``key_params``)
+    -> ``{"model"}``."""
+    if pieces.get("key_params") is None:
+        return {"model": state_dict_from_jax(pieces)}
     constants = pieces.get("constants", {})
     return {
         "model": state_dict_from_jax(pieces),
