@@ -92,6 +92,27 @@ before the result line:
    int8 tower's embeddings have cosine >= 0.999 to its float tower's.  Then
    K7-K9's times, gallery encode and text encode (int8 against float, each
    tower with ``fused_ffn`` on and off) and ``/search`` latency.
+7b. The flagship's gallery in int8, at full width (``flagship_cfg("")``,
+   seeded weights with BatchNorm settled by 20 train-mode forwards on the
+   synthetic gallery): E1 (``csrc/int8_conv.cu:int8_conv_epilogue``, the
+   int8 trunk's fused epilogue) and E2 (``int8_avg_pool``) against their
+   plain versions bit for bit at the trunk's shapes at batch 128 (layer 1's
+   conv3 with its identity, the stem's conv1, layer 2's downsample, layer
+   4's last conv3 with a float output, the pixel quantize, a ragged 37
+   rows; f32 and bf16 epilogues; E2 at the stem's and layer 2's pools);
+   then ``build_index --int8-encode`` (the int8-dataflow trunk), again
+   with ``--quantize``, ``serve`` of each, ``/search`` and
+   ``/search_image``: E1 56 and E2 5 launches a trunk forward, K1 once and
+   K2 (K4) once a /search, replies equal to the plain path, the gallery's
+   minimum cosine to the float tower's >= 0.999, the int8 embeddings equal
+   to the same trunk through E1's and E2's plain versions.  The
+   interceptor on ``configs/cuhkpedes/baseline_gru_rn50_ls_bs128.yaml``
+   (the torchvision ResNet-50): ``build_index --int8-encode``, served, its
+   gallery at cosine >= 0.99 to the float tower's.  Then E1's and E2's
+   times beside their plain versions (and ``torch._int_mm``'s product
+   alone at the same convolution), and the flagship's gallery encode
+   img/s at batch 128 over 3,074 rows: float, int8 dataflow and
+   interceptor in turns, two readings each.
 8. The training slice through ``textreid_torch.train_net.main`` at full
    width, for a few steps each, on a synthetic CUHK-PEDES train split
    (bf16 towers, seeded weights, random frozen token table, MoCo K=2048,
@@ -153,14 +174,15 @@ before the result line:
    at the step's shape beside its plain version and the plain recompute it
    replaced, and K5 and K6 alone at the ViT-B/16 shape and the served
    causal text shape, beside their plain versions and the library call.
-11. The ``kernels`` line: for each of the ten kernels its launches on the
+11. The ``kernels`` line: for each of the twelve kernels its launches on the
     driven paths, its error, its time beside its plain version's, its
     roofline bound computed from the timed shapes (bytes over 3.35 TB/s
     against operations over the peak rate of the input type), and the time
     of the one PyTorch call that computes the same function where there is
     one (a yardstick only: nothing in the port calls it).
 12. Last, after every host-paced timing, the device time of one int8
-    ViT-B/16 forward by kernel family (``torch.profiler``).
+    ViT-B/16 forward and of one int8 flagship trunk forward (B=128) by
+    kernel family (``torch.profiler``, ``utils/profiling.py``).
 
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -1271,7 +1293,8 @@ def time_int8_kernels():
 
 def wrappers():
     """Kernel entry point -> the wrapper that counts its launches."""
-    from textreid_torch.ops import attention, gru, int8_mm, ranking, requant
+    from textreid_torch.ops import (attention, gru, int8_conv, int8_mm,
+                                    ranking, requant)
 
     return {"fused_requant": requant.fused_requant,
             "int8_matmul_requant": int8_mm.fused_int8_matmul_requant,
@@ -1282,7 +1305,9 @@ def wrappers():
             "topk_similarity_f32": ranking.topk_similarity,
             "topk_similarity_int8": ranking.topk_similarity_quantized,
             "fused_attention_fwd": attention.fused_attention,
-            "fused_attention_bwd": attention.fused_attention_bwd}
+            "fused_attention_bwd": attention.fused_attention_bwd,
+            "int8_conv_epilogue": int8_conv.int8_conv_epilogue,
+            "int8_avg_pool": int8_conv.int8_avg_pool}
 
 
 def zero_counts():
@@ -1467,11 +1492,13 @@ def make_workspace(root, quantized):
     return root, cfg, cfg_path, ckpt
 
 
-def drive_slice(quantized=False, workspace=None):
+def drive_slice(quantized=False, workspace=None, int8_encode=False):
     """build_index -> serve -> HTTP at full width: the flagship from a float
     gallery, or the 2-layer-GRU model from an int8 gallery
-    (``--quantize``).  Returns the running (service, server, thread), the
-    HTTP results and the launch counts of the run."""
+    (``--quantize``); with ``int8_encode``, the gallery encoded by
+    ``build_index --int8-encode``.  Returns the running (service, server,
+    thread), the HTTP results, the launch counts of the run and the index
+    build_index built."""
     from textreid_torch.tools import build_index, serve
 
     root, cfg, cfg_path, ckpt = workspace or make_workspace(
@@ -1483,7 +1510,8 @@ def drive_slice(quantized=False, workspace=None):
 
     zero_counts()
     t0 = time.time()
-    build_index.main(common + ["--output", index_path])
+    built = build_index.main(common + ["--output", index_path] + (
+        ["--int8-encode"] if int8_encode else []))
     service, server = serve.build_server(
         common + ["--index-file", index_path, "--port", "0",
                   "--k-buckets", "5,10,100", "--reload-dir", root])
@@ -1510,11 +1538,15 @@ def drive_slice(quantized=False, workspace=None):
             "images_b64": [base64.b64encode(p.tobytes()).decode()
                            for p in pixels], "k": 10})
         images.append((pixels, 10, reply))
-    counts = read_counts(INT8_SERVE_KERNELS if quantized else SERVE_KERNELS)
-    log(f"{'int8 ' if quantized else ''}slice: build_index + serve boot + "
-        f"{len(text)} /search + {len(images)} /search_image in "
+    names = INT8_SERVE_KERNELS if quantized else SERVE_KERNELS
+    if int8_encode:  # the flagship's one-layer bi-GRU: no K3
+        names = tuple(n for n in names if n != "gru_scan_fwd") + TRUNK_KERNELS
+    counts = read_counts(names)
+    log(f"{'int8 ' if quantized else ''}slice"
+        f"{' (gallery int8-encoded)' if int8_encode else ''}: build_index + "
+        f"serve boot + {len(text)} /search + {len(images)} /search_image in "
         f"{time.time() - t0:.1f} s; launches {counts}")
-    return service, server, thread, base, text, images, counts
+    return service, server, thread, base, text, images, counts, built
 
 
 def check_slice(service, text, images, counts):
@@ -1541,9 +1573,12 @@ def check_slice(service, text, images, counts):
         fail(f"{len(text)} /search requests launched {got}, expected {want}")
 
     # a 2-layer text tower in bf16 feeds layer 0's rounded states on: where
-    # kernel and plain version round one of them apart, the query moves
-    tol = DEEP_SLICE_TOL if index.model.textual_model.num_layers > 1 \
-        else SLICE_TOL
+    # kernel and plain version round one of them apart, the query moves;
+    # and K4 rounds the queries to bf16, so where the kernel's query and the
+    # plain one differ in a last bit, one entry's bf16 rounding can flip (a
+    # bf16 ulp of that entry's product)
+    tol = DEEP_SLICE_TOL if (index.model.textual_model.num_layers > 1
+                             or index.quantize) else SLICE_TOL
     worst, swaps = 0.0, 0
     with plain_kernels():
         for ids, lens, k, reply in text:
@@ -1964,6 +1999,442 @@ def profile_int8_vit(visual, tower, x, forward_ms):
         log(f"the int8 ViT-B/16 forward keeps the device busy "
             f"{out['total']:.2f} ms of the {forward_ms:.2f} ms timed")
     return out
+
+
+# -- the flagship's gallery in int8: the int8-dataflow trunk and E1/E2 -------
+
+TRUNK_KERNELS = ("int8_conv_epilogue", "int8_avg_pool")
+TRUNK_BATCH = 128
+# E1 against its plain version, at the flagship's shapes at batch 128
+# (384x128, res5 stride 1): (name, rows, N, input, residual, relu, out)
+E1_CASES = [
+    ("layer1 conv3 + identity", 393216, 256, "int32", "asym", True, "asym"),
+    ("stem conv1", 1572864, 32, "int32", None, True, "sym"),
+    ("layer2 downsample", 98304, 512, "int32", None, False, "sym"),
+    ("layer4 last conv3", 24576, 2048, "int32", "asym", True, "bfloat16"),
+    ("pixel quantize", TRUNK_BATCH * 384 * 128, 3, "float32", None, False,
+     "sym"),
+    ("ragged", 37, 256, "int32", "sym", True, "asym"),
+]
+# E2: the stem's pool, a strided block's conv3 input and identity, a ragged
+E2_CASES = [("stem", (TRUNK_BATCH, 192, 64, 64)),
+            ("layer2 conv3 input", (TRUNK_BATCH, 96, 32, 128)),
+            ("layer2 identity", (TRUNK_BATCH, 96, 32, 256)),
+            ("ragged", (3, 7, 5, 8))]
+# the gallery's int8 embeddings against the float tower's (the JAX
+# package's bar); the interceptor's, as the JAX package's tests hold it
+INTERCEPT_COSINE_BAR = 0.99
+SIMPLE_RN_BN_FORWARDS = 20  # train-mode forwards that settle BatchNorm
+
+
+def e1_inputs(rows, n, kind, res_mode, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "int32":
+        x = torch.randint(-60000, 60000, (rows, n), generator=g,
+                          device="cuda", dtype=torch.int32)
+        s_w = torch.empty(n, device="cuda").uniform_(1e-4, 3e-3, generator=g)
+        b = torch.randn(n, device="cuda", generator=g)
+    else:
+        x = torch.randn(rows, n, device="cuda", generator=g) * 3
+        s_w = b = None
+    res = s_res = None
+    if res_mode:
+        res = torch.randint(-128, 127, (rows, n), generator=g, device="cuda",
+                            dtype=torch.int8)
+        s_res = torch.empty(n, device="cuda").uniform_(0.01, 0.05,
+                                                       generator=g)
+    inv = 1.0 / torch.empty(n, device="cuda").uniform_(0.02, 0.2, generator=g)
+    return x, inv, s_w, b, res, s_res
+
+
+def check_int8_conv():
+    """E1 and E2 against their plain versions, bit for bit, at the
+    flagship's shapes (E1_CASES, E2_CASES), f32 and bf16 epilogues.
+    Returns the largest difference (0.0 when equal)."""
+    import torch
+    from textreid_torch.ops import int8_conv
+
+    t0 = time.time()
+    worst = 0.0
+    for name, rows, n, kind, res_mode, relu, out in E1_CASES:
+        args = e1_inputs(rows, n, kind, res_mode, seed=rows % 97)
+        for ep in (torch.float32, torch.bfloat16):
+            got = int8_conv.int8_conv_epilogue(*args, res_mode=res_mode,
+                                               relu=relu, out=out, ep=ep)
+            want = int8_conv.conv_epilogue_plain(*args, res_mode=res_mode,
+                                                 relu=relu, out=out, ep=ep)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                fail(f"E1 {name} ({ep}): differs from its plain version by "
+                     f"{err}")
+        del args, got, want
+    for name, shape in E2_CASES:
+        g = torch.Generator(device="cuda").manual_seed(len(name))
+        xq = torch.randint(-128, 128, shape, generator=g, device="cuda",
+                           dtype=torch.int8)
+        got = int8_conv.int8_avg_pool(xq)
+        want = int8_conv.avg_pool_int8(xq)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"E2 {name}: differs from its plain version")
+    torch.cuda.empty_cache()
+    log(f"E1 (int8_conv_epilogue) at {len(E1_CASES)} shapes x f32/bf16 and "
+        f"E2 (int8_avg_pool) at {len(E2_CASES)}: equal to their plain "
+        f"versions bit for bit ({time.time() - t0:.1f} s)")
+    return worst
+
+
+def time_int8_conv():
+    """E1 at layer 1's conv3 with its identity and E2 at the stem's pool
+    (batch 128), in turns with their plain versions; beside them
+    ``torch._int_mm``'s product alone at that conv3 (``[393216, 64] @ [64,
+    256]``, a yardstick, not the same function)."""
+    import torch
+    from textreid_torch.ops import int8_conv
+
+    name, rows, n, kind, res_mode, relu, out = E1_CASES[0]
+    args = e1_inputs(rows, n, kind, res_mode, seed=1)
+    kw = dict(res_mode=res_mode, relu=relu, out=out, ep=torch.float32)
+    e1 = interleaved_ms(lambda: int8_conv.int8_conv_epilogue(*args, **kw),
+                        lambda: int8_conv.conv_epilogue_plain(*args, **kw),
+                        20, 5)
+    xq = torch.randint(-128, 128, (rows, 64), device="cuda",
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, 64), device="cuda",
+                      dtype=torch.int8).t()
+    int_mm = cuda_ms(lambda: torch._int_mm(xq, w), 20)
+    del args, xq, w
+    pool_in = torch.randint(-128, 128, E2_CASES[0][1], device="cuda",
+                            dtype=torch.int8)
+    e2 = interleaved_ms(lambda: int8_conv.int8_avg_pool(pool_in),
+                        lambda: int8_conv.avg_pool_int8(pool_in), 20, 5)
+    del pool_in
+    torch.cuda.empty_cache()
+    log(f"time E1 {name} [{rows}, {n}] f32 epilogue: {e1[0]:.4f} ms (plain "
+        f"{e1[1]:.3f}); torch._int_mm's product alone at that conv "
+        f"{int_mm:.4f} ms; E2 stem pool {E2_CASES[0][1]}: {e2[0]:.4f} ms "
+        f"(plain {e2[1]:.3f})")
+    return {"E1": e1, "E2": e2, "int_mm": int_mm}
+
+
+def trunk_launches(visual):
+    """E1 and E2 launches of one int8 trunk forward, from the design: one
+    E1 a convolution plus the pixel quantize; one E2 after the stem and two
+    a strided block (its conv3 input and its identity)."""
+    from textreid_torch.models.int8_tower import STEM_UNITS, trunk_specs
+
+    specs = trunk_specs(visual)
+    e1 = len(STEM_UNITS) + 1 + sum(3 + s.has_downsample for s in specs)
+    e2 = 1 + sum(2 for s in specs if s.stride > 1)
+    return {"int8_conv_epilogue": e1, "int8_avg_pool": e2}
+
+
+@contextmanager
+def plain_trunk_kernels():
+    """The int8 trunk's E1 and E2 through their plain versions (the
+    products are torch._int_mm either way)."""
+    import textreid_torch.models.int8_tower as int8_tower
+    from textreid_torch.ops import int8_conv
+
+    with mock.patch.object(int8_tower, "int8_conv_epilogue",
+                           int8_conv.conv_epilogue_plain), \
+            mock.patch.object(int8_tower, "int8_avg_pool",
+                              int8_conv.avg_pool_int8):
+        yield
+
+
+def settle_batchnorm(model, pixels, forwards, batch=64):
+    """Move the visual tower's BatchNorm running statistics off their init
+    values by train-mode forwards (no gradient) over ``pixels``, as a
+    trained checkpoint's would be: with init statistics (mean 0, var 1) a
+    seeded trunk's eval forward mis-scales every BatchNorm."""
+    import torch
+
+    model.visual_model.train()
+    with torch.no_grad():
+        for i in range(forwards):
+            start = (i * batch) % max(1, len(pixels) - batch + 1)
+            model.encode_image(torch.from_numpy(
+                pixels[start:start + batch]).cuda())
+    model.visual_model.eval()
+
+
+def seeded_settled_checkpoint(cfg, root, forwards):
+    """A seeded full-width checkpoint whose BatchNorm statistics were
+    settled on the synthetic test split under ``root``."""
+    import glob
+
+    import torch
+    from PIL import Image
+    from textreid_torch.data import make_synthetic_dataset
+    from textreid_torch.models import build_model
+    from textreid_torch.utils.weight_convert import save_reference_checkpoint
+
+    data = make_synthetic_dataset(
+        os.path.join(root, "datasets", "cuhkpedes"),
+        num_identities=SPLIT_IDS, images_per_id=SPLIT_IMAGES_PER_ID,
+        image_size=(cfg.INPUT.HEIGHT, cfg.INPUT.WIDTH),
+        vocab_size=cfg.MODEL.GRU.VOCABULARY_SIZE, max_tokens=60,
+        split="test")
+    pixels = np.stack([np.asarray(Image.open(f).convert("RGB")) for f in
+                       sorted(glob.glob(os.path.join(data, "imgs", "*")))])
+    model = build_model(cfg, "cuda")
+    settle_batchnorm(model, pixels, forwards)
+    ckpt = os.path.join(root, "model.pth")
+    save_reference_checkpoint(model.cpu(), ckpt)
+    del model
+    torch.cuda.empty_cache()
+    return ckpt, pixels
+
+
+def drive_int8_flagship():
+    """The flagship at full width served from an int8-encoded gallery:
+    ``build_index --int8-encode`` (the int8-dataflow trunk, calibrated on
+    the first four gallery batches), again with ``--quantize``, ``serve``
+    of each, ``/search`` and ``/search_image``.  Gates: E1 and E2 launched
+    as the design gives a trunk forward; K1 once and K2 (K4 from the
+    quantized index) once a /search; the replies equal to the plain path;
+    the int8 gallery's min cosine to the float tower's >= 0.999; the int8
+    embeddings equal to the same trunk through E1's and E2's plain
+    versions."""
+    import torch
+    from textreid_torch.tools import build_index
+
+    root = os.path.join(WORK, "int8_flagship")
+    cfg, cfg_path = write_config(os.path.join(root, "configs", "cuhkpedes"))
+    t0 = time.time()
+    ckpt, pixels = seeded_settled_checkpoint(cfg, root, 20)
+    workspace = (root, cfg, cfg_path, ckpt)
+    common = ["--root", root, "--config-file", cfg_path, "--checkpoint-file",
+              ckpt, "--device", "cuda"]
+    float_index = build_index.main(common + ["--output", os.path.join(
+        root, "float.idx")])
+    log(f"int8 flagship: workspace, BatchNorm settled by 20 train-mode "
+        f"forwards, float gallery in {time.time() - t0:.1f} s")
+    results = {}
+    for quantized in (False, True):
+        (service, server, thread, base, text, images, counts,
+         built) = drive_slice(quantized=quantized, workspace=workspace,
+                              int8_encode=True)
+        try:
+            check_slice(service, text, images, counts)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        results[quantized] = counts
+        want = trunk_launches(built.model.visual_model)
+        batches = -(-len(built.gallery_meta) // cfg.TEST.IMS_PER_BATCH)
+        for name, n in want.items():
+            if counts[name] != n * batches:
+                fail(f"build_index --int8-encode launched {name} "
+                     f"{counts[name]} times, expected {n} x {batches} "
+                     f"batches")
+    cos = (built.gallery * float_index.gallery).sum(dim=1)
+    if not torch.equal(torch.as_tensor(built.gallery_meta),
+                       torch.as_tensor(float_index.gallery_meta)):
+        fail("the int8 and the float gallery hold other rows")
+    cos_min = cos.min().item()
+    log(f"int8 flagship gallery ({len(cos)} rows) against the float "
+        f"tower's: minimum cosine {cos_min:.5f}, mean {cos.mean().item():.5f}"
+        f" (bar {INT8_COSINE_BAR})")
+    if not cos_min >= INT8_COSINE_BAR:
+        fail("the int8 flagship gallery misses the cosine bar")
+
+    # one trunk forward at batch 128: launches, then the plain versions
+    encode = built._int8_image_encoder
+    x = torch.from_numpy(np.concatenate([pixels] * 2)[:TRUNK_BATCH]).cuda()
+    with torch.inference_mode():
+        got = forward_counts(lambda: encode(x), want,
+                             f"int8 flagship trunk, B={TRUNK_BATCH}")
+        with plain_trunk_kernels():
+            zero_counts()
+            plain = encode(x)
+            if any(read_counts(TRUNK_KERNELS).values()):
+                fail("the plain trunk launched E1 or E2")
+    err = (got - plain).abs().max().item()
+    log(f"int8 flagship embeddings, kernels against plain versions on the "
+        f"card: max difference {err:.3e} (tol {SLICE_TOL:.0e})")
+    if not err <= SLICE_TOL:
+        fail("the int8 trunk disagrees with its plain versions")
+    launches = {name: sum(c.get(name, 0) for c in results.values())
+                for name in set(results[False]) | set(results[True])}
+    return built, launches, cos_min
+
+
+def drive_intercept():
+    """The interceptor at full width: ``build_index --int8-encode`` on the
+    simple head's torchvision ResNet-50 (which the JAX package's routing
+    sends to the interceptor), served; its gallery against the float
+    tower's at cosine >= INTERCEPT_COSINE_BAR."""
+    import torch
+    from textreid_torch.config import get_default_cfg
+    from textreid_torch.tools import build_index, serve
+
+    root = os.path.join(WORK, "intercept")
+    folder = os.path.join(root, "configs", "cuhkpedes")
+    os.makedirs(folder, exist_ok=True)
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(REPO, SIMPLE_RN_YAML))
+    cfg.TEST.IMS_PER_BATCH = 64
+    cfg.DATALOADER.NUM_WORKERS = 4
+    cfg_path = os.path.join(folder, os.path.basename(SIMPLE_RN_YAML))
+    with open(cfg_path, "w") as f:
+        f.write(cfg.dump())
+    t0 = time.time()
+    ckpt, _ = seeded_settled_checkpoint(cfg, root, SIMPLE_RN_BN_FORWARDS)
+    common = ["--root", root, "--config-file", cfg_path, "--checkpoint-file",
+              ckpt, "--device", "cuda"]
+    float_index = build_index.main(common + ["--output", os.path.join(
+        root, "float.idx")])
+    index_path = os.path.join(root, "gallery.idx")
+    built = build_index.main(common + ["--output", index_path,
+                                       "--int8-encode"])
+    if built._int8_image_tower is not None or \
+            built._int8_image_encoder is None:
+        fail("build_index --int8-encode did not take the interceptor for "
+             "the torchvision ResNet-50")
+    cos = (built.gallery * float_index.gallery).sum(dim=1).min().item()
+    service, server = serve.build_server(common + [
+        "--index-file", index_path, "--port", "0", "--reload-dir", root])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        rng = np.random.RandomState(23)
+        seq = cfg.INPUT.MAX_TEXT_LENGTH
+        meta_ids = set(service.index.gallery_meta.tolist())
+        for n in (1, 4):
+            ids = rng.randint(1, cfg.MODEL.GRU.VOCABULARY_SIZE,
+                              (n, seq)).astype(np.int32)
+            reply = post(base + "/search", {
+                "token_ids": ids.tolist(), "lengths": [seq] * n, "k": 10})
+            check_reply(reply, n, 10, meta_ids, f"interceptor /search n={n}")
+        px = rng.randint(0, 255, (1, cfg.INPUT.HEIGHT, cfg.INPUT.WIDTH, 3),
+                         dtype=np.uint8)
+        reply = post(base + "/search_image", {
+            "images_b64": [base64.b64encode(px[0].tobytes()).decode()],
+            "k": 10})
+        check_reply(reply, 1, 10, meta_ids, "interceptor /search_image")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    log(f"interceptor (torchvision ResNet-50, 384x128): build_index "
+        f"--int8-encode + serve + 3 requests in {time.time() - t0:.1f} s; "
+        f"gallery minimum cosine to the float tower {cos:.5f} (bar "
+        f"{INTERCEPT_COSINE_BAR})")
+    if not cos >= INTERCEPT_COSINE_BAR:
+        fail("the interceptor's gallery misses its cosine bar")
+    model = built.model
+    del built, float_index, service
+    torch.cuda.empty_cache()
+    return cos, model
+
+
+def time_int8_flagship(model, rows=3074, batch=TRUNK_BATCH):
+    """Gallery encode img/s of the flagship (bf16) over ``rows`` images at
+    batch 128: the float tower, the int8-dataflow trunk and the
+    interceptor, in turns (float, int8, interceptor, interceptor, int8,
+    float), each after a calibrating / warming build of 4 batches."""
+    import torch
+    from textreid_torch.serving import RetrievalIndex
+
+    rng = np.random.RandomState(29)
+    h, w = model.visual_model.attnpool.spacial_dim
+    pixels = rng.randint(0, 255, (rows, 16 * h, 16 * w, 3), dtype=np.uint8)
+    batches = [pixels[i:i + batch] for i in range(0, rows, batch)]
+    batches[-1] = np.concatenate([batches[-1], batches[-1][-1:].repeat(
+        batch - len(batches[-1]), axis=0)])
+    modes = {"float": False, "int8 dataflow": True,
+             "interceptor": "intercept"}
+    out = {}
+    for kind in ("float", "int8 dataflow", "interceptor", "interceptor",
+                 "int8 dataflow", "float"):
+        idx = RetrievalIndex(model, int8_encode=modes[kind])
+        idx.build_gallery(batches[:4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.build_gallery(batches, valid_rows=rows)
+        torch.cuda.synchronize()
+        out.setdefault(kind, []).append(rows / (time.perf_counter() - t0))
+        if kind == "int8 dataflow":
+            tower = idx._int8_image_tower
+        del idx
+    log(f"time gallery encode, the flagship (CLIP RN50 384x128, bf16), "
+        f"{rows} images at batch {batch} (host copies included; two runs "
+        f"each, in turns): " + ", ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f} img/s" for k, v in out.items()))
+    return out, tower
+
+
+# the int8 trunk's kernel families: E1 and E2 before the library's products
+# and copies
+TRUNK_FAMILIES = (("E1", ("epilogue_kernel",)),
+                  ("E2", ("avg_pool_kernel",)),
+                  ("int8 products", ("gemm", "cutlass", "cublas", "xmma",
+                                     "nvjet", "wgmma", "imma", "igemm")),
+                  ("im2col copies", ("copy", "pad", "elementwise",
+                                     "unrolled")))
+
+
+def profile_int8_trunk(model, tower, batch=TRUNK_BATCH):
+    """Device time of one int8 flagship trunk forward (B=128) by kernel
+    family, and of the whole encoder (trunk, attention pool, head): the
+    attention pool and head are the difference.  Run last, after every
+    host-paced timing."""
+    import torch
+    from textreid_torch.models.int8_tower import int8_trunk_apply
+    from textreid_torch.models.losses import l2_normalize
+    from textreid_torch.models.model import preprocess_pixels
+
+    visual = model.visual_model
+    h, w = visual.attnpool.spacial_dim
+    x = preprocess_pixels(torch.randint(0, 255, (batch, 16 * h, 16 * w, 3),
+                                        device="cuda", dtype=torch.uint8),
+                          None, model.pixel_mean, model.pixel_std)
+
+    def trunk():
+        return int8_trunk_apply(visual, tower, x, out_dtype=model.dtype)
+
+    def encoder():
+        feat = visual.attnpool(trunk().permute(0, 3, 1, 2))
+        return l2_normalize(model.embed_image(feat).float(), dim=1)
+
+    with torch.inference_mode():
+        trunk_ms = cuda_ms(trunk, 5)
+        out = device_profile(trunk, 3, TRUNK_FAMILIES,
+                             f"the int8 flagship trunk forward, B={batch}")
+        whole = device_profile(encoder, 3, (), "the int8 flagship encoder "
+                               "(trunk, attention pool, head)")
+    if out and whole:
+        out["attention pool and head"] = whole["total"] - out["total"]
+        log(f"the int8 flagship trunk keeps the device busy "
+            f"{out['total']:.2f} ms of the {trunk_ms:.2f} ms timed; the "
+            f"attention pool and head add {out['attention pool and head']:.2f}"
+            f" ms")
+    return out, trunk_ms
+
+
+def int8_conv_bounds():
+    """Roofline bound (ms, what binds) of E1 and E2 at their timed shapes:
+    E1 at layer 1's conv3 with its identity, f32 epilogue (the s32
+    accumulator and the int8 residual read, the int8 result written, four
+    per-channel vectors; about 10 f32 operations an element); E2 at the
+    stem's pool (the int8 input read, a quarter written; 4 integer
+    operations an output element, counted at the f32 rate)."""
+    _, rows, n = E1_CASES[0][:3]
+    b, h, w, c = E2_CASES[0][1]
+    return {
+        "int8_conv_epilogue": bound(rows * n * (4 + 1 + 1) + 4 * 4 * n,
+                                    10 * rows * n, "float32"),
+        "int8_avg_pool": bound(b * h * w * c * 5 // 4, b * h * w * c,
+                               "float32"),
+    }
 
 
 # -- phase 4: timings -------------------------------------------------------
@@ -3204,40 +3675,14 @@ def _compare_steps(model_name):
 
 
 def device_profile(fn, calls, families, what):
-    """Device time of ``fn`` by kernel family, from ``torch.profiler`` over
-    ``calls`` calls: {family: ms a call}, with "other", "total" and
-    "launches" (kernels a call).  ``families`` is ((name, keys), ...): the
-    first family whose key a kernel's name holds takes it.  None when the
-    trace holds no device events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of ``fn`` by kernel family
+    (``textreid_torch/utils/profiling.py:device_time_by_family``), logged:
+    {family: ms a call}, with "other", "total" and "launches" (kernels a
+    call).  None when the trace holds no device events."""
+    from textreid_torch.utils.profiling import device_time_by_family
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name, _ in families}
-    out.update({"other": 0.0, "total": 0.0, "launches": 0})
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
-            family = "other"
-        else:
-            family = next((name for name, keys in families
-                           if any(k in evt.name.lower() for k in keys)),
-                          "other")
-            out["launches"] += 1
-        out[family] += us / 1e3 / calls
-        out["total"] += us / 1e3 / calls
-    out["launches"] //= calls
-    if out["total"] == 0.0:
+    out = device_time_by_family(fn, calls, families)
+    if out is None:
         log(f"profile of {what}: the trace holds no device events")
         return None
     log(f"profile of {what} (torch.profiler, device time a call): "
@@ -3594,7 +4039,7 @@ def main():
     k1_bwd_err = check_k1_grad()
     k9_err, k8_err, k7_err = check_k9(), check_k8(), check_k7()
 
-    service, server, thread, base, text, images, counts = drive_slice()
+    service, server, thread, base, text, images, counts, _ = drive_slice()
     try:
         check_slice(service, text, images, counts)
         times = time_kernels()
@@ -3611,7 +4056,7 @@ def main():
     encode_s, pairs_s, text_ms, rank_s = time_eval(workspace)
 
     (service, server, thread, base, text, images,
-     int8_counts) = drive_slice(quantized=True, workspace=workspace)
+     int8_counts, _) = drive_slice(quantized=True, workspace=workspace)
     try:
         check_slice(service, text, images, int8_counts)
         int8_times = time_int8_serving(service, base)
@@ -3635,6 +4080,15 @@ def main():
     vit_forward = to_device(vit_forward, "cpu")  # kept for the profile
     torch.cuda.empty_cache()
 
+    trunk_err = check_int8_conv()
+    trunk_kernel_times = time_int8_conv()
+    flagship8, trunk_counts, trunk_cos = drive_int8_flagship()
+    intercept_cos, _ = drive_intercept()
+    trunk_times, trunk_tower = time_int8_flagship(flagship8.model)
+    flagship8_model = flagship8.model  # kept for the profile
+    del flagship8
+    torch.cuda.empty_cache()
+
     train_launches, train_times = {}, {}
     for model_name in TRAIN_MODELS:
         if model_name == "CLIP RN50 + bi-GRU (flagship)":
@@ -3655,6 +4109,7 @@ def main():
     profile_int8_vit(*to_device(vit_forward, "cuda"),
                      enc_times[("vit", "off")])
     del vit_forward
+    trunk_profile, trunk_ms = profile_int8_trunk(flagship8_model, trunk_tower)
 
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(
         ("jax.", "textreid_tpu")))
@@ -3733,47 +4188,68 @@ def main():
         f"worst error over the allowance "
         + ", ".join(f"{k} D={d} {v:.3f}" for (k, d), v in width_err.items())
         + f" ({card})")
+    log(f"summary, the flagship's gallery in int8 (CLIP RN50 384x128, bf16, "
+        f"batch {TRUNK_BATCH}, 3074 rows, two runs each): "
+        + ", ".join(f"{k} {np.mean(v):.1f} img/s" for k, v in
+                    trunk_times.items())
+        + f"; the int8 trunk forward {trunk_ms:.2f} ms"
+        + ("" if not trunk_profile else " (on the device: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in trunk_profile.items()
+            if k != "launches") + " ms)")
+        + f"; E1 {trunk_kernel_times['E1'][0]:.4f} ms (layer1 conv3 + "
+        f"identity), E2 {trunk_kernel_times['E2'][0]:.4f} ms (stem pool); "
+        f"gallery minimum cosine to the float tower {trunk_cos:.5f} "
+        f"(interceptor, torchvision ResNet-50: {intercept_cos:.5f}) ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
-        f"{int8_counts}; int8 encoders {enc_counts}; "
+        f"{int8_counts}; int8 encoders {enc_counts}; int8 flagship gallery "
+        f"{trunk_counts}; "
         + "; ".join(f"training {name} {launched}"
                     for name, launched in train_launches.items()))
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
-            counts, eval_launches, int8_counts, enc_counts,
+            counts, eval_launches, int8_counts, enc_counts, trunk_counts,
             *train_launches.values()))
 
     bounds = kernel_bounds(k1_times[("steps",)])
+    bounds.update(int8_conv_bounds())
     rows = [  # (entry point, source, replaces, error, (ms, plain ms), library)
-        ("bigru_pooled_fwd", "bigru_resident.cu", "gru_pallas.py:396",
+        ("bigru_pooled_fwd", "bigru_resident.cu", "ops/gru_pallas.py:396",
          k1_err["bfloat16"], times[("K1", 256, "bfloat16")], None),
         # K1's backward replaces the custom VJP's bwd, which differentiates
         # the XLA scan; no single PyTorch call computes it (nn.GRU has
         # biases and another layout)
-        ("bigru_pooled_bwd", "bigru_pooled_bwd.cu", "gru_pallas.py:421",
+        ("bigru_pooled_bwd", "bigru_pooled_bwd.cu", "ops/gru_pallas.py:421",
          k1_bwd_err["bfloat16"], (k1_times[("bwd", "bfloat16")],
                                   k1_times[("bwd plain", "bfloat16")]), None),
-        ("gru_scan_fwd", "gru_scan_resident.cu", "gru_pallas.py:107",
+        ("gru_scan_fwd", "gru_scan_resident.cu", "ops/gru_pallas.py:107",
          k3_err["bfloat16"], times[("K3", 256, "bfloat16")], None),
-        ("topk_similarity_f32", "topk_similarity.cu", "ranking_pallas.py:211",
+        ("topk_similarity_f32", "topk_similarity.cu", "ops/ranking_pallas.py:211",
          k2_err, times[("K2", 3074)], None),
-        ("topk_similarity_int8", "topk_similarity.cu", "ranking_pallas.py:372",
+        ("topk_similarity_int8", "topk_similarity.cu", "ops/ranking_pallas.py:372",
          k4_err, times[("K4", 3074)], None),
         ("fused_attention_fwd", "fused_attention.cu",
-         "attention_pallas.py:429", attn_err[("K5", "bfloat16")],
+         "ops/attention_pallas.py:429", attn_err[("K5", "bfloat16")],
          attn_times[("K5", "bfloat16")], attn_times[("K5", "library")]),
         ("fused_attention_bwd", "fused_attention.cu",
-         "attention_pallas.py:694", attn_err[("K6", "bfloat16")],
+         "ops/attention_pallas.py:694", attn_err[("K6", "bfloat16")],
          attn_times[("K6", "bfloat16")], attn_times[("K6", "library")]),
         # K7-K9: max_abs_err is the largest int8 step (K8, K9) or output
         # difference (K7); no single PyTorch call computes any of the three
-        ("int8_ffn", "int8_mm.cu", "int8_mm_pallas.py:186", k7_err,
+        ("int8_ffn", "int8_mm.cu", "ops/int8_mm_pallas.py:186", k7_err,
          int8_kernel_times[("K7", "CLIP text")], None),
-        ("int8_matmul_requant", "int8_mm_sm90.cu", "int8_mm_pallas.py:100",
+        ("int8_matmul_requant", "int8_mm_sm90.cu", "ops/int8_mm_pallas.py:100",
          k8_err,
          int8_kernel_times[("K8", "ViT-B/16")], None),
-        ("fused_requant", "requant.cu", "quant_pallas.py:102", k9_err,
+        ("fused_requant", "requant.cu", "ops/quant_pallas.py:102", k9_err,
          int8_kernel_times[("K9", "ViT-B/16", "ln")], None),
+        # E1 and E2 replace XLA fusions of the int8 trunk (no Pallas kernel):
+        # int8_trunk_apply's epilogue chains and _avg_pool_int8; no single
+        # PyTorch call computes either
+        ("int8_conv_epilogue", "int8_conv.cu", "models/int8_tower.py:402",
+         trunk_err, trunk_kernel_times["E1"], None),
+        ("int8_avg_pool", "int8_conv.cu", "models/int8_tower.py:142",
+         trunk_err, trunk_kernel_times["E2"], None),
     ]
     for name, *_ in rows:
         if launches(name) < 1:
@@ -3781,7 +4257,7 @@ def main():
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "textreid_torch/csrc/" + source,
-         "replaces": "textreid_tpu/ops/" + replaces,
+         "replaces": "textreid_tpu/" + replaces,
          "launches": launches(name), "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library}

@@ -171,18 +171,25 @@ def test_int8_encode_routes_a_vit_to_the_int8_tower(workspace):
 
 
 def test_the_other_int8_encode_modes_name_their_roadmap_item(workspace):
+    """The other modes are routed as the JAX package routes them (the
+    ROADMAP item that named them is done): ``"intercept"`` takes the
+    interceptor on any tower, ``True`` the int8-dataflow trunk on a
+    ModifiedResNet; an unknown mode is refused."""
     from textreid_torch.models.m_resnet import ModifiedResNet
     from textreid_torch.models.model import TextReIDModel
 
     model = workspace[4]
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        RetrievalIndex(model, int8_encode="intercept")
+    index = RetrievalIndex(model, int8_encode="intercept")
+    assert not index._int8_pending
+    assert index._int8_image_encoder is not None
     conv = TextReIDModel(
         ModifiedResNet(layers=(1, 1, 1, 1), output_dim=16, heads=2,
                        last_stride=1, input_resolution=(64, 32), width=8),
         model.textual_model, feature_size=32)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        RetrievalIndex(conv, int8_encode=True)
+    assert RetrievalIndex(conv, int8_encode=True)._int8_pending
+    assert RetrievalIndex(conv, int8_encode="dataflow")._int8_pending
+    with pytest.raises(ValueError, match="int8_encode must be"):
+        RetrievalIndex(conv, int8_encode="int4")
 
 
 def test_enable_int8_text_rejects_a_bigru(workspace):
@@ -354,3 +361,139 @@ def test_entry_points_default_to_the_card_and_raise_without_one(workspace):
             "--index-file", str(root / "gallery.idx"), "--int8-text-calib",
             str(root / "calib.npz")])
     assert not (root / "never.idx").exists()
+
+
+# -- convolution towers: the int8-dataflow trunk and the interceptor --------
+
+CONV_RES = (64, 32)
+
+
+def _conv_gallery(seed, batches=3, rows=5):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 255, (rows, *CONV_RES, 3), dtype=np.uint8)
+            for _ in range(batches)]
+
+
+def _conv_pair(kind):
+    """(JAX model, state, port model) on the same weights: the flagship's
+    tower shape (a ModifiedResNet, res5 stride 1, BatchNorm statistics
+    settled by train-mode forwards) or the torchvision resnet18, with a
+    small bi-GRU."""
+    from textreid_tpu.models import BiGRUEncoder as JaxBiGRU
+    from textreid_tpu.models import TextReIDModel as JaxModel
+    from textreid_tpu.models.m_resnet import ModifiedResNet as JaxMResNet
+    from textreid_tpu.models.resnet import ResNet as JaxResNet
+    from textreid_torch.models import BiGRUEncoder
+    from textreid_torch.models.m_resnet import ModifiedResNet
+    from textreid_torch.models.model import TextReIDModel
+    from textreid_torch.models.resnet import ResNet
+
+    if kind == "m_resnet":
+        jax_visual = JaxMResNet(layers=(1, 1, 1, 1), output_dim=32, heads=4,
+                                last_stride=1, input_resolution=CONV_RES,
+                                width=16)
+        visual = ModifiedResNet((1, 1, 1, 1), 32, 4, last_stride=1,
+                                input_resolution=CONV_RES, width=16)
+    else:
+        jax_visual, visual = (JaxResNet("basic", (2, 2, 2, 2)),
+                              ResNet("basic", (2, 2, 2, 2)))
+    jax_model = JaxModel(visual=jax_visual, textual=JaxBiGRU(
+        hidden_dim=8, vocab_size=30, embed_size=8), feature_size=16,
+        num_classes=4)
+    ids = jnp.asarray(np.random.RandomState(0).randint(1, 30, (2, 8)),
+                      jnp.int32)
+    variables = jax_model.init(
+        jax.random.PRNGKey(0), jnp.asarray(_conv_gallery(0, 1, 2)[0]), ids,
+        jnp.asarray([8, 4], jnp.int32), method="init_all")
+    stats = variables["batch_stats"]
+    for seed in (1, 2, 3):
+        _, mutated = jax_model.apply(
+            {"params": variables["params"], "batch_stats": stats},
+            jnp.asarray(_conv_gallery(seed, 1, 4)[0]), train=True,
+            erase=None, method="encode_image", mutable=["batch_stats"])
+        stats = mutated["batch_stats"]
+    state = TrainState(step=jnp.zeros((), jnp.int32),
+                       params=variables["params"], batch_stats=stats,
+                       constants={}, opt_state=None)
+    model = TextReIDModel(visual, BiGRUEncoder(hidden_dim=8, vocab_size=30,
+                                               embed_size=8),
+                          feature_size=16, num_classes=4).eval()
+    load_reference_state_dict(model, state_dict_from_jax(
+        {"params": variables["params"], "batch_stats": stats}))
+    return jax_model, state, model
+
+
+def _gru_tokens(n, seed):
+    return _tokens(n, seed, seq=8, vocab=30, min_len=2)
+
+
+@pytest.mark.parametrize("kind,mode", [("m_resnet", True),
+                                       ("resnet18", "intercept")])
+def test_a_conv_tower_ranks_as_the_jax_index(kind, mode):
+    """``int8_encode=True`` on the flagship-shaped tower (the int8-dataflow
+    trunk) and ``"intercept"`` on the resnet18: the same top-k ids as the
+    JAX index on the same weights, except within ties (neighbouring scores
+    closer than twice the score tolerance), image queries too."""
+    from textreid_torch.models.int8_tower import Int8ConvTower
+
+    jax_model, state, model = _conv_pair(kind)
+    batches = _conv_gallery(11)
+    jax_index = JaxRetrievalIndex(jax_model, state, query_batch=4,
+                                  use_pallas=False, int8_encode=mode)
+    jax_index.build_gallery(batches, meta=np.arange(15))
+    index = RetrievalIndex(model, query_batch=4, int8_encode=mode)
+    index.build_gallery(batches, meta=np.arange(15))
+    assert isinstance(index._int8_image_tower, Int8ConvTower) == (
+        kind == "m_resnet")
+    np.testing.assert_allclose(index.gallery.numpy(),
+                               np.asarray(jax_index.gallery), atol=SCORE_TOL)
+    ids, lens = _gru_tokens(6, seed=12)
+    want_s, want_m = jax_index.search(ids, lens, k=5)
+    got_s, got_m = index.search(ids, lens, k=5)
+    np.testing.assert_allclose(got_s, want_s, atol=SCORE_TOL)
+    for row in range(6):
+        if np.abs(np.diff(want_s[row])).min() > 2 * SCORE_TOL:
+            assert got_m[row].tolist() == want_m[row].tolist()
+    pixels = batches[1][:2]
+    want_s, want_m = jax_index.search_by_image(pixels, k=3)
+    got_s, got_m = index.search_by_image(pixels, k=3)
+    np.testing.assert_allclose(got_s, want_s, atol=SCORE_TOL)
+    assert got_m[:, 0].tolist() == want_m[:, 0].tolist() == [5, 6]
+
+
+def test_build_index_int8_encodes_the_flagship_on_the_cpu(tmp_path):
+    """``build_index --int8-encode [--quantize] --device cpu`` on the
+    flagship's yaml (CLIP RN50 at full width, res5 stride 1) at 32x16
+    pixels: the int8-dataflow trunk encodes the gallery, whose rows agree
+    with the float tower's at cosine >= 0.99 on seeded weights."""
+    from textreid_torch.utils.bootstrap import build_eval_model
+
+    root = tmp_path
+    make_synthetic_dataset(str(root / "datasets" / "cuhkpedes"),
+                           num_identities=6, images_per_id=2,
+                           image_size=(32, 16), vocab_size=64, max_tokens=10,
+                           split="test", seed=3)
+    cfg_path = "configs/cuhkpedes/moco_gru_cliprn50_ls_bs128_2048.yaml"
+    opts = ["INPUT.HEIGHT", "32", "INPUT.WIDTH", "16", "TEST.IMS_PER_BATCH",
+            "4", "DATALOADER.NUM_WORKERS", "0", "TPU.ALLOW_RANDOM_VOCAB",
+            "True"]
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_path)
+    cfg.merge_from_list(opts)
+    ckpt = str(root / "model.pth")
+    save_reference_checkpoint(build_model(cfg, "cpu"), ckpt)
+    common = ["--root", str(root), "--config-file", cfg_path,
+              "--checkpoint-file", ckpt, "--device", "cpu"]
+    float_index = build_index.main(common + ["--output",
+                                             str(root / "f.idx")] + opts)
+    for extra in ([], ["--quantize"]):
+        built = build_index.main(common + [
+            "--output", str(root / "g.idx"), "--int8-encode"] + extra + opts)
+        assert type(built._int8_image_tower).__name__ == "Int8ConvTower"
+        assert built.gallery.shape == float_index.gallery.shape == (12, 256)
+        cos = (built.gallery * float_index.gallery).sum(dim=1)
+        assert cos.min() >= 0.99, cos
+        loaded = RetrievalIndex(build_eval_model(cfg, ckpt, "cpu"),
+                                quantize=bool(extra))
+        loaded.load_index(str(root / "g.idx"))
+        assert torch.equal(loaded.gallery, built.gallery)

@@ -921,3 +921,110 @@ def test_int8_wrappers_refuse_bad_inputs_on_the_card(cuda):
         int8_mm.fused_int8_ffn(*site, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="r_row"):
         int8_mm.fused_int8_matmul_requant(*site[:4], site[4][:2], site[5])
+
+
+# -- E1 and E2: the int8 trunk's epilogue and integer pool -------------------
+
+E1_MODES = [  # (input, residual, relu, out): every epilogue of the trunk
+    ("int32", None, True, "sym"), ("int32", None, True, "asym"),
+    ("int32", None, False, "sym"), ("int32", "asym", True, "asym"),
+    ("int32", "sym", True, "asym"), ("int32", "asym", True, "float32"),
+    ("int32", "sym", True, "bfloat16"),
+    ("float32", None, False, "sym"),  # the pixel quantize
+    ("bfloat16", None, False, "asym"),  # the float -> int8 boundary
+]
+
+
+def _e1_args(rows, n, kind, res_mode, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if kind == "int32":
+        x = torch.randint(-60000, 60000, (rows, n), generator=g,
+                          dtype=torch.int32)
+    else:
+        x = (torch.randn(rows, n, generator=g) * 3).to(getattr(torch, kind))
+    vec = lambda lo, hi: torch.empty(n).uniform_(lo, hi, generator=g)  # noqa
+    s_w, b = (vec(1e-4, 3e-3), torch.randn(n, generator=g)) \
+        if kind == "int32" else (None, None)
+    res = torch.randint(-128, 127, (rows, n), generator=g, dtype=torch.int8)
+    s_res, inv = vec(0.01, 0.05), 1.0 / vec(0.02, 0.2)
+    return [None if t is None else t.to(device)
+            for t in (x, inv, s_w, b, res if res_mode else None,
+                      s_res if res_mode else None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ep", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,res_mode,relu,out", E1_MODES)
+@pytest.mark.parametrize("rows,n", [(37, 24), (1000, 256), (37, 3)])
+def test_e1_epilogue_equals_its_plain_version(cuda, rows, n, kind, res_mode,
+                                              relu, out, ep):
+    from textreid_torch.ops import int8_conv
+
+    args = _e1_args(rows, n, kind, res_mode, cuda)
+    before = int8_conv.int8_conv_epilogue.launches
+    got = int8_conv.int8_conv_epilogue(*args, res_mode=res_mode, relu=relu,
+                                       out=out, ep=ep)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_conv_epilogue.launches == before + 1
+    want = int8_conv.conv_epilogue_plain(*args, res_mode=res_mode, relu=relu,
+                                         out=out, ep=ep)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 96, 32, 64), (3, 7, 5, 8)])
+def test_e2_pool_equals_its_plain_version(cuda, shape):
+    from textreid_torch.ops import int8_conv
+
+    xq = torch.randint(-128, 128, shape, dtype=torch.int8,
+                       generator=torch.Generator().manual_seed(1)).to(cuda)
+    got = int8_conv.int8_avg_pool(xq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_conv.avg_pool_int8(xq))
+
+
+@pytest.mark.gpu
+def test_int8_trunk_on_the_card_equals_its_plain_versions(cuda):
+    """The whole trunk (products by torch._int_mm, exact) with E1 and E2
+    against the same trunk through their plain versions."""
+    from unittest import mock
+
+    from textreid_torch.models import int8_tower
+    from textreid_torch.models.m_resnet import ModifiedResNet
+    from textreid_torch.ops import int8_conv
+
+    torch.manual_seed(0)
+    visual = ModifiedResNet((1, 1, 1, 1), 32, 4, last_stride=1,
+                            input_resolution=(64, 32), width=16).to(cuda)
+    visual.eval()
+    x = torch.randn(4, 64, 32, 3, device=cuda) * 0.5
+    amax = int8_tower.calibrate_amax(visual, [x], None, None)
+    tower = int8_tower.prepare_int8_tower(visual, amax)
+    counts = (int8_conv.int8_conv_epilogue.launches,
+              int8_conv.int8_avg_pool.launches)
+    got = int8_tower.int8_trunk_apply(visual, tower, x)
+    torch.cuda.synchronize()
+    assert (int8_conv.int8_conv_epilogue.launches - counts[0],
+            int8_conv.int8_avg_pool.launches - counts[1]) == (19 + 1, 5)
+    with mock.patch.object(int8_tower, "int8_conv_epilogue",
+                           int8_conv.conv_epilogue_plain), \
+            mock.patch.object(int8_tower, "int8_avg_pool",
+                              int8_conv.avg_pool_int8):
+        want = int8_tower.int8_trunk_apply(visual, tower, x)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_e1_e2_refuse_bad_inputs_on_the_card(cuda):
+    from textreid_torch.ops import int8_conv
+
+    acc = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="s_w must be f32"):
+        int8_conv.int8_conv_epilogue(acc, torch.ones(8, device=cuda),
+                                     torch.ones(6, device=cuda),
+                                     torch.ones(6, device=cuda))
+    with pytest.raises(ValueError, match="int32 accumulator"):
+        int8_conv.int8_conv_epilogue(acc, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="C % 4"):
+        int8_conv.int8_avg_pool(torch.zeros(1, 4, 4, 6, dtype=torch.int8,
+                                            device=cuda))

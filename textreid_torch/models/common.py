@@ -15,21 +15,51 @@ uses the unbiased one, ``n / (n - 1)`` larger).
 :func:`running_stats_frozen` holds the running statistics still across a
 forward that replays one already taken: ``TPU.REMAT``'s recompute in the
 backward and the gradient-cache step's second pass.  In train mode the
-output depends on the batch statistics alone, so the replay is exact."""
+output depends on the batch statistics alone, so the replay is exact.
+
+:func:`conv2d` and :func:`dense` read :data:`INT8_CONVS` and
+:data:`INT8_LINEARS`, the context variables that
+``models/quant_tower.py``'s ``int8_convs`` and ``int8_linears`` set: inside
+them a qualifying convolution or dense layer runs as an int8 product with
+dynamic activation and static weight scales (the counterpart of the JAX
+package's flax method interceptors)."""
 
 from __future__ import annotations
 
+import contextvars
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+# the smallest kh kw cout of a convolution that runs in int8 (None: none
+# does), and the smallest out_features of a dense layer that does; set by
+# models/quant_tower.py's context managers
+INT8_CONVS: contextvars.ContextVar = contextvars.ContextVar(
+    "int8_convs", default=None)
+INT8_LINEARS: contextvars.ContextVar = contextvars.ContextVar(
+    "int8_linears", default=None)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear(x, weight, bias)`` with the parameters cast to ``x``'s
+    dtype; inside ``quant_tower.int8_linears`` an int8 product when
+    ``weight`` has at least its ``min_out_features`` rows."""
+    min_out = INT8_LINEARS.get()
+    if min_out is not None and weight.shape[0] >= min_out:
+        from .quant_tower import int8_dense
+
+        return int8_dense(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer(x)`` with the weights cast to ``x``'s dtype."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
+    """``layer(x)`` with the weights cast to ``x``'s dtype (:func:`dense`)."""
+    return dense(x, layer.weight, layer.bias)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -39,7 +69,21 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv(x)`` with the weight (and bias) cast to ``x``'s dtype."""
+    """``conv(x)`` with the weight (and bias) cast to ``x``'s dtype; inside
+    ``quant_tower.int8_convs`` an int8 convolution when ``conv`` has one
+    group, no dilation, explicit padding and ``kh kw cout`` at least the
+    threshold."""
+    threshold = INT8_CONVS.get()
+    if threshold is not None:
+        kh, kw = conv.kernel_size
+        if (conv.groups == 1 and tuple(conv.dilation) == (1, 1)
+                and not isinstance(conv.padding, str)
+                and kh * kw * conv.out_channels >= threshold):
+            from .quant_tower import int8_conv
+
+            y = int8_conv(x, conv.weight, conv.stride, conv.padding)
+            return y if conv.bias is None else (
+                y + conv.bias.to(y.dtype)[:, None, None])
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
                     conv.padding, conv.dilation, conv.groups)

@@ -21,11 +21,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
-from .common import layer_norm, linear
+from .common import conv2d, dense, layer_norm, linear
 
 
 class _Attention(nn.Module):
@@ -62,8 +61,8 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = layer_norm(x, self.ln_1)
-        qkv = F.linear(h, self.attn.in_proj_weight.to(x.dtype),
-                       self.attn.in_proj_bias.to(x.dtype))  # [B, S, 3W]
+        qkv = dense(h, self.attn.in_proj_weight,
+                    self.attn.in_proj_bias)  # [B, S, 3W]
         x = x + linear(attention(qkv.contiguous(), self.heads, self.causal),
                        self.attn.out_proj)
         h = linear(layer_norm(x, self.ln_2), self.mlp.c_fc)
@@ -113,7 +112,7 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        x = F.conv2d(x, self.conv1.weight.to(dtype), stride=self.patch_size)
+        x = conv2d(x, self.conv1)  # stride patch_size, no padding
         x = x.flatten(2).transpose(1, 2)  # [B, gh*gw, W], row-major grid
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)

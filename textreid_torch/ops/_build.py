@@ -93,6 +93,12 @@ SIGNATURES = {
     # the 16-row K7 kernel it replaced, for comparison: the same arguments
     "int8_ffn_rows16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P),
+    # E1: x, in_kind, s_w, b, residual, s_res, res_mode, relu, inv, out,
+    # out_mode, rows, N, bf16_ep, stream
+    "int8_conv_epilogue": (_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                           _I, _I, _P),
+    # E2: x, y, B, H, W, C, stream
+    "int8_avg_pool": (_P, _P, _I, _I, _I, _I, _P),
 }
 
 

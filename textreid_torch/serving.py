@@ -6,10 +6,15 @@ runs the streaming top-k kernels (``ops/ranking.py``) for k <= 64 and a
 materialising ``torch.matmul`` + ``torch.topk`` beyond, as the JAX package
 leaves k > 64 to XLA.  With ``quantize=True`` the gallery is ranked from its
 int8 form (``ops/quant.py``: a quarter of the bytes).  With
-``int8_encode=True`` a ViT tower encodes the gallery (and image queries)
-through its int8-dataflow form (``models/int8_vit.py``), calibrated on the
-first gallery batches; :meth:`RetrievalIndex.enable_int8_text` does the same
-for a text-transformer query tower (``models/int8_text.py``).  The index
+``int8_encode=True`` (or ``"dataflow"``) a CLIP ModifiedResNet tower encodes
+the gallery (and image queries) through its int8-dataflow trunk
+(``models/int8_tower.py``) and a ViT through its int8-dataflow form
+(``models/int8_vit.py``), each calibrated on the first gallery batches; any
+other tower (the torchvision ResNets) with ``True``, and every tower with
+``"intercept"``, through the per-convolution interceptor
+(``models/quant_tower.py``), as the JAX package routes them.
+:meth:`RetrievalIndex.enable_int8_text` does the same for a
+text-transformer query tower (``models/int8_text.py``).  The index
 file format (npz with ``gallery`` and ``meta``, plus ``quant_values`` and
 ``quant_scales`` from a quantized index) is the JAX package's, so an index
 written by either package loads in the other, the JAX package's legacy
@@ -57,26 +62,27 @@ class RetrievalIndex:
                 "Queue A item 9: parallel/mesh.py -> torch.distributed)")
         self.model = model
         # int8_encode: True or "dataflow" runs the int8-dataflow graph of a
-        # ViT tower, calibrated on the first gallery batches
+        # ModifiedResNet or ViT tower, calibrated on the first gallery
+        # batches; "intercept", or True on any other tower, the interceptor
         self._int8_pending = False
         # (encode function, prepared tower) of each int8 encoder, once built
         self._int8_image_encoder = self._int8_image_tower = None
         self._int8_text_encoder = self._int8_text_tower = None
         if int8_encode:
+            from .models.m_resnet import ModifiedResNet
             from .models.vit import VisionTransformer
 
             mode = "dataflow" if int8_encode is True else int8_encode
-            if mode != "dataflow":
-                raise NotImplementedError(
-                    f"int8_encode={int8_encode!r}: the per-conv interceptor "
-                    "is not ported yet (ROADMAP Queue A item 6: "
-                    "models/quant_tower.py)")
-            if not isinstance(model.visual_model, VisionTransformer):
-                raise NotImplementedError(
-                    f"int8 encode of a {type(model.visual_model).__name__} "
-                    "tower is not ported yet (ROADMAP Queue A item 6: "
-                    "models/int8_tower.py for m_resnet*); ViT towers are")
-            self._int8_pending = True  # calibrate in build_gallery
+            if mode not in ("dataflow", "intercept"):
+                raise ValueError(f"int8_encode must be True, 'dataflow' or "
+                                 f"'intercept'; got {int8_encode!r}")
+            if mode == "dataflow" and isinstance(
+                    model.visual_model, (ModifiedResNet, VisionTransformer)):
+                self._int8_pending = True  # calibrate in build_gallery
+            else:
+                from .models.quant_tower import int8_image_encoder
+
+                self._int8_image_encoder = int8_image_encoder(model)
         # rank from the int8 form of the gallery (ops/quant.py)
         self.quantize = quantize
         self._quant_gallery: Optional[QuantizedGallery] = None
@@ -133,17 +139,22 @@ class RetrievalIndex:
             build_int8_text_encoder(self.model, calib_batches)
 
     def _build_int8_encoder(self, batches):
-        """Calibrate the int8-dataflow tower on the first four gallery
-        batches and swap it in as the image encoder; returns an iterable
-        that replays every batch, the calibration ones included."""
-        from .models.int8_vit import build_int8_vit_encoder
+        """Calibrate the int8-dataflow tower (the ViT's or the
+        ModifiedResNet trunk's) on the first four gallery batches and swap
+        it in as the image encoder; returns an iterable that replays every
+        batch, the calibration ones included."""
+        from .models.vit import VisionTransformer
 
         batches = iter(batches)
         calib = list(itertools.islice(batches, 4))
         if not calib:
             raise ValueError("build_gallery needs at least one batch")
-        self._int8_image_encoder, self._int8_image_tower = \
-            build_int8_vit_encoder(self.model, calib)
+        if isinstance(self.model.visual_model, VisionTransformer):
+            from .models.int8_vit import build_int8_vit_encoder as build
+        else:
+            from .models.int8_tower import build_int8_encoder as build
+        self._int8_image_encoder, self._int8_image_tower = build(
+            self.model, calib)
         self._int8_pending = False
         return itertools.chain(calib, batches)
 

@@ -10,9 +10,12 @@ and write an atomic index file that serving replicas load with
       --checkpoint-file model.pth --output gallery.idx [--quantize] \
       [--int8-encode] [--text-calib-out calib.npz] [--device cuda]
 
-``--int8-encode`` encodes the gallery through the int8-dataflow form of a
-ViT tower (``models/int8_vit.py``), calibrated on the first four gallery
-batches.  ``--text-calib-out`` also writes a sample of the dataset's
+``--int8-encode`` encodes the gallery in int8, as the JAX package routes
+it: a CLIP ModifiedResNet (the flagship's m_resnet50) through the
+int8-dataflow trunk (``models/int8_tower.py``) and a ViT through its
+int8-dataflow form (``models/int8_vit.py``), each calibrated on the first
+four gallery batches; any other tower (the torchvision ResNets) through the
+per-convolution interceptor (``models/quant_tower.py``).  ``--text-calib-out`` also writes a sample of the dataset's
 captions for ``tools.serve --int8-text-calib``: replicas boot without the
 dataset, so the calibration sample ships beside the index.
 """
@@ -34,8 +37,11 @@ def parse_args(argv=None):
     parser.add_argument("--output", required=True,
                         help="index file to write (atomic)")
     parser.add_argument("--int8-encode", action="store_true",
-                        help="encode the gallery with the int8-dataflow "
-                        "visual tower (models/int8_vit.py; ViT towers)")
+                        help="encode the gallery in int8: the "
+                        "int8-dataflow trunk for m_resnet towers "
+                        "(models/int8_tower.py), the int8 ViT for ViT "
+                        "towers (models/int8_vit.py), the per-conv "
+                        "interceptor for any other (models/quant_tower.py)")
     parser.add_argument("--text-calib-out", default="",
                         help="also write an npz of dataset captions "
                         "(token_ids, lengths) for serving-side int8 text "

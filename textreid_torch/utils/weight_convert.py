@@ -19,6 +19,9 @@
   configured context length.
 * :func:`int8_tower_from_jax` — a prepared JAX ``Int8ViT`` / ``Int8Text``
   (numpy arrays) -> the port's prepared ``Int8Tower``.
+* :func:`int8_conv_tower_from_jax` — a prepared JAX int8 ModifiedResNet
+  trunk (``models/int8_tower.py``'s ``Int8Tower``) -> the port's
+  ``Int8ConvTower``.
 * :func:`load_reference_state_dict` — a reference ``.pth`` state dict ->
   the port's model, refusing any key it does not know.
 
@@ -354,6 +357,39 @@ def int8_tower_from_jax(units: Mapping, scales: Mapping, consts: Mapping,
         consts={k: f32(a).to(casts.get(k, torch.float32))
                 for k, a in consts.items()},
         dtype=dtype)
+
+
+def int8_conv_tower_from_jax(units: Mapping, scales: Mapping, device="cpu"):
+    """A prepared JAX ``Int8Tower`` of ``models/int8_tower.py`` (its
+    ``units`` and ``scales`` as numpy arrays) -> the port's
+    ``Int8ConvTower`` on ``device``, so that the two ``int8_trunk_apply``
+    run on identical quantized weights.  An HWIO ``w_q`` becomes the
+    product's ``[kh kw ci (+ zero rows to a multiple of 8), co]``; a unit of
+    the bf16 front keeps its kernel as OIHW bf16; ``inv`` is ``1 / scale``
+    in f32."""
+    from ..models.int8_tower import Int8ConvTower
+    from ..ops.int8_conv import flatten_weight
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    out_units = {}
+    for name, u in units.items():
+        if "w_q" in u:
+            w = np.asarray(u["w_q"], np.int8)
+            oihw = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
+            out_units[name] = {"w_q": flatten_weight(oihw.to(device)),
+                               "s_w": f32(u["s_w"]), "b": f32(u["b"]),
+                               "kernel": w.shape[0]}
+        else:
+            w = np.asarray(u["w"], np.float32)
+            out_units[name] = {
+                "w": f32(w.transpose(3, 2, 0, 1)).to(torch.bfloat16),
+                "b": f32(u["b"]), "kernel": w.shape[0]}
+    scales = {s: f32(a) for s, a in scales.items()}
+    return Int8ConvTower(units=out_units, scales=scales,
+                         inv={s: torch.reciprocal(v)
+                              for s, v in scales.items()})
 
 
 def load_reference_state_dict(model: torch.nn.Module, sd: Mapping) -> None:
