@@ -183,6 +183,25 @@ before the result line:
 12. Last, after every host-paced timing, the device time of one int8
     ViT-B/16 forward and of one int8 flagship trunk forward (B=128) by
     kernel family (``torch.profiler``, ``utils/profiling.py``).
+13. Data parallelism (``textreid_torch/parallel/mesh.py``; run after the
+    accum8 timing, before K2's and K4's timings): (a) the flagship f32
+    step on 2 ranks on the one card (two processes, ``python3
+    chip_smoke.py --dp-rank``; gloo, which takes CUDA tensors, since NCCL
+    refuses two ranks on one device), 64 rows each of the 128-row batch,
+    2 steps, against one process on the 128 rows from the same start:
+    losses (STEP_LOSS_RTOL), step 1's gradients and updates (the gates of
+    phase 9), BatchNorm statistics (DP_STATS_RTOL), queues (DP_QUEUE_ATOL)
+    and ids, the two ranks' states equal, K1 forward 2 and backward 1 a
+    rank a step; (b) ``train_net.main`` on the flagship yaml under a
+    one-rank NCCL group (``RANK=0``, ``WORLD_SIZE=1``, a free
+    ``MASTER_PORT``), in turns with the same run outside a group: the bf16
+    step times of both, one checkpoint a run; (c) ``RetrievalIndex(mesh=)``
+    over ``[cuda:0] x 2`` and ``x 4`` at 3,074 rows (4 does not divide
+    it: the augmented pad rows) and 98,304, float and int8, served over
+    HTTP beside the unsharded index: replies equal (DP_SEARCH_TOL, rows
+    equal outside ties), K2 / K4 once a shard a search, ``/search`` p50
+    of each.  ``python3 chip_smoke.py --dp`` runs this phase alone (a
+    development aid, no result line).
 
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -1375,9 +1394,10 @@ def plain_kernels():
     import textreid_torch.serving as serving
     from textreid_torch.ops import gru, ranking
 
-    def plain_scan(xf, xb, w_f, w_b, lengths, pool_mode):
+    def plain_scan(xf, xb, w_f, w_b, lengths, pool_mode, batch_max=None):
         pooled = gru.bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
-        return gru.zero_participation(pooled, lengths, xf.shape[1], pool_mode)
+        return gru.zero_participation(pooled, lengths, xf.shape[1], pool_mode,
+                                      batch_max)
 
     def plain_topk(queries, gallery, k=10, valid_gallery=0):
         return ranking.topk_similarity_plain(queries, gallery, k,
@@ -3497,9 +3517,10 @@ def plain_train_kernels():
     def plain_attention(qkv, heads, causal=False, scale=None):
         return attention.fused_attention_plain(qkv, heads, causal, scale)
 
-    def plain_scan(xf, xb, w_f, w_b, lengths, pool_mode):
+    def plain_scan(xf, xb, w_f, w_b, lengths, pool_mode, batch_max=None):
         pooled = gru.bigru_pooled_scan_plain(xf, xb, w_f, w_b, lengths)
-        return gru.zero_participation(pooled, lengths, xf.shape[1], pool_mode)
+        return gru.zero_participation(pooled, lengths, xf.shape[1], pool_mode,
+                                      batch_max)
 
     with mock.patch.object(vit_model, "attention", plain_attention), \
             mock.patch.object(gru_model, "bigru_pooled_scan", plain_scan):
@@ -3984,6 +4005,568 @@ def time_attention():
     return out
 
 
+# -- phase 13: data parallelism ----------------------------------------------
+
+FLAGSHIP = "CLIP RN50 + bi-GRU (flagship)"
+DP_RANKS = 2
+DP_STEPS = 2
+# BatchNorm running statistics of the 2-rank step against the one-process
+# step, over the tensor's largest |entry|: the ranks' statistics are merged
+# from their parts (Chan's rule) where one process sums all 128 rows at once
+DP_STATS_RTOL = 1e-4
+# the data-parallel steps' errors against one process (losses, queues,
+# step 1's gradients and updates), over those of the one-process steps on
+# the same rows in another order (see compare_dp_steps): rounding is not
+# reproducible, only its size
+DP_NOISE_RATIO = 4.0
+# the queues' entries (L2-normalised f32 keys, ~0.06 at D = 256) after each
+# step: step 1's keys come from the same key parameters through the
+# trunk's 53 BatchNorms, whose statistics the ranks merge from their parts
+# (rounding of ~1e-7 a layer); step 2's also from query parameters one
+# update apart (entries whose gradient is in the noise step +-lr either
+# way); measured on an H100, 2 ranks on one card: step 2 1.46e-5.  Floors
+# of the bound, with the reversed-order yardstick
+DP_QUEUE_ATOL = (1e-5, 1e-4)
+DP_SEARCH_TOL = 1e-6    # sharded replies against unsharded, f32 scores
+DP_GALLERY_ROWS = (3074, 98304)
+DP_SHARDS = (2, 4)
+DP_CARD_STEPS = 5  # steps a run of --dp-cards' torchrun comparison
+
+
+def dp_rank(store, out_path, backend):
+    """One rank of :func:`drive_dp_steps` (``python3 chip_smoke.py
+    --dp-rank STORE OUT BACKEND``, with ``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` set): the f32 flagship state broadcast from rank 0 (on
+    ``cuda:0`` for every rank under gloo, as NCCL refuses two ranks on one
+    card; on ``cuda:LOCAL_RANK`` under NCCL), ``DP_STEPS`` steps on this
+    rank's rows of the 128-row batch, the ranks' states against each
+    other; then rank 0,
+    out of the group, takes the same steps in one process on all 128 rows
+    from the same start, holds the two runs together
+    (:func:`compare_dp_steps`) and writes what it found to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from textreid_torch.parallel import mesh as dp
+
+    dp.init_process_group("cuda:0" if backend == "gloo" else "cuda",
+                          "file://" + store, backend=backend, timeout_s=300)
+    rank, world = dp.rank(), dp.world_size()
+    torch.manual_seed(0)
+    with cudnn_exact():
+        cfg, model, state_of, step, batch = train_setup(FLAGSHIP, "float32")
+        state = state_of(model)
+        dp.replicate_state(state)
+        start = state.state_dict()
+        rows = batch["pids"].shape[0] // world
+        mine = {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+        zero_counts()
+        got = []
+        t0 = time.time()
+        for i in range(DP_STEPS):
+            got.append(dp_record(state, step(state, mine), full=i == 0))
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / DP_STEPS
+        counts = read_counts(TRAIN_KERNELS)
+        # every rank's state against rank 0's, on the card
+        apart = torch.zeros(1, device="cuda")
+        for t in [*state.model.state_dict().values(),
+                  *state.key_model.state_dict().values(), state.v_queue,
+                  state.t_queue, state.id_queue]:
+            ref = t.detach().clone()
+            dist.broadcast(ref, 0)
+            apart = torch.maximum(apart, (t.detach().double() - ref.double())
+                                  .abs().max().float().reshape(1))
+        dist.all_reduce(apart, op=dist.ReduceOp.MAX)
+        all_counts = dp.all_gather_object(counts)
+        pointers = dp.all_gather_object(state.queue_ptr)
+        dp.destroy_process_group()
+        if rank != 0:
+            return
+        del state, model
+        torch.cuda.empty_cache()
+        cfg, model, state_of, step, _ = train_setup(FLAGSHIP, "float32")
+        ref = state_of(model)
+        ref.load_state_dict(start)
+        want = [dp_record(ref, step(ref, batch), full=i == 0)
+                for i in range(DP_STEPS)]
+        want_pointer = ref.queue_ptr
+        # the yardstick: one process again from the same start, on the 128
+        # rows in reverse order (the same function, other sums)
+        ref.load_state_dict(start)
+        flipped = {k: v.flip(0) for k, v in batch.items()}
+        alt = [dp_record(ref, step(ref, flipped), full=i == 0)
+               for i in range(DP_STEPS)]
+    decay = {n: g["weight_decay"] for g in ref.optimizer.param_groups
+             for n, p in ref.model.named_parameters()
+             if any(p is q for q in g["params"])}
+    summary = compare_dp_steps(got, want, alt, start["model"], decay)
+    torch.save({"counts": all_counts, "apart": float(apart),
+                "step_s": step_s, "pointers": pointers,
+                "want_pointer": want_pointer, "summary": summary}, out_path)
+
+
+def dp_record(state, metrics, full):
+    """What :func:`compare_dp_steps` reads of a step, on the CPU: the
+    losses, the BatchNorm statistics and the queues; with ``full`` also the
+    model and its gradients."""
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "queues": {n: getattr(state, n).cpu() for n in
+                      ("v_queue", "t_queue", "id_queue")},
+           "stats": {(which, n): v.detach().cpu()
+                     for which in ("model", "key_model")
+                     for n, v in getattr(state, which).state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))}}
+    if full:
+        out["model"] = {n: p.detach().cpu()
+                        for n, p in state.model.named_parameters()}
+        out["grads"] = {n: p.grad.detach().cpu()
+                        for n, p in state.model.named_parameters()}
+    return out
+
+
+def compare_dp_steps(got, want, alt, start, decay):
+    """The data-parallel steps (``got``) against the one-process steps
+    (``want``), each error bounded by the larger of a floor and
+    DP_NOISE_RATIO times the error of ``alt``, the one-process steps on the
+    rows in reverse order: the ranks compute the trunk's sums in another
+    order too (each rank's rows, its BatchNorm statistics merged), and a
+    deep trunk on batch statistics carries f32 rounding far into its stem's
+    gradient, and from there into the next step.  Every step's losses
+    (floor STEP_LOSS_RTOL) and queues (DP_QUEUE_ATOL), the ids equal; step
+    1's BatchNorm statistics within DP_STATS_RTOL; step 1's gradients and
+    updates by the rules of the f32 comparison (phase 9, floor
+    STEP_UPDATE_RTOL).  Returns the worst errors."""
+    import torch
+
+    def unreversed(queues, steps):
+        """``alt``'s queues with each step's enqueued rows put back in
+        the batch's order (the queue starts empty at row 0)."""
+        out = {}
+        for name, q in queues.items():
+            q = q.clone()
+            for i in range(steps):
+                block = slice(i * 128, (i + 1) * 128)
+                q[block] = q[block].flip(0)
+            out[name] = q
+        return out
+
+    worst = {"loss": 0.0, "alt_loss": 0.0, "stats": [0.0] * len(got),
+             "queue": [0.0] * len(got), "alt_queue": [0.0] * len(got)}
+    for i, (g, w, r) in enumerate(zip(got, want, alt)):
+        for name, b in w["metrics"].items():
+            a = g["metrics"][name]
+            err = abs(a - b) / max(abs(b), 1e-12)
+            yard = abs(r["metrics"][name] - b) / max(abs(b), 1e-12)
+            worst["loss"] = max(worst["loss"], err)
+            worst["alt_loss"] = max(worst["alt_loss"], yard)
+            if not math.isfinite(a) or err > max(STEP_LOSS_RTOL,
+                                                 DP_NOISE_RATIO * yard):
+                fail(f"data-parallel step {i + 1}, {name}: ranks {a:.6f}, "
+                     f"one process {b:.6f} ({err:.3e}; reversed order "
+                     f"{yard:.3e})")
+        for key, v in w["stats"].items():
+            err = ((g["stats"][key] - v).abs().max()
+                   / v.abs().max().clamp_min(1e-30)).item()
+            worst["stats"][i] = max(worst["stats"][i], err)
+            if i == 0 and err > DP_STATS_RTOL:
+                fail(f"data-parallel step 1, {key}: {err:.3e}")
+        r_queues = unreversed(r["queues"], i + 1)
+        for name in ("v_queue", "t_queue"):
+            err = (g["queues"][name] - w["queues"][name]).abs().max().item()
+            yard = (r_queues[name] - w["queues"][name]).abs().max().item()
+            worst["queue"][i] = max(worst["queue"][i], err)
+            worst["alt_queue"][i] = max(worst["alt_queue"][i], yard)
+            if err > max(DP_QUEUE_ATOL[i], DP_NOISE_RATIO * yard):
+                fail(f"data-parallel step {i + 1}, {name}: {err:.3e} "
+                     f"(reversed order {yard:.3e})")
+        for q in (g["queues"], r_queues):
+            if not torch.equal(q["id_queue"], w["queues"]["id_queue"]):
+                fail(f"data-parallel step {i + 1}: id queues differ")
+
+    def step_errors(run):
+        """{tensor: (gradient error, update error)} of ``run``'s step 1
+        against ``want``'s, by phase 9's rules."""
+        w1, out = want[0], {}
+        top = max(v.norm().item() for v in w1["grads"].values())
+        for name, wg in w1["grads"].items():
+            diff = run["grads"][name] - wg
+            grad_err = ((diff.norm() / wg.norm()).item()
+                        if wg.norm().item() >= NOISE_FLOOR * top else 0.0)
+            keep = (wg + decay[name] * start[name]).abs() >= max(
+                NOISE_FLOOR, 2 * diff.abs().max().item())
+            d_w = (w1["model"][name] - start[name])[keep]
+            d_r = (run["model"][name] - start[name])[keep]
+            update_err = ((d_r - d_w).norm() / d_w.norm().clamp_min(1e-30)
+                          ).item() if d_w.numel() else 0.0
+            out[name] = (grad_err, update_err)
+        return out
+
+    dp_err, alt_err = step_errors(got[0]), step_errors(alt[0])
+    ranked = sorted(dp_err, key=lambda n: -dp_err[n][0])
+    log("data-parallel step 1, the tensors farthest from one process "
+        "(gradient error, update error; the reversed-order one-process step "
+        "in brackets): " + "; ".join(
+            f"{n} {dp_err[n][0]:.2e}, {dp_err[n][1]:.2e} "
+            f"[{alt_err[n][0]:.2e}, {alt_err[n][1]:.2e}]" for n in ranked[:8]))
+    bad = []
+    for name, errs in dp_err.items():
+        for what, err, yard in zip(("gradient", "update"), errs,
+                                   alt_err[name]):
+            if not math.isfinite(err) or err > max(STEP_UPDATE_RTOL,
+                                                   DP_NOISE_RATIO * yard):
+                bad.append(f"{what} of {name} {err:.3e} (reversed order "
+                           f"{yard:.3e})")
+    if bad:
+        fail(f"data-parallel step 1: {'; '.join(bad[:8])}")
+    for k, col in (("grad", 0), ("update", 1)):
+        worst[k] = max(v[col] for v in dp_err.values())
+        worst["alt_" + k] = max(v[col] for v in alt_err.values())
+    return worst
+
+
+def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
+    """Part 1 of the phase: the flagship's f32 step on ``ranks`` ranks
+    (gloo: all on the one card; NCCL: one a card), 128 / ``ranks`` rows
+    each, against one process on the same 128 rows; returns the ranks'
+    launches, summed."""
+    import torch
+
+    t0 = time.time()
+    where = ("on the one card (gloo, CUDA tensors)" if backend == "gloo"
+             else f"one a card ({backend})")
+    work = os.path.join(WORK, "dp")
+    os.makedirs(work, exist_ok=True)
+    store, out = os.path.join(work, "store"), os.path.join(work, "steps.pt")
+    for path in (store, out):
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", store, out,
+         backend], cwd=REPO, env={
+             **os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks),
+             "LOCAL_RANK": "0" if backend == "gloo" else str(r)})
+        for r in range(ranks)]
+    deadline = time.time() + 600
+    while any(p.poll() is None for p in procs) and time.time() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"data-parallel step: ranks exited "
+             f"{[p.returncode for p in procs]}")
+    res = torch.load(out, weights_only=False)
+    want_counts = {k: v * DP_STEPS
+                   for k, v in TRAIN_MODELS[FLAGSHIP][1].items()}
+    for rank, counts in enumerate(res["counts"]):
+        if counts != want_counts:
+            fail(f"data-parallel step: rank {rank} launched {counts}, not "
+                 f"{want_counts} ({DP_STEPS} steps)")
+    if res["apart"] != 0.0:
+        fail(f"data-parallel step: the ranks' states differ by "
+             f"{res['apart']:.3e}")
+    if set(res["pointers"]) != {res["want_pointer"]}:
+        fail(f"data-parallel step: queue pointers {res['pointers']}, one "
+             f"process {res['want_pointer']}")
+    w = res["summary"]
+    log(f"data parallel, {ranks} ranks {where}, the flagship f32 at "
+        f"384x128, global batch 128 ({128 // ranks} a rank), "
+        f"{DP_STEPS} steps against one process on the 128 rows: losses "
+        f"within {w['loss']:.3e} (the one-process steps on the rows "
+        f"reversed: {w['alt_loss']:.3e}; rtol {STEP_LOSS_RTOL:.0e}), step-1 "
+        f"gradients within {w['grad']:.3e}, updates within "
+        f"{w['update']:.3e} (the one-process step on the rows reversed: "
+        f"{w['alt_grad']:.3e}, {w['alt_update']:.3e}; bound a tensor the "
+        f"larger of {STEP_UPDATE_RTOL:.0e} and {DP_NOISE_RATIO:g}x its "
+        f"reversed-order error); BatchNorm statistics after each step "
+        f"within {', '.join(f'{v:.3e}' for v in w['stats'])} of the largest "
+        f"(step 1 bound {DP_STATS_RTOL:.0e}); queues after each step within "
+        f"{', '.join(f'{v:.3e}' for v in w['queue'])} (reversed order "
+        f"{', '.join(f'{v:.3e}' for v in w['alt_queue'])}; floors "
+        f"{', '.join(f'{v:.0e}' for v in DP_QUEUE_ATOL)}); the ranks' "
+        f"states equal; launches a rank "
+        f"{res['counts'][0]}; {res['step_s'] * 1e3:.0f} ms a {ranks}-rank "
+        f"f32 step; phase {time.time() - t0:.1f} s "
+        f"({card_line()})")
+    return {k: sum(c[k] for c in res["counts"]) for k in want_counts}
+
+
+def drive_nccl_train_net():
+    """Part 2: ``train_net.main`` on the flagship yaml under a one-rank
+    NCCL group (``RANK=0``, ``WORLD_SIZE=1``, ``MASTER_ADDR`` and a free
+    ``MASTER_PORT``), in turns with the same run outside a group; the bf16
+    step times of both, one checkpoint each.  Returns the group runs'
+    launches and the readings."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from textreid_torch import train_net
+    from textreid_torch.parallel import mesh as dp
+
+    t0 = time.time()
+    data = training_split(128, TRAIN_STEPS)
+    root = os.path.join(WORK, "train_nccl")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "datasets"))
+    os.symlink(data, os.path.join(root, "datasets", "cuhkpedes"))
+    out_dir = os.path.join(root, "output", "cuhkpedes", os.path.splitext(
+        os.path.basename(FLAGSHIP_YAML))[0])
+    argv = ["--root", root, "--config-file",
+            os.path.join(REPO, FLAGSHIP_YAML), "SOLVER.EVALUATE_PERIOD", "0",
+            "SOLVER.NUM_EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
+            "SOLVER.LOG_PERIOD", "1", "TPU.ALLOW_RANDOM_VOCAB", "True",
+            "DATALOADER.NUM_WORKERS", "8"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    group_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    readings, launched, backends = {"group": [], "plain": []}, {}, []
+    init = dp.init_process_group
+
+    def watched_init(*args, **kwargs):
+        device = init(*args, **kwargs)
+        backends.append((dist.get_backend(), dist.get_world_size(), device))
+        return device
+
+    want = {k: v * TRAIN_STEPS for k, v in TRAIN_MODELS[FLAGSHIP][1].items()}
+    for turn in ("group", "plain", "group", "plain"):
+        env = group_env if turn == "group" else {}
+        saved = {k: os.environ.pop(k, None) for k in group_env}
+        os.environ.update(env)
+        try:
+            zero_counts()
+            with mock.patch.object(dp, "init_process_group", watched_init):
+                state, meters = train_net.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        counts = read_counts(TRAIN_KERNELS)
+        if counts != want or state.step != TRAIN_STEPS:
+            fail(f"train_net ({turn}): {state.step} steps, launches {counts}")
+        if dist.is_initialized():
+            fail("train_net left its process group standing")
+        files = sorted(f for f in os.listdir(out_dir) if f != "log.txt")
+        if files != ["epoch_1.pth"]:
+            fail(f"train_net ({turn}) wrote {files}, not one checkpoint")
+        # a step's time without its wait on the loader
+        readings[turn] += [(t - d) * 1e3 for t, d in zip(
+            list(meters.time.deque)[1:], list(meters.data.deque)[1:])]
+        launched = counts
+        shutil.rmtree(os.path.join(root, "output"))
+        del state, meters
+        torch.cuda.empty_cache()
+    if [b[:2] for b in backends] != [("nccl", 1)] * 2:
+        fail(f"train_net under the group environment formed {backends}")
+    log(f"data parallel, train_net on the flagship yaml (bf16, batch 128, "
+        f"{TRAIN_STEPS} steps a run) under a one-rank NCCL group on "
+        f"{backends[0][2]}, in turns with the same run outside a group: "
+        f"step ms without the wait on the loader (after the first) in the "
+        f"group "
+        f"{', '.join(f'{v:.2f}' for v in readings['group'])}, outside "
+        f"{', '.join(f'{v:.2f}' for v in readings['plain'])}; median "
+        f"{np.median(readings['group']):.2f} against "
+        f"{np.median(readings['plain']):.2f} ms; one checkpoint a run; "
+        f"phase {time.time() - t0:.1f} s ({card_line()})")
+    return launched, readings
+
+
+def drive_sharded_gallery():
+    """Part 3: ``RetrievalIndex(mesh=)`` over ``[cuda:0] x 2`` and ``x 4``
+    at 3,074 rows (4 does not divide it: the augmented pad rows) and
+    98,304, float and int8, served over HTTP beside the unsharded index:
+    the replies equal (scores within DP_SEARCH_TOL, rows equal outside
+    ties), K2 / K4 once a shard a search, and /search p50 of each.
+    Returns the launches and the p50s."""
+    import torch
+    from textreid_torch.config import flagship_cfg
+    from textreid_torch.parallel import make_mesh
+    from textreid_torch.server import RetrievalService, make_server
+    from textreid_torch.serving import RetrievalIndex
+    from textreid_torch.utils.bootstrap import build_eval_model
+
+    t0 = time.time()
+    work = os.path.join(WORK, "dp")
+    os.makedirs(work, exist_ok=True)
+    files = {}
+    for rows in DP_GALLERY_ROWS:
+        files[rows] = f"unit_{rows}.idx"
+        write_unit_index(os.path.join(work, files[rows]), rows)
+    cfg = flagship_cfg("")
+    cfg.TPU.ALLOW_RANDOM_VOCAB = True
+    model = build_eval_model(cfg, "", "cuda", torch.bfloat16)
+    rng = np.random.RandomState(21)
+    queries = []
+    for n, k in ((1, 10), (3, 5), (16, 10), (1, 64)):
+        lens = rng.randint(1, 106, n).astype(np.int32)
+        ids = np.zeros((n, 105), np.int32)
+        for i, ln in enumerate(lens):
+            ids[i, :ln] = rng.randint(1, 512, ln)
+        queries.append({"token_ids": ids.tolist(), "lengths": lens.tolist(),
+                        "k": k})
+    replies, p50, launched = {}, {}, {}
+    cuda0 = torch.device("cuda", 0)
+    for quantize in (False, True):
+        kernel = "topk_similarity_int8" if quantize else "topk_similarity_f32"
+        for shards in (None,) + DP_SHARDS:
+            mesh = (None if shards is None
+                    else make_mesh(shards, devices=[cuda0] * shards))
+            service = RetrievalService(RetrievalIndex(model, mesh=mesh,
+                                                      quantize=quantize),
+                                       max_text_length=105, reload_dir=work,
+                                       k_buckets=(5, 10, 64))
+            server = make_server(service, port=0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            try:
+                for rows in DP_GALLERY_ROWS:
+                    key = (quantize, shards, rows)
+                    p50[key] = search_latency(service, base, files[rows],
+                                              rows)
+                    zero_counts()
+                    replies[key] = [post(base + "/search", q)
+                                    for q in queries]
+                    counts = read_counts((kernel, "bigru_pooled_fwd"))
+                    want = {kernel: len(queries) * (shards or 1),
+                            "bigru_pooled_fwd": len(queries)}
+                    if counts != want:
+                        fail(f"sharded gallery {key}: launches {counts}, "
+                             f"not {want}")
+                    if shards is not None:
+                        for name, n in counts.items():
+                            launched[name] = launched.get(name, 0) + n
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=30)
+    worst, ties = 0.0, 0
+    for (quantize, shards, rows), got in replies.items():
+        if shards is None:
+            continue
+        for a, b in zip(got, replies[(quantize, None, rows)]):
+            sa, sb = np.asarray(a["scores"]), np.asarray(b["scores"])
+            ma, mb = np.asarray(a["meta"]), np.asarray(b["meta"])
+            if sa.shape != sb.shape or not np.isfinite(sa).all():
+                fail(f"sharded gallery {quantize, shards, rows}: scores "
+                     f"{sa.shape}, unsharded {sb.shape}")
+            worst = max(worst, float(np.abs(sa - sb).max()))
+            for r, c in zip(*np.nonzero(ma != mb)):
+                # a swap within a tie: the unsharded score of the sharded
+                # reply's row equals its score there
+                row = np.nonzero(mb[r] == ma[r, c])[0]
+                if row.size == 0 or abs(sb[r, row[0]] - sa[r, c]) > \
+                        DP_SEARCH_TOL:
+                    fail(f"sharded gallery {quantize, shards, rows}: query "
+                         f"{r} slot {c} row {ma[r, c]} against {mb[r, c]}")
+                ties += 1
+    if worst > DP_SEARCH_TOL:
+        fail(f"sharded gallery: scores differ from the unsharded index's by "
+             f"{worst:.3e}")
+    log(f"data parallel, sharded gallery (RetrievalIndex(mesh=) over "
+        f"cuda:0 x 2 and x 4, 256-d unit rows, the flagship's text tower): "
+        f"replies equal to the unsharded index's (scores within "
+        f"{worst:.2e}, {ties} slots swapped within a tie); K2 / K4 once a "
+        f"shard a search; /search p50 (1 query, k=10) " + "; ".join(
+            f"{'int8' if q else 'float'} {rows} rows: unsharded "
+            f"{p50[(q, None, rows)]:.3f} ms, 2 shards "
+            f"{p50[(q, 2, rows)]:.3f}, 4 shards {p50[(q, 4, rows)]:.3f}"
+            for q in (False, True) for rows in DP_GALLERY_ROWS)
+        + f"; phase {time.time() - t0:.1f} s ({card_line()})")
+    del model
+    torch.cuda.empty_cache()
+    return launched, p50
+
+
+def drive_dp_cards():
+    """A development aid, ``python3 chip_smoke.py --dp-cards`` on a machine
+    with two cards or more (prints no result line): (a) the flagship's f32
+    step on every card, one NCCL rank a card, against one process on the
+    same 128 rows (:func:`drive_dp_steps`' gates); (b) ``torchrun
+    --standalone --nproc-per-node N -m textreid_torch.train_net`` on the
+    flagship yaml at 128 rows a rank (global batch 128 N), DP_CARD_STEPS
+    steps a run, in turns with one process at 128 rows on one card: the
+    bf16 step's ms without the wait on the loader (from ``log.txt``) and
+    the images a second."""
+    import re
+    import shutil
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--dp-cards needs two cards or more, found {n}")
+    drive_dp_steps(n, "nccl")
+    t0 = time.time()
+    data = training_split(128 * n, DP_CARD_STEPS)
+    step = re.compile(r"epoch \[1\]\[(\d+)/\d+\].*time: ([\d.]+) \([\d.]+\)"
+                      r"\s+data: ([\d.]+)")
+    readings = {n: [], 1: []}
+    for ranks in (n, 1, n, 1):
+        root = os.path.join(WORK, f"train_cards{ranks}")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(os.path.join(root, "datasets"))
+        os.symlink(data, os.path.join(root, "datasets", "cuhkpedes"))
+        argv = ["-m", "textreid_torch.train_net", "--root", root,
+                "--config-file", os.path.join(REPO, FLAGSHIP_YAML),
+                "SOLVER.IMS_PER_BATCH", str(128 * ranks),
+                "SOLVER.EVALUATE_PERIOD", "0", "SOLVER.NUM_EPOCHS", "1",
+                "SOLVER.CHECKPOINT_PERIOD", "0", "SOLVER.LOG_PERIOD", "1",
+                "TPU.ALLOW_RANDOM_VOCAB", "True",
+                "DATALOADER.NUM_WORKERS", "8"]
+        if ranks > 1:
+            argv = ["-m", "torch.distributed.run", "--standalone",
+                    "--nproc-per-node", str(ranks)] + argv
+        out = subprocess.run([sys.executable] + argv, cwd=REPO,
+                             capture_output=True, text=True, timeout=900)
+        log_path = os.path.join(root, "output", "cuhkpedes", os.path.splitext(
+            os.path.basename(FLAGSHIP_YAML))[0], "log.txt")
+        if out.returncode != 0 or not os.path.isfile(log_path):
+            log(out.stdout[-5000:])
+            log(out.stderr[-30000:])
+            fail(f"train_net on {ranks} card(s): rc {out.returncode}")
+        with open(log_path) as f:
+            text = f.read()
+        if ranks > 1 and f"Data parallel over {ranks} ranks" not in text:
+            fail(f"train_net under torchrun did not train on {ranks} ranks")
+        found = [(int(i), float(t), float(d))
+                 for i, t, d in step.findall(text)]
+        # the first two steps of a run warm up (cuDNN's and the kernels'
+        # first calls at their shapes): 1.2-2.0 s on the card
+        readings[ranks] += [(t - d) * 1e3 for i, t, d in found if i > 1]
+    for ranks, ms in readings.items():
+        log(f"data parallel across cards, train_net on the flagship yaml "
+            f"(bf16, 128 rows a rank, {ranks} card(s)): step ms without the "
+            f"wait on the loader (after the first two) "
+            f"{', '.join(f'{v:.2f}' for v in ms)}; median "
+            f"{np.median(ms):.2f} ms, {128 * ranks / np.median(ms) * 1e3:.0f} "
+            f"images a second")
+    log(f"data parallel across cards: {n} cards at 128 rows each "
+        f"{128 * n / np.median(readings[n]) * 1e3:.0f} images a second "
+        f"against one card's {128 / np.median(readings[1]) * 1e3:.0f} "
+        f"({np.median(readings[1]) / np.median(readings[n]) * n:.2f}x); "
+        f"phase {time.time() - t0:.1f} s ({card_line()})")
+
+
+def drive_data_parallel():
+    """Phase 13 (see the module's docstring): the three parts; returns
+    their launches, each part's apart, and the /search and step readings."""
+    steps = drive_dp_steps()
+    nccl, step_ms = drive_nccl_train_net()
+    gallery, p50 = drive_sharded_gallery()
+    return {"dp steps": steps, "train_net nccl": nccl,
+            "sharded gallery": gallery}, step_ms, p50
+
+
 def main():
     import torch
 
@@ -3996,6 +4579,11 @@ def main():
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
 
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # a rank of phase 13's 2-rank step, started by drive_dp_steps
+        _build.library()
+        dp_rank(*sys.argv[2:5])
+        return
     card = card_line()
     require_cuda("cuda")
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4022,6 +4610,16 @@ def main():
         check_k1(), check_k3(), check_k1_grad()
         time_kernels()
         time_k1_backward()
+        return
+    if sys.argv[1:] == ["--dp-cards"]:
+        # a development aid: data parallelism across the machine's cards
+        # (NCCL), prints no result line
+        drive_dp_cards()
+        return
+    if sys.argv[1:] == ["--dp"]:
+        # a development aid: phase 13 alone (about 90 s); prints no result
+        # line
+        drive_data_parallel()
         return
     if sys.argv[1:] == ["--attention-kernels"]:
         # a development aid: K5 and K6 against their plain versions and
@@ -4103,6 +4701,7 @@ def main():
         train_times[model_name] = time_training(model_name)
     vit_train, rn_train = (train_times[name] for name in TIMED_MODELS)
     accum = time_accum8()
+    dp_launches, dp_step_ms, dp_p50 = drive_data_parallel()
     k1_times = time_k1_backward()
     attn_times = time_attention()
     topk_times = time_topk()  # after every host-paced timing, as the profile
@@ -4200,16 +4799,29 @@ def main():
         f"identity), E2 {trunk_kernel_times['E2'][0]:.4f} ms (stem pool); "
         f"gallery minimum cosine to the float tower {trunk_cos:.5f} "
         f"(interceptor, torchvision ResNet-50: {intercept_cos:.5f}) ({card})")
+    log("summary, data parallel: train_net on the flagship yaml, bf16 step "
+        f"under a one-rank NCCL group median "
+        f"{np.median(dp_step_ms['group']):.2f} ms, outside a group "
+        f"{np.median(dp_step_ms['plain']):.2f} ms (in turns); /search p50 "
+        "(1 query, k=10), unsharded / 2 shards / 4 shards on the one card: "
+        + "; ".join(
+            f"{'int8' if q else 'float'} {rows} rows "
+            + " / ".join(f"{dp_p50[(q, n, rows)]:.3f}"
+                         for n in (None,) + DP_SHARDS) + " ms"
+            for q in (False, True) for rows in DP_GALLERY_ROWS)
+        + f" ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; int8 flagship gallery "
         f"{trunk_counts}; "
         + "; ".join(f"training {name} {launched}"
-                    for name, launched in train_launches.items()))
+                    for name, launched in train_launches.items())
+        + "; " + "; ".join(f"data parallel, {name} {launched}"
+                           for name, launched in dp_launches.items()))
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
             counts, eval_launches, int8_counts, enc_counts, trunk_counts,
-            *train_launches.values()))
+            *train_launches.values(), *dp_launches.values()))
 
     bounds = kernel_bounds(k1_times[("steps",)])
     bounds.update(int8_conv_bounds())

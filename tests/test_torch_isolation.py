@@ -42,7 +42,7 @@ def test_port_never_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 59, names\n"
         "for name in ('train_net', 'test_net', 'server', 'engine.steps',\n"
         "             'engine.trainer', 'engine.inference', 'solver.build',\n"
         "             'models.vit', 'ops.attention', 'ops.quant',\n"
@@ -52,7 +52,8 @@ def test_port_never_imports_jax():
         "             'data.loader', 'data.datasets', 'engine.grad_cache',\n"
         "             'models.resnet', 'models.int8_tower',\n"
         "             'models.quant_tower', 'ops.int8_conv',\n"
-        "             'utils.profiling'):\n"
+        "             'utils.profiling', 'parallel', 'parallel.mesh',\n"
+        "             'evaluation.retrieval'):\n"
         "    assert 'textreid_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m == 'textreid_tpu' or m.startswith(\n"
@@ -64,7 +65,7 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 56
+    assert int(out.stdout.strip()) >= 59
 
 
 def test_no_source_line_imports_the_jax_package():

@@ -206,13 +206,20 @@ def test_http_round_trip(indexes):
 
 
 def test_unported_options_raise(indexes):
-    """A gallery sharded over devices is still to port (ROADMAP Queue A item
-    9); the int8 encoders of this ModifiedResNet tower are ported: the
+    """A gallery sharded over devices is ported (``mesh=``, see
+    ``tests/test_torch_retrieval.py``); a mesh with a tensor-parallel model
+    axis is still to port (ROADMAP Queue A item 11) and raises as it is
+    made.  The int8 encoders of this ModifiedResNet tower are ported: the
     int8-dataflow trunk (``True``, ``"dataflow"``), calibrated when the
     gallery is built, and the interceptor (``"intercept"``)."""
+    from textreid_torch.parallel import make_mesh
+
     _, port_index = indexes
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        RetrievalIndex(port_index.model, mesh=object())
+    cpus = [torch.device("cpu")] * 4
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
+        RetrievalIndex(port_index.model, mesh=make_mesh(2, 2, devices=cpus))
+    sharded = RetrievalIndex(port_index.model, mesh=make_mesh(2, devices=cpus))
+    assert sharded.mesh.shape["data"] == 2
     for kwargs in ({"int8_encode": True},
                    {"quantize": True, "int8_encode": "dataflow"}):
         assert RetrievalIndex(port_index.model, **kwargs)._int8_pending

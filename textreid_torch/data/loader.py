@@ -21,6 +21,7 @@ numpy on the host; callers move batches to the device):
 
 from __future__ import annotations
 
+import copy
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
@@ -85,6 +86,15 @@ class DataLoader:
         self._epoch = 0
         self._seed = seed
         self.process_shard = process_shard
+        self._batch_shard = None  # (rank, world): see batch_shard
+
+    def batch_shard(self, rank: int, world: int) -> "DataLoader":
+        """A copy that yields batches ``rank, rank + world, ...`` of this
+        loader's, whole: each process's share of an evaluation under data
+        parallelism (its rows say which samples they are: ``index``)."""
+        out = copy.copy(self)
+        out._batch_shard = (rank, world)
+        return out
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -103,6 +113,9 @@ class DataLoader:
         batches = [order[i : i + bs].tolist() for i in range(0, n, bs)]
         if self.drop_last and batches and len(batches[-1]) < bs:
             batches.pop()
+        if self._batch_shard is not None:
+            rank, world = self._batch_shard
+            batches = batches[rank::world]
         return batches
 
     def __len__(self) -> int:

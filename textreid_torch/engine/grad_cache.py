@@ -30,6 +30,17 @@ bit for bit (``ops/gru.py:_BigruPooled``); ``chip_smoke.py`` measures the
 embeddings' largest difference and gates it.  BatchNorm towers normalise
 each microbatch with its own statistics, so only LayerNorm towers compute
 the single-pass step's objective (the JAX package's documented delta).
+
+Data parallelism (``parallel/mesh.py``), as JAX composes the two: each
+rank splits its own rows into the M microbatches, and the global
+microbatch i is every rank's microbatch i (BatchNorm on their joint
+statistics).  The keys, ids and pass-1 embeddings are gathered a
+microbatch at a time, so the global batch the loss sees is microbatch-major
+(microbatch 0 of rank 0, of rank 1, ..., then microbatch 1); each rank
+replays its own microbatches against its rows of the cached gradients,
+scaled by the world size as the gather's backward would sum them, and
+the gradients are averaged in ``finish_step``.  The result is the
+one-process step on the global batch in that order.
 """
 
 from __future__ import annotations
@@ -39,11 +50,13 @@ from typing import Callable, List, Optional
 import torch
 
 from ..models.common import running_stats_frozen
+from ..parallel.mesh import gather_columns, gather_ids, rank, world_size
 from .state import TrainState
 from .steps import (
     MOCO_TEMPERATURE,
     enqueue,
     finish_step,
+    gather_keys,
     moco_ema,
     moco_key_forward,
     moco_loss_tail,
@@ -71,11 +84,12 @@ def cached_grads(model, micros: List[dict], remat: bool,
     (the full batch's loss dict) land in the parameters' ``.grad``;
     returns the loss dict."""
     with torch.no_grad():
-        outs = [query_forward(model, m, use_fc, remat) for m in micros]
+        outs = [gather_columns(query_forward(model, m, use_fc, remat),
+                               grad=False) for m in micros]
     embeds = tuple(torch.cat(o).requires_grad_(True) for o in zip(*outs))
     loss_dict = tail_fn(embeds, model.projection.float())
     sum(loss_dict.values()).backward()
-    cts = [e.grad.chunk(len(micros)) for e in embeds]
+    cts = [own_rows(e.grad, len(micros)) for e in embeds]
     with running_stats_frozen(model):
         for i, micro in enumerate(micros):
             replay = query_forward(model, micro, use_fc, remat)
@@ -84,6 +98,17 @@ def cached_grads(model, micros: List[dict], remat: bool,
             torch.autograd.backward([p[0] for p in pairs],
                                     [p[1] for p in pairs])
     return loss_dict
+
+
+def own_rows(grad: torch.Tensor, n_micro: int) -> list:
+    """This rank's rows of each microbatch of a microbatch-major global
+    ``grad``, times the world size (the sum the gather's backward would
+    form over the ranks' identical losses); ``grad``'s chunks with one
+    rank."""
+    chunks, world = grad.chunk(n_micro), world_size()
+    if world == 1:
+        return chunks
+    return [c.chunk(world)[rank()] * world for c in chunks]
 
 
 def make_grad_cache_step(cfg, n_micro: int):
@@ -97,7 +122,7 @@ def make_grad_cache_step(cfg, n_micro: int):
 
     def simple_step(state: TrainState, batch) -> dict:
         micros = split_micro(batch, n_micro)
-        labels = batch["pids"].long()
+        labels = torch.cat([gather_ids(m["pids"].long()) for m in micros])
 
         def tail_fn(embeds, projection):
             return simple_loss_tail(projection, *embeds, labels, epsilon)
@@ -109,12 +134,11 @@ def make_grad_cache_step(cfg, n_micro: int):
 
     def moco_step(state: TrainState, batch) -> dict:
         micros = split_micro(batch, n_micro)
-        ids = batch["pids"].long()
         moco_ema(state, momentum)
-        keys = [moco_key_forward(state.model, state.key_model, use_fc, m)
+        keys = [gather_keys(*moco_key_forward(state.model, state.key_model,
+                                              use_fc, m), m["pids"].long())
                 for m in micros]
-        v_k = torch.cat([k[0] for k in keys])
-        t_k = torch.cat([k[1] for k in keys])
+        v_k, t_k, ids = (torch.cat(k) for k in zip(*keys))
 
         def tail_fn(embeds, projection):
             return moco_loss_tail(projection, *embeds, v_k, t_k, ids,

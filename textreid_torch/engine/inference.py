@@ -4,7 +4,10 @@ embeddings ordered by dataset index, and hand them to the ranking
 evaluator.  Eval batches have a fixed shape (the loader pads the last one
 and marks the real rows in ``valid``); the similarity, CMC, mAP and
 re-ranking math runs on the model's device (``evaluation/metrics.py``).
-Sharding over devices is not ported (ROADMAP Queue A item 9).
+In a data-parallel group (``parallel/mesh.py``) each rank encodes every
+world-th eval batch (``DataLoader.batch_shard``) and the ranks' embeddings
+are gathered and put in dataset order, so every rank scores the one-process
+embeddings; rank 0 alone writes the cache.
 """
 
 from __future__ import annotations
@@ -17,15 +20,19 @@ import numpy as np
 import torch
 
 from ..evaluation.metrics import evaluation, format_results_table, rank_grid
+from ..parallel.mesh import all_gather_object, is_distributed, rank, world_size
 from .steps import encode_step
 
 
 def compute_embeddings(model, data_loader) -> dict:
-    """Encode the whole loader on the model's device; per-sample numpy
+    """Encode the whole loader on the model's device (in a group, this
+    rank's share of it, then every rank's gathered); per-sample numpy
     arrays ordered by dataset index."""
     device = next(model.parameters()).device
     chunks = {k: [] for k in ("v_embed", "t_embed", "index", "pids",
                               "image_ids")}
+    if is_distributed():
+        data_loader = data_loader.batch_shard(rank(), world_size())
     for batch in data_loader:
         valid = np.asarray(batch["valid"], bool)
         v, t = encode_step(model, {
@@ -35,6 +42,8 @@ def compute_embeddings(model, data_loader) -> dict:
         chunks["t_embed"].append(t.float().cpu().numpy()[valid])
         for k in ("index", "pids", "image_ids"):
             chunks[k].append(np.asarray(batch[k])[valid])
+    chunks = {k: [c for part in all_gather_object(chunks) for c in part[k]]
+              for k in chunks}
     order = np.argsort(np.concatenate(chunks.pop("index")))
     return {k: np.concatenate(v)[order] for k, v in chunks.items()}
 
@@ -75,7 +84,7 @@ def inference(model, data_loader, dataset_name: str = "cuhkpedes-test",
     results = evaluation(embeds["v_embed"], embeds["t_embed"], embeds["pids"],
                          embeds["pids"], embeds["image_ids"], topk=topk,
                          rerank=rerank, device=device)
-    if cache and save_data and not os.path.exists(cache):
+    if cache and save_data and rank() == 0 and not os.path.exists(cache):
         # dual-format cache: the embeddings (replayable here and by the JAX
         # package) plus the reference's {image_pid, text_pid, similarity[,
         # rvn_mat, rtn_mat]} (replayable by the torch code's --load-result)

@@ -31,6 +31,19 @@ autocast: the kernels K1, K5 and K6 get contiguous tensors of the one
 dtype they check.  Unlike the JAX package, whose bi-GRU is built without a
 dtype and so runs in f32, the port's text tower runs in the compute dtype
 too.  Embeddings are cast to f32 before the losses, as in JAX.
+
+Data parallelism (``parallel/mesh.py``): each rank runs its rows of the
+global batch (rank r holds rows ``r * ls ... (r + 1) * ls``) through the
+towers, with BatchNorm on the global batch's statistics; the query
+embeddings are gathered with their gradient and the keys and ids without
+it, so that every rank computes the losses of the global batch, the
+same-identity queue mask over the global ids, and enqueues the global keys
+in global batch order; the bi-GRU's "batch" pool rule reads the global
+batch's longest caption (``models/gru.py``).  The gradients are averaged
+over the ranks before
+the optimizer step (:func:`finish_step`).  Every rank's state stays the
+single-process step's on the global batch; with one rank no collective is
+issued.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import losses
 from ..models.common import running_stats_frozen
+from ..parallel.mesh import all_reduce_grads, gather_columns, gather_ids
 from .state import TrainState
 
 # InfoNCE temperature (reference moco_head/loss.py:18)
@@ -148,9 +162,17 @@ def query_forward(model, batch, use_fc: Optional[bool], remat: bool):
             losses.l2_normalize(t_q.float(), dim=1))
 
 
+def gather_keys(v_k, t_k, ids):
+    """The global batch's keys and ids, rank-major, without a gradient."""
+    v_k, t_k = gather_columns((v_k, t_k), grad=False)
+    return v_k, t_k, gather_ids(ids)
+
+
 def finish_step(state: TrainState, loss_dict) -> dict:
     """Optimizer step and the metrics: every loss and their sum, as 0-d
-    device tensors.  The gradients are in ``.grad``."""
+    device tensors.  The gradients are in ``.grad``; in a data-parallel
+    group they are averaged over the ranks first."""
+    all_reduce_grads(state.model.parameters())
     state.optimizer.step()
     state.step += 1
     metrics = {k: v.detach() for k, v in loss_dict.items()}
@@ -166,9 +188,11 @@ def simple_train_step(cfg) -> Callable[[TrainState, dict], dict]:
 
     def step(state: TrainState, batch) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
-        v_embed, t_embed = query_forward(state.model, batch, None, remat)
+        v_embed, t_embed = gather_columns(
+            query_forward(state.model, batch, None, remat))
         loss_dict = simple_loss_tail(state.model.projection.float(),
-                                     v_embed, t_embed, batch["pids"].long(),
+                                     v_embed, t_embed,
+                                     gather_ids(batch["pids"].long()),
                                      epsilon)
         sum(loss_dict.values()).backward()
         return finish_step(state, loss_dict)
@@ -189,14 +213,15 @@ def moco_train_step(cfg) -> Callable[[TrainState, dict], dict]:
     def step(state: TrainState, batch) -> dict:
         model = state.model
         moco_ema(state, momentum)
-        v_k, t_k = moco_key_forward(model, state.key_model, use_fc, batch)
+        v_k, t_k, ids = gather_keys(
+            *moco_key_forward(model, state.key_model, use_fc, batch),
+            batch["pids"].long())
         state.optimizer.zero_grad(set_to_none=True)
-        ids = batch["pids"].long()
         loss_dict = moco_loss_tail(
             model.projection.float(),
-            *query_forward(model, batch, use_fc, remat), v_k, t_k, ids,
-            state.id_queue, state.v_queue, state.t_queue, epsilon,
-            MOCO_TEMPERATURE)
+            *gather_columns(query_forward(model, batch, use_fc, remat)),
+            v_k, t_k, ids, state.id_queue, state.v_queue, state.t_queue,
+            epsilon, MOCO_TEMPERATURE)
         sum(loss_dict.values()).backward()
         metrics = finish_step(state, loss_dict)
         enqueue(state, v_k, t_k, ids)

@@ -17,6 +17,14 @@ next log boundary: ``preempt`` is saved with ``epoch`` pinned one back, so
 that a resume runs the interrupted epoch again, and training returns.
 However training ends, the checkpoint write in flight is waited for and
 the SIGTERM handler uninstalled.
+
+In a data-parallel group (``parallel/mesh.py``) every rank steps on its
+rows of the global batch (the loader's ``process_shard``, or its slice of
+the global batch when the loader gives the whole of it), sets the epoch,
+evaluates (each encoding its share of the batches) and polls the
+preemption flag at the same iterations, so that no collective waits on a
+rank that left; the meters and the log are rank 0's, and the evaluation's
+R@1 is rank 0's on every rank, so the ``best`` decision agrees.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import time
 
 import torch
 
+from ..parallel.mesh import broadcast_object, rank, world_size
 from ..solver.build import set_learning_rate
 from ..utils.meters import MetricLogger
 from ..utils.preempt import PreemptionGuard
@@ -35,6 +44,20 @@ from .inference import inference
 
 # the loader's arrays a train step reads
 BATCH_KEYS = ("pixels", "erase", "token_ids", "lengths", "pids")
+
+
+def local_rows(batch: dict, loader) -> dict:
+    """This rank's rows of ``batch`` (rank-major), unless the loader
+    decodes them alone (``process_shard``) or there is one rank."""
+    world = world_size()
+    if world == 1 or getattr(loader, "process_shard", None) is not None:
+        return batch
+    n = batch["pids"].shape[0]
+    if n % world:
+        raise ValueError(f"Global batch {n} not divisible by process count "
+                         f"{world}")
+    start = rank() * (n // world)
+    return {k: v[start:start + n // world] for k, v in batch.items()}
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -56,8 +79,9 @@ def evaluate(model, data_loader) -> float:
     training = model.training
     model.eval()
     try:
-        return float(inference(model, data_loader, dataset_name="val",
-                               save_data=False, rerank=False))
+        return broadcast_object(float(inference(
+            model, data_loader, dataset_name="val", save_data=False,
+            rerank=False)))
     finally:
         model.train(training)
 
@@ -95,7 +119,8 @@ def do_train(cfg, state, train_step, data_loader, data_loader_val,
                 data_time = time.time() - end
                 iteration += 1
                 arguments["iteration"] = iteration
-                metrics = train_step(state, to_device(batch, device))
+                metrics = train_step(state, to_device(
+                    local_rows(batch, data_loader), device))
                 boundary = step % log_period == 0 or (
                     step == steps_per_epoch - 1)
                 if boundary:

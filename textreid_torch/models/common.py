@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_gather_stats, all_reduce_sum_, is_distributed
+
 # the smallest kh kw cout of a convolution that runs in int8 (None: none
 # does), and the smallest out_features of a dense layer that does; set by
 # models/quant_tower.py's context managers
@@ -121,19 +123,110 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     back from the kernel's ``1 / sqrt(var + eps)``.  The key encoders run
     this too (their statistics move and are never read, as in the JAX
     step).  ``num_batches_tracked`` is left alone: with a fixed momentum
-    nothing reads it."""
+    nothing reads it.
+
+    Inside a data-parallel group (``parallel/mesh.py``) train mode
+    normalises with the statistics of the global batch, every rank's rows
+    (:class:`_GlobalBatchNorm`), as the JAX step does under a data mesh,
+    and the running statistics move towards them; with one rank the path
+    above, unchanged."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean.to(x.dtype),
                             bn.running_var.to(x.dtype),
                             bn.weight.to(x.dtype), bn.bias.to(x.dtype),
                             False, 0.0, bn.eps)
-    out, mean, invstd = torch.native_batch_norm(
-        x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+    if is_distributed():
+        out, mean, var = _GlobalBatchNorm.apply(x, bn.weight, bn.bias,
+                                                bn.eps)
+    else:
+        out, mean, invstd = torch.native_batch_norm(
+            x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+        var = None
     if getattr(bn, "stats_frozen", False):
         return out
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-        var = invstd.float().pow(-2).sub_(bn.eps).clamp_min_(0.0)
+        if var is None:
+            var = invstd.float().pow(-2).sub_(bn.eps).clamp_min_(0.0)
         bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
     return out
+
+
+def _channels(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-channel ``t [C]`` shaped to broadcast over ``x [N, C, ...]``."""
+    return t.view((1, -1) + (1,) * (x.dim() - 2))
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the global batch of a data-parallel group.
+
+    Forward: each rank's per-channel f32 mean and sum of squared
+    deviations with its row count, gathered and merged by Chan et al.'s
+    pairwise rule (no cancellation of ``E[x^2] - E[x]^2``); the biased
+    variance.  Backward: ``sum dy`` and ``sum dy (x - mean)`` all-reduced
+    for the input's gradient, the scale's and bias's gradients this rank's
+    own sums (the step's gradient all-reduce adds the ranks').  On CUDA
+    tensors PyTorch's fused synchronised-BatchNorm kernels do the passes
+    over the activations (``torch.batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``: one read
+    for the statistics, one pass for the output, as ``native_batch_norm``);
+    the CPU, which has none of them, runs the same in plain tensor math.
+    Returns ``(out, mean, var)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        rows = x.numel() // x.shape[1]
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+            m2 = invstd.pow(-2).sub_(eps).clamp_min_(0.0).mul_(rows)
+        else:
+            dims = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dims)
+            m2 = (xf - _channels(mean, x)).square().sum(dims)
+        c = mean.numel()
+        stats = all_gather_stats(torch.cat([mean, m2, mean.new_tensor([rows])]))
+        means, m2s, counts = stats[:, :c], stats[:, c:2 * c], stats[:, -1]
+        n = counts.sum()
+        mean = (counts[:, None] * means).sum(0) / n
+        var = (m2s.sum(0) + (counts[:, None] * (means - mean).square())
+               .sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        if x.is_cuda:
+            out = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            out = ((xf - _channels(mean, x)) * _channels(invstd * weight, x)
+                   + _channels(bias.float(), x)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, counts)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        dout = dout.contiguous()
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, d_weight, d_bias = \
+                torch.batch_norm_backward_reduce(
+                    dout, x, mean, invstd, weight, True,
+                    ctx.needs_input_grad[1], ctx.needs_input_grad[2])
+            total = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xmu]))
+            sum_dy, sum_dy_xmu = total.chunk(2)
+            dx = torch.batch_norm_backward_elemt(
+                dout, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+                counts.to(torch.int32))
+            return dx, d_weight, d_bias, None
+        dims = [0] + list(range(2, x.dim()))
+        n = counts.sum()
+        dy = dout.float()
+        x_hat = (x.float() - _channels(mean, x)) * _channels(invstd, x)
+        sum_dy = dy.sum(dims)
+        sum_dy_xhat = (dy * x_hat).sum(dims)
+        total = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xhat]))
+        g_dy, g_dy_xhat = total.chunk(2)
+        dx = _channels(invstd * weight.float(), x) * (
+            dy - _channels(g_dy / n, x) - x_hat * _channels(g_dy_xhat / n, x))
+        return (dx.to(x.dtype),
+                sum_dy_xhat if ctx.needs_input_grad[1] else None,
+                sum_dy if ctx.needs_input_grad[2] else None, None)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gru import bigru_pooled_scan, gru_scan, zero_participation
+from ..parallel.mesh import global_max, is_distributed
 from .common import linear
 
 
@@ -163,13 +164,18 @@ class BiGRUEncoder(nn.Module):
                 lengths)
             layer_in = torch.cat([out_f, out_b], dim=-1)
         last = self.num_layers - 1
+        batch_max = None
+        if pool_mode == "batch" and self.training and is_distributed():
+            # a data-parallel step's rows are its rank's share of the global
+            # batch, whose longest caption the "batch" rule reads
+            batch_max = global_max(lengths.max())
         return bigru_pooled_scan(
             input_gates(layer_in, weight(f"weight_ih_l{last}")),
             input_gates(reverse_padded(layer_in, lengths),
                         weight(f"weight_ih_l{last}_reverse")),
             weight(f"weight_hh_l{last}").T.contiguous(),
             weight(f"weight_hh_l{last}_reverse").T.contiguous(),
-            lengths, pool_mode)
+            lengths, pool_mode, batch_max)
 
 
 def build_bigru(cfg, frozen_table=None) -> BiGRUEncoder:

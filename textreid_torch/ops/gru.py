@@ -29,6 +29,8 @@ and round only the result.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
@@ -360,7 +362,9 @@ class _BigruPooled(torch.autograd.Function):
 
 def bigru_pooled_scan(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
                       w_b: torch.Tensor, lengths: torch.Tensor,
-                      pool_mode: str = "batch") -> torch.Tensor:
+                      pool_mode: str = "batch",
+                      batch_max: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Fused 1-layer bi-GRU: scan both directions and max-pool over valid
     time steps, then apply the zero-participation rule of
     ``models.gru.masked_max_pool`` (``pool_mode`` "batch" or "always").
@@ -374,16 +378,21 @@ def bigru_pooled_scan(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (xf, xb, w_f, w_b))
     pooled = _BigruPooled.apply(xf, xb, w_f, w_b, lengths, train)
-    return zero_participation(pooled, lengths, xf.shape[1], pool_mode)
+    return zero_participation(pooled, lengths, xf.shape[1], pool_mode,
+                              batch_max)
 
 
 def zero_participation(pooled: torch.Tensor, lengths: torch.Tensor, seq: int,
-                       pool_mode: str) -> torch.Tensor:
+                       pool_mode: str,
+                       batch_max: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Let a zero join the max of every row with a padded position: rows
-    shorter than the batch max (``"batch"``) or than ``seq``
-    (``"always"``), as ``models.gru.masked_max_pool`` does."""
+    shorter than the batch max (``"batch"``; ``batch_max`` when given, the
+    global batch's under data parallelism, else ``lengths.max()``) or than
+    ``seq`` (``"always"``), as ``models.gru.masked_max_pool`` does."""
     if pool_mode == "batch":
-        has_pad = lengths < lengths.max()
+        has_pad = lengths < (lengths.max() if batch_max is None
+                             else batch_max)
     elif pool_mode == "always":
         has_pad = lengths < seq
     else:

@@ -24,6 +24,16 @@ it is built or loaded, and the queries on each call (``ops/ranking.py``).
 The interface (``search``, ``search_by_image``, ``load_index``,
 ``gallery``, ``gallery_meta``) is what
 ``textreid_torch.server.RetrievalService`` drives.
+
+With ``mesh=`` (``parallel/mesh.py:make_mesh`` over this process's cards,
+a card may repeat) the gallery is ranked in shards, one a device of the
+mesh (``evaluation/retrieval.py``: K2 or K4 a shard, then the global
+merge), as the JAX package's mesh index: a gallery the shards do not
+divide is padded with an augmented column (real rows ``[g, 0]``, pad rows
+``[0, -2]``, queries ``[q, 1]``: a pad row scores -2, below any cosine),
+and the int8 form quantizes the augmented matrix.  ``gallery`` and
+``save_index`` keep the clean ``[G, D]`` matrix; replies equal the
+unsharded index's.
 """
 
 from __future__ import annotations
@@ -56,11 +66,12 @@ class RetrievalIndex:
     def __init__(self, model, query_batch: int = 64, mesh=None,
                  quantize: bool = False, int8_encode=False,
                  image_query_batch: int = 8):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a gallery sharded over devices is not ported yet (ROADMAP "
-                "Queue A item 9: parallel/mesh.py -> torch.distributed)")
         self.model = model
+        self.mesh = mesh
+        # the mesh's shards of the (augmented) gallery or its int8 form, and
+        # whether the augmented column is there (_finalize_mesh_gallery)
+        self._mesh_shards: Optional[list] = None
+        self._augmented = False
         # int8_encode: True or "dataflow" runs the int8-dataflow graph of a
         # ModifiedResNet or ViT tower, calibrated on the first gallery
         # batches; "intercept", or True on any other tower, the interceptor
@@ -178,6 +189,38 @@ class RetrievalIndex:
         if self.quantize:
             self._quant_gallery = quantize_rows(gallery)
         self._kernel_gallery()
+        self._finalize_mesh_gallery()
+
+    def _finalize_mesh_gallery(self) -> None:
+        """Pad/augment and shard the gallery over the mesh (the JAX
+        package's ``_finalize_mesh_gallery``; nothing without a mesh):
+        float shards, or the int8 form of the augmented matrix in shards,
+        each padded with the kernel's zero columns."""
+        self._mesh_shards, self._augmented = None, False
+        if self.mesh is None:
+            return
+        from .evaluation.retrieval import shard_rows
+        from .parallel.mesh import DATA_AXIS
+
+        n = self.mesh.shape[DATA_AXIS]
+        gallery = self.gallery
+        g, d = gallery.shape
+        if g % n:
+            pad = n - g % n
+            real = torch.cat([gallery, gallery.new_zeros(g, 1)], dim=1)
+            pads = torch.cat([gallery.new_zeros(pad, d),
+                              gallery.new_full((pad, 1), -2.0)], dim=1)
+            gallery = torch.cat([real, pads])
+            self._augmented = True
+        if not self.quantize:
+            self._mesh_shards = shard_rows(
+                self.mesh, pad_columns(gallery, COLUMN_MULTIPLE["f32"]))
+            return
+        quant = quantize_rows(gallery)
+        self._mesh_shards = [QuantizedGallery(v, s) for v, s in zip(
+            shard_rows(self.mesh, pad_columns(quant.values,
+                                              COLUMN_MULTIPLE["int8"])),
+            shard_rows(self.mesh, quant.scales))]
 
     def save_index(self, path: str) -> None:
         """Persist the gallery, its metadata and, from a quantized index,
@@ -226,6 +269,7 @@ class RetrievalIndex:
         self.gallery = gallery
         self._quant_gallery = quant
         self._kernel_gallery()
+        self._finalize_mesh_gallery()
 
     # -- queries ----------------------------------------------------------
     @torch.inference_mode()
@@ -256,6 +300,8 @@ class RetrievalIndex:
         return np.concatenate(out, axis=0)[:n]
 
     def _rank(self, queries: torch.Tensor, k: int):
+        if self.mesh is not None:
+            return self._rank_sharded(queries, k)
         if self.quantize:
             quant = self._quant_gallery
             if k <= K_MAX:
@@ -268,6 +314,24 @@ class RetrievalIndex:
         sim = queries @ self.gallery.T
         vals, idx = torch.topk(sim, min(k, self.gallery.shape[0]), dim=1)
         return vals, idx
+
+    def _rank_sharded(self, queries: torch.Tensor, k: int):
+        """The mesh's shards ranked and merged (``evaluation/
+        retrieval.py``); k clamped to the padded row count, whose slots
+        past the real gallery ``_finish`` turns into sentinels."""
+        from .evaluation.retrieval import (
+            sharded_topk_retrieval,
+            sharded_topk_retrieval_quantized,
+        )
+
+        if self._augmented:
+            queries = torch.cat([queries, queries.new_ones(
+                queries.shape[0], 1)], dim=1)
+        rows = sum((s.values if self.quantize else s).shape[0]
+                   for s in self._mesh_shards)
+        rank = (sharded_topk_retrieval_quantized if self.quantize
+                else sharded_topk_retrieval)
+        return rank(self.mesh, queries, self._mesh_shards, k=min(k, rows))
 
     @torch.inference_mode()
     def search(self, token_ids: np.ndarray, lengths: np.ndarray,

@@ -41,6 +41,20 @@ package.  In order:
 
 An orbax directory of the JAX package is not read, as ``MODEL.WEIGHT`` or
 ``--resume-from``: export it with ``tools/export_torch.py``.
+
+Data parallel (``parallel/mesh.py``): under ``torchrun --nproc-per-node N
+-m textreid_torch.train_net ...`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment; or
+another store with ``--init-method``) each process trains on
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``) and the step is the
+one-process step on the global batch ``SOLVER.IMS_PER_BATCH``.  With
+``TPU.PROCESS_SHARD_DATA`` each process decodes only its rows of every
+global batch.  ``TPU.DATA_PARALLEL`` is 0 (every rank) or the world size;
+``TPU.MODEL_PARALLEL > 1``, ``TPU.NUM_SLICES > 1`` and
+``TPU.OPTIMIZER_SHARDING`` raise.  After the loads above, rank 0's state
+is broadcast.  Rank 0 logs, writes the checkpoints and the tensorboard
+files.  All ranks meet at an exit barrier before the group ends.  Without
+that environment: one process on one card.
 """
 
 from __future__ import annotations
@@ -159,10 +173,27 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
         read_reference_checkpoint,
     )
     from .utils.checkpoint import Checkpointer, auto_resume_path
+    from .parallel.mesh import (
+        make_mesh,
+        rank,
+        refuse_optimizer_sharding,
+        replicate_state,
+        world_size,
+    )
     from .utils.meters import MetricLogger, TensorboardLogger
     from .utils.platform import compute_dtype
 
     logger = logging.getLogger("PersonSearch.train")
+    process_shard = None
+    if world_size() > 1:
+        refuse_optimizer_sharding(cfg)
+        mesh = make_mesh(cfg.TPU.DATA_PARALLEL, cfg.TPU.MODEL_PARALLEL,
+                         num_slices=cfg.TPU.NUM_SLICES)
+        logger.info("Data parallel over %d ranks: %d of the %d rows of a "
+                    "batch each", world_size(), cfg.SOLVER.IMS_PER_BATCH //
+                    mesh.data, cfg.SOLVER.IMS_PER_BATCH)
+        if cfg.TPU.PROCESS_SHARD_DATA:
+            process_shard = (rank(), world_size())
     train_step = make_train_step(cfg)
     model = build_model(cfg, device, torch.float32,
                         compute_dtype(cfg, device), train=True)
@@ -173,7 +204,8 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
     optimizer = make_optimizer(cfg, model)
     state = create_train_state(cfg, model, optimizer,
                                cfg.SOLVER.IMS_PER_BATCH)
-    data_loader = make_data_loader(cfg, is_train=True)
+    data_loader = make_data_loader(cfg, is_train=True,
+                                   process_shard=process_shard)
     data_loader_val = (make_data_loader(cfg, is_train=False)
                        if cfg.SOLVER.EVALUATE_PERIOD > 0 else [])
     arguments = {"iteration": 0, "epoch": 0,
@@ -198,8 +230,9 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
         arguments.update(meta)
         # progress comes from the checkpoint, the budget from this run
         arguments["max_epoch"] = cfg.SOLVER.NUM_EPOCHS
+    replicate_state(state)
 
-    if use_tensorboard:
+    if use_tensorboard and rank() == 0:
         meters = TensorboardLogger(os.path.join(output_dir, "tensorboard"),
                                    start_iter=arguments["iteration"])
     else:
@@ -209,7 +242,7 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
                  checkpointer, meters, make_lr_schedule(cfg), arguments,
                  device)
     finally:
-        if use_tensorboard:
+        if isinstance(meters, TensorboardLogger):
             meters.close()
     return state, meters
 
@@ -230,15 +263,17 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                              "cpu")
+    add_distributed_arguments(parser)
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="dotted config overrides: KEY VALUE ...")
     args = parser.parse_args(argv)
 
     from .config import get_default_cfg
+    from .parallel.mesh import destroy_process_group, rank
     from .utils.logger import setup_logger
     from .utils.platform import require_cuda
 
-    device = require_cuda(args.device)
+    device = join_process_group(require_cuda(args.device), args)
     cfg = get_default_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
@@ -253,12 +288,33 @@ def main(argv=None):
     output_dir = os.path.join(
         args.root, "output", "/".join(args.config_file.split("/")[-2:])[:-5])
     os.makedirs(output_dir, exist_ok=True)
-    logger = setup_logger("PersonSearch", output_dir)
+    logger = setup_logger("PersonSearch", output_dir, rank())
     logger.info("Using %s", device)
     logger.info("%s", args)
     logger.info("Running with config:\n%s", cfg)
-    return train(cfg, output_dir, device, args.resume_from or "",
-                 args.use_tensorboard)
+    result = train(cfg, output_dir, device, args.resume_from or "",
+                   args.use_tensorboard)
+    destroy_process_group()
+    return result
+
+
+def add_distributed_arguments(parser) -> None:
+    parser.add_argument("--init-method", default=None,
+                        help="torch.distributed init method of the process "
+                             "group (default env://: MASTER_ADDR and "
+                             "MASTER_PORT); used when RANK and WORLD_SIZE "
+                             "are in the environment, as torchrun sets them")
+
+
+def join_process_group(device, args):
+    """This rank's device in the process group the environment names
+    (``parallel/mesh.py:init_process_group``), or ``device`` when there is
+    none."""
+    from .parallel.mesh import init_process_group, launched_distributed
+
+    if not launched_distributed():
+        return device
+    return init_process_group(device, args.init_method)
 
 
 if __name__ == "__main__":

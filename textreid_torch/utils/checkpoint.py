@@ -19,6 +19,12 @@ package's: ``best``, ``epoch_N`` and ``preempt``.
   never touches ``best`` or ``preempt``.
 * ``resume`` restores the whole state and returns ``meta``; ``load`` is a
   weights-only load (the model and, where the file has it, the key model).
+* In a data-parallel group (``parallel/mesh.py``) every rank calls
+  ``save`` at the same points and rank 0 alone writes (and prunes); every
+  :meth:`Checkpointer.wait`, and so every save and read, ends in a barrier,
+  so no rank reads ahead of a write that came before.  Every rank resumes
+  from the same file onto its own device; :func:`auto_resume_path` is
+  decided on rank 0 and broadcast.
 
 An orbax directory of the JAX package is not read (this package imports
 nothing of orbax): export it to a reference ``.pth`` with
@@ -35,6 +41,9 @@ import time
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import barrier, broadcast_object
+from ..parallel.mesh import rank as process_rank
 
 EPOCH_FILE = re.compile(r"epoch_(\d+)\.pth")
 
@@ -65,7 +74,13 @@ def epoch_checkpoints(save_dir: str) -> list:
 def auto_resume_path(save_dir: str) -> Optional[str]:
     """What ``--resume-from auto`` resumes from (the JAX ``train_net.py``
     rule): the newest ``epoch_N.pth``, or ``preempt.pth`` when its meta
-    iteration is strictly newer; ``None`` when there is neither."""
+    iteration is strictly newer; ``None`` when there is neither.  Rank 0's
+    answer on every rank."""
+    return broadcast_object(_newest_checkpoint(save_dir)
+                            if process_rank() == 0 else None)
+
+
+def _newest_checkpoint(save_dir: str) -> Optional[str]:
     epochs = epoch_checkpoints(save_dir) if os.path.isdir(save_dir) else []
     path = os.path.join(save_dir, epochs[-1][1]) if epochs else None
     preempt = os.path.join(save_dir, "preempt.pth")
@@ -82,6 +97,7 @@ class Checkpointer:
         self.save_dir = os.path.abspath(save_dir) if save_dir else ""
         self.async_save = async_save
         self.logger = logger or logging.getLogger("PersonSearch.checkpoint")
+        self.primary = process_rank() == 0  # writes and prunes
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -90,13 +106,14 @@ class Checkpointer:
 
     def wait(self) -> None:
         """Block until the write in flight, if any, is on disk; raise its
-        error if it failed."""
+        error if it failed; in a group, then meet every rank."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
         if self._error is not None:
             error, self._error = self._error, None
             raise error
+        barrier()
 
     def save(self, name: str, state, **meta) -> None:
         """Write ``state`` and ``meta`` to ``<name>.pth`` (in the background
@@ -104,6 +121,8 @@ class Checkpointer:
         if not self.save_dir:
             return
         self.wait()
+        if not self.primary:
+            return
         start = time.perf_counter()
         payload = {**state.state_dict(), "meta": dict(meta)}
         snapshot_s = time.perf_counter() - start
@@ -136,7 +155,7 @@ class Checkpointer:
         """Delete all but the newest ``keep`` ``epoch_N.pth``
         (``SOLVER.CHECKPOINT_KEEP``; 0 keeps all).  A write in flight is
         still a temporary file, so it is neither counted nor deleted."""
-        if keep <= 0 or not self.save_dir:
+        if keep <= 0 or not self.save_dir or not self.primary:
             return
         for _, name in epoch_checkpoints(self.save_dir)[:-keep]:
             path = os.path.join(self.save_dir, name)

@@ -8,9 +8,10 @@ pinned one back so that a resume runs the interrupted epoch again, and
 returns; ``train_net --resume-from auto`` then prefers that checkpoint when
 it is newer than the last epoch's.
 
-One process: :meth:`PreemptionGuard.triggered_global` reads the local flag.
-Agreement across processes comes with data-parallel training (ROADMAP
-Queue A item 9).
+:meth:`PreemptionGuard.triggered_global` agrees across the processes of a
+data-parallel group (an all-reduce MAX of the flags, as JAX's allgather):
+a SIGTERM to one rank stops every rank at the same log boundary, where
+they save ``preempt.pth`` once (rank 0 writes) and return together.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import logging
 import signal
 import threading
+
+from ..parallel.mesh import any_rank
 
 
 class PreemptionGuard:
@@ -53,8 +56,8 @@ class PreemptionGuard:
 
     def triggered_global(self) -> bool:
         """Whether any process was signalled; with one process, this
-        one."""
-        return self.triggered
+        one.  In a group every rank must call it at the same point."""
+        return any_rank(self.triggered)
 
     def uninstall(self) -> None:
         """Restore the previous SIGTERM handler (end of training)."""
