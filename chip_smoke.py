@@ -312,11 +312,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
-def bound(n_bytes, n_ops, dtype_name):
+def bound(n_bytes, n_ops, dtype_name=None):
     """(bound ms, what binds): the larger of bytes over the memory rate and
-    operations over the peak rate of ``dtype_name``."""
+    operations over the peak rate of ``dtype_name``; ``n_ops`` may instead
+    be a {dtype name: operations} dict, whose times at each rate add up."""
     by_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    by_ops = n_ops / PEAK_OPS_S[dtype_name] * 1e3
+    if not isinstance(n_ops, dict):
+        n_ops = {dtype_name: n_ops}
+    by_ops = sum(n / PEAK_OPS_S[name] for name, n in n_ops.items()) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -395,22 +398,24 @@ def with_empty_rows(args):
     return (*args[:4], lengths)
 
 
-def k1_plan(batch):
-    """The bf16 forward's launch plan for ``batch`` rows, from the library
-    and from ``ops/gru.py:resident_plan``: (rows, clusters, capacity),
-    failing if they differ."""
+def k1_plan(batch, entry="bigru_resident_plan"):
+    """The launch plan of K1's bf16 forward (``entry`` =
+    "bigru_resident_plan") or backward ("bigru_resident_bwd_plan") for
+    ``batch`` rows, from the library and from ``ops/gru.py:resident_plan``
+    on the library's capacity: (rows, clusters, capacity), failing if they
+    differ."""
     import ctypes
 
     from textreid_torch.ops import _build, gru
 
     out = [ctypes.c_int(0) for _ in range(4)]
-    _build.check(_build.library().bigru_resident_plan(
-        batch, 512, *map(ctypes.byref, out)), "bigru_resident_plan")
+    _build.check(getattr(_build.library(), entry)(
+        batch, 512, *map(ctypes.byref, out)), entry)
     rows, clusters, cap32, cap16 = (v.value for v in out)
     capacity = {32: cap32, 16: cap16}
     want = gru.resident_plan(batch, capacity)
     if (rows, clusters) != want[:2]:
-        fail(f"K1 bf16 plan at B={batch}: the library's {(rows, clusters)}, "
+        fail(f"{entry} at B={batch}: the library's {(rows, clusters)}, "
              f"resident_plan's {want[:2]}")
     return rows, clusters, capacity
 
@@ -712,7 +717,7 @@ def check_k1_grad():
     autograd splits an exact tie).  Returns the worst absolute error of the
     backward kernel against its plain version, per dtype."""
     import torch
-    from textreid_torch.ops import gru
+    from textreid_torch.ops import _build, gru
 
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -746,6 +751,24 @@ def check_k1_grad():
         want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], lengths, hp,
                                           gates, argmax)
         torch.cuda.synchronize()
+        entry = gru.bwd_kernel(dtype)
+        if entry == "bigru_resident_bwd":
+            rows, clusters, capacity = k1_plan(128, "bigru_resident_bwd_plan")
+            log(f"K1 backward bf16 plan B=128: {rows} rows a cluster of 16 "
+                f"blocks, {clusters} clusters (the card holds "
+                f"{capacity[32]} of 32 rows, {capacity[16]} of 16 at once)")
+            # the Python mirror of the block's shared memory against the
+            # kernel's own arithmetic, at every H the backward admits
+            lib = _build.library()
+            for h in range(32, gru.MAX_TRAIN_HIDDEN + 1, 32):
+                for r in gru.RESIDENT_ROWS:
+                    smem = lib.bigru_resident_bwd_smem(h, r)
+                    if (smem != gru.resident_bwd_smem(h, r)
+                            or smem > gru.MAX_SHARED_BYTES):
+                        fail(f"K1 backward shared memory at H={h} R={r}: "
+                             f"the kernel's {smem} B, ops/gru.py's "
+                             f"{gru.resident_bwd_smem(h, r)}, the card's "
+                             f"{gru.MAX_SHARED_BYTES}")
         errs = []
         for gname, key, a, b in zip(("xf", "xb", "w_f", "w_b"),
                                     ("dx", "dx", "dw", "dw"), got, want):
@@ -761,8 +784,9 @@ def check_k1_grad():
                     err > K1_BWD_TOL[name][key] * scale):
                 fail(f"K1 backward {name}: d/d{gname} off by {err:.3e} of "
                      f"{scale:.3e}")
-        log(f"K1 bigru_pooled_bwd B=128 T=105 H=512 {name} against "
-            f"bigru_pooled_bwd_plain on the same state: {', '.join(errs)} "
+        log(f"K1 bigru_pooled_bwd ({entry}) B=128 T=105 H=512 {name} "
+            f"against bigru_pooled_bwd_plain on the same state: "
+            f"{', '.join(errs)} "
             f"(tol dx {K1_BWD_TOL[name]['dx']:.0e}, dW "
             f"{K1_BWD_TOL[name]['dw']:.0e} of the largest)")
 
@@ -2462,7 +2486,9 @@ def int8_conv_bounds():
 def time_kernels():
     import torch
     from textreid_torch.ops import gru, ranking
-    from textreid_torch.tools.gru_variants import streamed_forward, streamed_scan
+    from textreid_torch.tools.gru_variants import (streamed_backward,
+                                                  streamed_forward,
+                                                  streamed_scan)
 
     out = {}
     # K1's bf16 forward: the W-resident kernel against the streamed one it
@@ -2521,7 +2547,8 @@ def time_kernels():
     # cluster's worth of rows (B=8), where nothing but the chain waits; from
     # T=55, where even a 2 us step keeps a call longer than the host takes
     # to issue it (from T=5 the host would set the short call's time)
-    for kname in ("K1", "K1 streamed", "K1 bwd", "K3", "K3 streamed"):
+    for kname in ("K1", "K1 streamed", "K1 bwd", "K1 bwd streamed", "K3",
+                  "K3 streamed"):
         ms_t = {}
         for seq in (55, 105):
             if kname == "K1":
@@ -2531,11 +2558,14 @@ def time_kernels():
             elif kname == "K1 streamed":
                 args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 ms_t[seq] = cuda_ms(lambda: streamed_forward(*args), 20)
-            elif kname == "K1 bwd":  # row 0 has the full length
+            elif kname.startswith("K1 bwd"):  # row 0 has the full length;
+                # the kernel alone (the dW product grows with T too)
                 args = k1_inputs(8, torch.bfloat16, seed=1, seq=seq)
                 saved = gru.bigru_pooled_fwd_train(*args)[1:]
                 g = torch.ones(8, 1024, device="cuda", dtype=torch.bfloat16)
-                ms_t[seq] = cuda_ms(lambda: gru.bigru_pooled_bwd(
+                bwd = (streamed_backward if kname.endswith("streamed")
+                       else gru.launch_bigru_pooled_bwd)
+                ms_t[seq] = cuda_ms(lambda: bwd(
                     g, args[2], args[3], args[4], *saved), 20)
             elif kname == "K3":
                 args = k3_inputs(8, torch.bfloat16, seed=1, seq=seq)
@@ -2638,20 +2668,28 @@ def kernel_bounds(bwd_steps):
     ab, s, w, heads = 128, 193, 768, 12  # K5, K6: ViT-B/16 at 384x128, bf16
     matmul = 2 * ab * heads * s * s * (w // heads)  # one [S,S] x [S,hd]
     (_, vr, vk, vn), (_, tr, tk, tn) = INT8_SHAPES[:2]  # K8, K9; K7
+    k1_bwd_bytes = (2 * tb * 2 * h + 2 * 2 * 3 * h * h + 4 * tb
+                    + 4 * 2 * tb * t * 5 * h + 4 * tb * 2 * h
+                    + 2 * 2 * tb * t * 3 * h + 2 * 2 * h * 3 * h)
     return {
         # both directions: x and W read, the pooled [B, 2H] written;
         # T steps of [B, H] x [H, 3H]
         "bigru_pooled_fwd": bound(
             2 * (2 * b * t * 3 * h + 2 * h * 3 * h + b * 2 * h),
             2 * t * 2 * b * h * 3 * h, "bfloat16"),
-        # both directions: g, W^T, lengths, the saved f32 state (h_{t-1}, 4
+        # both directions: g, W, lengths, the saved f32 state (h_{t-1}, 4
         # gates) and argmax read, dx and dW written; per valid (row, step)
-        # the serial [3H] x [3H, H] product and its share of dW, in f32
+        # its share of dW at the f32 rate (dW is an f32 product) and the
+        # serial [3H] x [3H, H] product at the bf16 rate, twice (the bf16
+        # kernel runs it on the tensor cores as hi and lo products)
         "bigru_pooled_bwd": bound(
-            2 * tb * 2 * h + 2 * 2 * 3 * h * h + 4 * tb
-            + 4 * 2 * tb * t * 5 * h + 4 * tb * 2 * h
-            + 2 * 2 * tb * t * 3 * h + 2 * 2 * h * 3 * h,
-            2 * 2 * bwd_steps * 2 * 3 * h * h, "float32"),
+            k1_bwd_bytes,
+            {"float32": 2 * bwd_steps * 2 * 3 * h * h,
+             "bfloat16": 2 * 2 * bwd_steps * 2 * 3 * h * h}),
+        # ... as rows before this kernel priced it: both products at the
+        # f32 rate (logged beside the row, for comparison with them)
+        "bigru_pooled_bwd f32-priced": bound(
+            k1_bwd_bytes, 2 * 2 * bwd_steps * 2 * 3 * h * h, "float32"),
         # one direction: x, W and h0 read, every h_t written
         "gru_scan_fwd": bound(
             2 * (b * t * 3 * h + h * 3 * h + b * h + b * t * h),
@@ -3713,11 +3751,13 @@ def device_profile(fn, calls, families, what):
     return out
 
 
-# the train step's kernel families: K1's backward before its forwards,
-# cuDNN's convolutions before the products (their names hold "xmma" and
-# "gemm" too)
+# the train step's kernel families: K1's backward before its forwards (the
+# W-resident backward's name holds "bigru_resident" too), the streamed
+# backward (f32 only) apart, cuDNN's convolutions before the products
+# (their names hold "xmma" and "gemm" too)
 STEP_FAMILIES = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
-                 ("K1 bwd", ("bigru_pooled_bwd_kernel",)),
+                 ("K1 bwd", ("bigru_resident_bwd_kernel",)),
+                 ("K1 bwd streamed", ("bigru_pooled_bwd_kernel",)),
                  ("K1 fwd", ("bigru_pooled", "bigru_resident")),
                  ("convolutions", ("fprop", "dgrad", "wgrad", "winograd",
                                    "convolve", "conv2d", "convolution",
@@ -3742,6 +3782,17 @@ def profile_steps(step, state, batch, steps=2):
     :func:`device_profile`)."""
     return device_profile(lambda: step(state, batch), steps, STEP_FAMILIES,
                           "the bf16 train step")
+
+
+def check_k1_bwd_family(profile, what, kernels=True):
+    """A bf16 step launches K1's W-resident backward (``kernels``: with the
+    kernels; else the plain versions, none) and never the streamed one,
+    which only f32 runs.  Nothing to check without a device trace."""
+    if profile is None:
+        return
+    if profile["K1 bwd streamed"] > 0 or (profile["K1 bwd"] > 0) != kernels:
+        fail(f"{what}: K1's backward families {profile['K1 bwd']:.3f} ms "
+             f"W-resident, {profile['K1 bwd streamed']:.3f} ms streamed")
 
 
 def time_training(model_name, reps=8):
@@ -3776,6 +3827,9 @@ def time_training(model_name, reps=8):
     kernel += timed(reps)
     ms, plain_ms = float(np.median(kernel)), float(np.median(plain))
     profile = profile_steps(step, state, batch)
+    check_k1_bwd_family(profile, f"the bf16 {model_name} step")
+    check_k1_bwd_family(plain_profile, f"the bf16 {model_name} step with "
+                        "the plain versions", kernels=False)
 
     metric = ("moco_train_step_ms_bs128: " if "flagship" in model_name
               else "")
@@ -3870,6 +3924,8 @@ def time_accum8(reps=3):
     step, state, batch = single
     single_prof = device_profile(lambda: step(state, batch), 2,
                                  STEP_FAMILIES, "the bf16 bs128 step")
+    check_k1_bwd_family(accum_prof, "the bf16 accum8 step")
+    check_k1_bwd_family(single_prof, "the bf16 bs128 step")
     out = dict(
         ms=float(np.median(accum_ms)), single_ms=float(np.median(single_ms)),
         peak=accum_peak, single_peak=single_peak,
@@ -3897,16 +3953,20 @@ def time_accum8(reps=3):
 
 def time_k1_backward():
     """K1 at the train step's shape (B=128, T=105, H=512), bf16 and f32:
-    the backward kernel (with its dW product) against its plain version and
-    against the plain recompute that was K1's backward before it (autograd
-    through ``bigru_pooled_scan_plain``), interleaved; the training forward
-    against the pooled-only one; and how many of the backward's clusters
-    the card holds at once.  Keys (what, dtype name); ("steps",) is the
-    number of (row, step) pairs with t < len of the timed inputs."""
+    the backward (the kernel with its dW product) against its plain version
+    and against the plain recompute that was K1's backward before it
+    (autograd through ``bigru_pooled_scan_plain``), interleaved; in bf16
+    also the W-resident kernel against the streamed one it replaced
+    (``tools/gru_variants.py:streamed_backward``), in turns, alone and with
+    the dW product; the training forward against the pooled-only one; and
+    how many of the backward's clusters the card holds at once.  Keys
+    (what, dtype name); ("steps",) is the number of (row, step) pairs with
+    t < len of the timed inputs."""
     import ctypes
 
     import torch
     from textreid_torch.ops import _build, gru
+    from textreid_torch.tools.gru_variants import streamed_backward
 
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -3918,6 +3978,32 @@ def time_k1_backward():
 
         def kernel():
             gru.bigru_pooled_bwd(g, args[2], args[3], args[4], *saved)
+
+        if dtype == torch.bfloat16:
+            def streamed_with_dw():
+                dhg = streamed_backward(g, args[2], args[3], args[4],
+                                        *saved)[2]
+                torch.bmm(saved[0].view(2, -1, 512).transpose(1, 2),
+                          dhg.view(2, -1, 1536))
+
+            (out[("bwd alone", name)],
+             out[("streamed alone", name)]) = interleaved_ms(
+                lambda: gru.launch_bigru_pooled_bwd(g, args[2], args[3],
+                                                   args[4], *saved),
+                lambda: streamed_backward(g, args[2], args[3], args[4],
+                                          *saved), 10, 10)
+            _, out[("streamed", name)] = interleaved_ms(
+                kernel, streamed_with_dw, 10, 10)
+            rows, n_clusters, capacity = k1_plan(128,
+                                                 "bigru_resident_bwd_plan")
+            log(f"time K1 backward B=128 T=105 H=512 {name}, in turns: "
+                f"W-resident kernel alone {out[('bwd alone', name)]:.3f} ms, "
+                f"the streamed kernel it replaced "
+                f"{out[('streamed alone', name)]:.3f} ms; with the dW "
+                f"product: the streamed kernel {out[('streamed', name)]:.3f} "
+                f"ms; plan: {rows} rows a cluster of 16, {n_clusters} "
+                f"clusters (the card holds {capacity[32]} of 32 rows, "
+                f"{capacity[16]} of 16 at once)")
 
         def recompute():
             with torch.enable_grad():
@@ -3936,14 +4022,16 @@ def time_k1_backward():
         _build.check(_build.library().bigru_pooled_bwd_clusters(
             128, 512, int(dtype == torch.bfloat16), ctypes.byref(clusters)),
             "bigru_pooled_bwd_clusters")
-        log(f"time K1 B=128 T=105 H=512 {name}: backward kernel (with its dW "
+        log(f"time K1 B=128 T=105 H=512 {name}: backward "
+            f"({gru.bwd_kernel(dtype)}, with its dW "
             f"product) {out[('bwd', name)]:.3f} ms, its plain version "
             f"{out[('bwd plain', name)]:.3f} ms, the plain recompute "
             f"(autograd through the plain scan) "
             f"{out[('recompute', name)]:.3f} ms; forward pooled-only "
             f"{out[('fwd', name)]:.3f} ms, training forward "
             f"{out[('fwd train', name)]:.3f} ms; the card holds "
-            f"{clusters.value} of the backward's 32 clusters at once")
+            f"{clusters.value} of the streamed backward's 32 clusters at "
+            f"once")
         out[("steps",)] = int(args[4].clamp(max=105).sum())
     return out
 
@@ -4725,9 +4813,14 @@ def main():
         f"{vit_train['peak'] / 2**30:.2f} GiB; the flagship (CLIP RN50 + "
         f"bi-GRU, moco_train_step_ms_bs128) {rn_train['ms']:.2f} ms (plain "
         f"versions {rn_train['plain_ms']:.2f} ms), peak "
-        f"{rn_train['peak'] / 2**30:.2f} GiB; K1 backward kernel "
-        f"{k1_times[('bwd', 'bfloat16')]:.3f} ms (the plain recompute it "
-        f"replaced {k1_times[('recompute', 'bfloat16')]:.2f} ms) ({card})")
+        f"{rn_train['peak'] / 2**30:.2f} GiB; K1 backward B=128 with dW "
+        f"{k1_times[('bwd', 'bfloat16')]:.3f} ms (the streamed kernel in "
+        f"turns {k1_times[('streamed', 'bfloat16')]:.3f} ms; the plain "
+        f"recompute {k1_times[('recompute', 'bfloat16')]:.2f} ms), the "
+        f"kernel alone {k1_times[('bwd alone', 'bfloat16')]:.3f} ms "
+        f"({k1_times[('streamed alone', 'bfloat16')]:.3f}), a step "
+        f"{times[('K1 bwd', 'step_us')]:.2f} us "
+        f"({times[('K1 bwd streamed', 'step_us')]:.2f}) ({card})")
     log(f"summary, the gradient-cache step (accum8, bs1024 in 8 x 128): "
         f"{accum['ms']:.1f} ms a step, device {accum['device']:.1f} ms, peak "
         f"{accum['peak'] / 2**30:.2f} GiB, against the single-pass bs128 "
@@ -4825,13 +4918,21 @@ def main():
 
     bounds = kernel_bounds(k1_times[("steps",)])
     bounds.update(int8_conv_bounds())
+    log(f"bound K1 backward B=128 T=105 H=512 bf16 "
+        f"({k1_times[('steps',)]} valid (row, step) pairs): "
+        f"{bounds['bigru_pooled_bwd'][0]:.4f} ms "
+        f"({bounds['bigru_pooled_bwd'][1]}; the serial product at the bf16 "
+        f"rate, twice), "
+        f"{bounds['bigru_pooled_bwd f32-priced'][0]:.4f} ms with both "
+        f"products at the f32 rate; the kernel with dW "
+        f"{k1_times[('bwd', 'bfloat16')]:.3f} ms")
     rows = [  # (entry point, source, replaces, error, (ms, plain ms), library)
         ("bigru_pooled_fwd", "bigru_resident.cu", "ops/gru_pallas.py:396",
          k1_err["bfloat16"], times[("K1", 256, "bfloat16")], None),
         # K1's backward replaces the custom VJP's bwd, which differentiates
         # the XLA scan; no single PyTorch call computes it (nn.GRU has
         # biases and another layout)
-        ("bigru_pooled_bwd", "bigru_pooled_bwd.cu", "ops/gru_pallas.py:421",
+        ("bigru_pooled_bwd", "bigru_resident_bwd.cu", "ops/gru_pallas.py:421",
          k1_bwd_err["bfloat16"], (k1_times[("bwd", "bfloat16")],
                                   k1_times[("bwd plain", "bfloat16")]), None),
         ("gru_scan_fwd", "gru_scan_resident.cu", "ops/gru_pallas.py:107",

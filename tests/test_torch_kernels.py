@@ -242,6 +242,85 @@ def test_gru_scan_dispatch_rule(dtype, hidden, want):
     assert gru.scan_kernel(dtype, hidden) == want
 
 
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "bigru_resident_bwd"),
+    (torch.float32, "bigru_pooled_bwd"),    # W's f32 slice: no registers
+])
+def test_k1_backward_dispatch_rule(dtype, want):
+    """K1's backward kernel is a function of the dtype alone."""
+    assert gru.bwd_kernel(dtype) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hidden", [
+    48,     # not whole 32-unit blocks
+    544,    # a bf16 cluster past 16 blocks; f32 blocks past 256 threads
+])
+def test_k1_training_forward_refuses_widths_no_backward_takes(dtype, hidden):
+    """The training forward, which alone feeds the backward, refuses every
+    H that is not a whole number of 32-unit blocks up to MAX_TRAIN_HIDDEN:
+    so every H that reaches the backward fits both kernels and the rule
+    needs only the dtype."""
+    x = torch.zeros(1, 2, 3 * hidden, dtype=dtype)
+    w = torch.zeros(hidden, 3 * hidden, dtype=dtype)
+    with pytest.raises(ValueError, match="needs H"):
+        gru._check_inputs(x, x, w, w, torch.ones(1, dtype=torch.int32),
+                          train=True)
+
+
+@pytest.mark.parametrize("batch,capacity,want", [
+    # seven clusters of 16 blocks a row count: 16 items of 16 rows in 3
+    # waves (48 row-steps) beat 8 of 32 in 2 (64)
+    (128, {32: 7, 16: 7}, (16, 7, 16, 3)),
+    (256, {32: 7, 16: 7}, (16, 7, 32, 5)),
+    # one wave either way: 16-row steps
+    (1, {32: 7, 16: 7}, (16, 2, 2, 1)),
+    (17, {32: 7, 16: 7}, (16, 4, 4, 1)),
+    # fewer clusters of 32 rows than of 16: 16 rows, 3 waves (48) against
+    # 8 items of 32 in 3 (96)
+    (128, {32: 3, 16: 7}, (16, 7, 16, 3)),
+    # 8 items of 32 in 1 wave (32) against 16 of 16 in 2 (32): a tie, to 32
+    (128, {32: 8, 16: 8}, (32, 8, 8, 1)),
+])
+def test_resident_backward_plan(batch, capacity, want):
+    """The W-resident backward takes the forward's row-group plan on its
+    own capacity (``csrc/bigru_resident_bwd.cu:bwd_plan`` calls
+    ``gru_resident.cuh:plan_rows``; chip_smoke.py holds the library's plan
+    against ``resident_plan`` on the card): (rows, clusters, items,
+    waves)."""
+    assert gru.resident_plan(batch, capacity) == want
+
+
+def test_resident_backward_shared_memory_fits_every_admitted_width():
+    """The backward's receive buffers and A tile fit a block's 227 KB at
+    every H the backward admits, at both row counts; 72,208 and 144,400
+    bytes at H=512 (64 KB and 128 KB of receive buffers).  chip_smoke.py
+    holds this arithmetic against the kernel's own on the card."""
+    widths = range(32, gru.MAX_TRAIN_HIDDEN + 1, 32)
+    for hidden in widths:
+        for rows in gru.RESIDENT_ROWS:
+            assert gru.resident_bwd_smem(hidden, rows) <= gru.MAX_SHARED_BYTES
+    assert gru.resident_bwd_smem(512, 16) == 72208
+    assert gru.resident_bwd_smem(512, 32) == 144400
+
+
+def test_every_gru_variant_edits_text_of_its_source():
+    """``tools/gru_variants.py`` patches the GRU sources by text, each edit
+    in the first source (by name) that holds it: each must find its text
+    there, and the backward's edits must land in the backward's source."""
+    from textreid_torch.ops import _build
+    from textreid_torch.tools import gru_variants
+
+    texts = {p.name: p.read_text()
+             for p in sorted(_build.CSRC.glob("*gru_*.cu*"))}
+    for name, edits in gru_variants.VARIANTS.items():
+        for old, new in edits:
+            hits = [key for key, text in texts.items() if old in text]
+            assert hits and new != old, (name, old)
+            if name.startswith("backward"):
+                assert hits[0] == "bigru_resident_bwd.cu", (name, old)
+
+
 def test_bf16_forward_refuses_a_hidden_size_past_its_cluster():
     """The W-resident kernel's cluster has H / 32 blocks, at most 16."""
     x = torch.zeros(2, 3, 3 * 544, dtype=torch.bfloat16)
@@ -701,6 +780,98 @@ def test_bigru_backward_kernel_matches_plain(cuda, dtype, batch, seq):
         assert torch.count_nonzero(dx[-1]) == 0  # the length-0 row
         for b, n in enumerate(args[4].tolist()):
             assert torch.count_nonzero(dx[b, n:]) == 0
+
+
+def _tie_row(args, row):
+    """Input gates of ``row`` whose update gate is exactly 1 in f32 in both
+    directions (x_z = 30): h stays exactly 0, so every valid step ties at
+    the max and the pool gradient goes to step 0."""
+    hidden = args[2].shape[0]
+    for x in args[:2]:
+        x[row, :, hidden:2 * hidden] = 30.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [32, 256, 512])
+@pytest.mark.parametrize("batch", [1, 17, 128, 256])
+def test_resident_backward_matches_plain(cuda, batch, hidden):
+    """K1's W-resident bf16 backward against ``bigru_pooled_bwd_plain`` on
+    the training forward's state (T=105, ragged lengths with a full row, a
+    zero length and a row that ties at every step): dx and dW within
+    K1_BWD_TOL of the largest, dx and dhg exactly zero at every step past a
+    row's length, one launch counted a call (the launch alone's too)."""
+    assert gru.bwd_kernel(torch.bfloat16) == "bigru_resident_bwd"
+    args = _k1_args(batch, 105, hidden, torch.bfloat16, cuda,
+                    seed=batch + hidden)
+    if batch > 2:
+        args[4][batch - 2] = 0
+        args[4][1] = 60
+        _tie_row(args, 1)
+    g = torch.randn(batch, 2 * hidden,
+                    generator=torch.Generator().manual_seed(3)).to(
+                        cuda, torch.bfloat16)
+    pooled, hp, gates, argmax = gru.bigru_pooled_fwd_train(*args)
+    if batch > 2:
+        assert bool((argmax[1] == 0).all())  # the tie: the first step
+        assert bool((argmax[batch - 2] == -1).all())
+    before = gru.bigru_pooled_bwd.launches
+    got = gru.bigru_pooled_bwd(g, args[2], args[3], args[4], hp, gates,
+                               argmax)
+    assert gru.bigru_pooled_bwd.launches == before + 1
+    _, _, dhg = gru.launch_bigru_pooled_bwd(g, args[2], args[3], args[4], hp,
+                                           gates, argmax)
+    torch.cuda.synchronize()
+    assert gru.bigru_pooled_bwd.launches == before + 2
+    want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], args[4], hp, gates,
+                                      argmax)
+    for key, a, b in zip(("dx", "dx", "dw", "dw"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K1_BWD_TOL[torch.bfloat16][key] * \
+            b.float().abs().max().item()
+    for b, n in enumerate(args[4].tolist()):
+        for dx in got[:2]:
+            assert torch.count_nonzero(dx[b, n:]) == 0
+        assert torch.count_nonzero(dhg[:, b, n:]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "bigru_resident_bwd"),
+    (torch.float32, "bigru_pooled_bwd")])
+def test_bigru_function_routes_its_backward_by_dtype(cuda, dtype, entry,
+                                                     monkeypatch):
+    """The autograd Function's backward is ``_BigruPooledBackward``, which
+    launches the W-resident kernel in bf16 and the streamed one in f32, one
+    counted launch each; its gradients match the plain backward's."""
+    launched = []
+    launch = gru._launch
+
+    def spy(name, *args):
+        launched.append(name)
+        return launch(name, *args)
+
+    monkeypatch.setattr(gru, "_launch", spy)
+    args = _k1_args(6, 12, 64, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+    pooled = gru._BigruPooled.apply(*leaves, args[4], True)
+    assert type(pooled.grad_fn).__name__ == "_BigruPooledBackward"
+    g = torch.randn(6, 128, device=cuda).to(dtype)
+    before = (gru.bigru_pooled_scan.launches, gru.bigru_pooled_bwd.launches)
+    got = torch.autograd.grad(pooled, leaves, g)
+    torch.cuda.synchronize()
+    assert launched == ["bigru_pooled_fwd_train", entry]
+    assert (gru.bigru_pooled_scan.launches,
+            gru.bigru_pooled_bwd.launches) == (before[0], before[1] + 1)
+    # the plain backward on the kernel forward's state (a repeat launch
+    # gives it bit for bit), so that a near-tie cannot move an argmax
+    state = gru.bigru_pooled_fwd_train(*args)[1:]
+    want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], args[4], *state)
+    tol = K1_BWD_TOL[dtype]
+    for key, a, b in zip(("dx", "dx", "dw", "dw"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol[key] * b.float().abs().max().item()
 
 
 @pytest.mark.gpu

@@ -1,6 +1,8 @@
-// bigru_pooled_fwd_train, bigru_pooled_bwd: the training forward of K1
+// bigru_pooled_fwd_train, bigru_pooled_bwd: the f32 training forward of K1
 // (bigru_pooled.cu, the fused 1-layer bi-GRU with masked max pooling) and
-// its backward.
+// its f32 backward.  bf16 runs the W-resident kernels of bigru_resident.cu
+// and bigru_resident_bwd.cu; this backward's bf16 instantiation is kept
+// only to be timed against them (tools/gru_variants.py:streamed_backward).
 //
 // Replaces: the VJP of textreid_tpu/ops/gru_pallas.py:bigru_pooled_scan's
 // custom_vjp (`bwd`, which differentiates _xla_pooled_forward through XLA:
@@ -454,7 +456,8 @@ extern "C" int bigru_pooled_fwd_train_streamed(
       static_cast<cudaStream_t>(stream)));
 }
 
-// The backward: g [B, 2H] and wt_f, wt_b = W^T [3H, H] in the input dtype,
+// The backward (f32 on the main path; ops/gru.py:bwd_kernel is the rule):
+// g [B, 2H] and wt_f, wt_b = W^T [3H, H] in the input dtype,
 // lengths, the training forward's hp, gates and argmax -> dxf, dxb
 // [B, T, 3H] in the input dtype and dhg [2, B, T, 3H] f32 (dW = hp^T dhg
 // is the wrapper's product).

@@ -1,11 +1,13 @@
 // The pieces shared by the W-resident GRU kernels: bigru_resident.cu (K1's
-// bf16 forward, both directions, pooled) and gru_scan_resident.cu (K3's bf16
-// forward, one direction, every h_t).  Both split a direction's H units over
-// a cluster of H / 32 blocks, hold a block's [H, 96] bf16 slice of W in
-// registers as mma.sync B fragments, split h into hi + lo bf16 planes and
-// send a block's new slice of h to every peer with one cp.async.bulk that
-// completes on the peer's mbarrier (the design is described in
-// bigru_resident.cu).  Only device helpers, constants and the host's
+// bf16 forward, both directions, pooled), gru_scan_resident.cu (K3's bf16
+// forward, one direction, every h_t) and bigru_resident_bwd.cu (K1's bf16
+// backward).  The forwards split a direction's H units over a cluster of
+// H / 32 blocks, hold a block's [H, 96] bf16 slice of W in registers as
+// mma.sync B fragments, split h into hi + lo bf16 planes and send a block's
+// new slice of h to every peer with one cp.async.bulk that completes on the
+// peer's mbarrier (the design is described in bigru_resident.cu); the
+// backward keeps the same slice as fragments of W^T and sends partial sums
+// with st.async.  Only device helpers, constants and the host's
 // row-group plan are shared here; each kernel keeps its own step loop, so
 // that a change made for one cannot cost the other registers.
 
@@ -112,6 +114,27 @@ __device__ __forceinline__ void copy_to_peer(const void* src, uint32_t bytes,
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
       " [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "r"(smem_addr(src)), "r"(bytes), "r"(rbar) : "memory");
+}
+
+// The address of `p` (this block's shared memory) in block `peer`'s, as a
+// shared::cluster address; offsets from it are linear
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int peer) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_addr(p)), "r"(peer));
+  return out;
+}
+
+// 16 bytes from registers into a peer's shared memory (a shared::cluster
+// address), completing on the peer's mbarrier at `bar` (ditto)
+__device__ __forceinline__ void st_async_v4(uint32_t dst, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+         "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
 }
 
 // N consecutive bf16 of global memory -> floats (N = 2 or 4, aligned)

@@ -44,8 +44,13 @@ SIGNATURES = {
     # comparison, off the main path): the same arguments
     "bigru_pooled_fwd_streamed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P),
-    # g, wt_f, wt_b, lengths, hp, gates, argmax, dxf, dxb, dhg, B, T, H,
-    # is_bf16, stream
+    # K1's backward in bf16 (W resident): g, w_f, w_b, lengths, hp, gates,
+    # argmax, dxf, dxb, dhg, B, T, H, stream
+    "bigru_resident_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _P),
+    # ... in f32 (streamed; its bf16 is kept for comparison, off the main
+    # path): g, wt_f, wt_b (W^T), lengths, hp, gates, argmax, dxf, dxb,
+    # dhg, B, T, H, is_bf16, stream
     "bigru_pooled_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _P),
     # q, g, vals, idx, part_vals, part_idx, tickets, Q, G, D, k,
@@ -189,10 +194,15 @@ def library() -> ctypes.CDLL:
     lib.bigru_pooled_bwd_clusters.restype = ctypes.c_int
     # B, H, out: rows a cluster and clusters of K1's bf16 forward, and the
     # clusters of 32 and of 16 rows the card holds at once
-    # ... and the same of K3's bf16 scan (one direction)
-    for name in ("bigru_resident_plan", "gru_scan_resident_plan"):
+    # ... and the same of K1's bf16 backward and of K3's bf16 scan (one
+    # direction)
+    for name in ("bigru_resident_plan", "bigru_resident_bwd_plan",
+                 "gru_scan_resident_plan"):
         getattr(lib, name).argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
         getattr(lib, name).restype = ctypes.c_int
+    # H, rows: a block's shared memory of K1's bf16 backward, in bytes
+    lib.bigru_resident_bwd_smem.argtypes = [_I, _I]
+    lib.bigru_resident_bwd_smem.restype = ctypes.c_int
     # K, N, M, out: K7's blocks a cluster and rows a tile
     lib.int8_ffn_plan.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 2
     lib.int8_ffn_plan.restype = ctypes.c_int

@@ -12,10 +12,12 @@ the streamed kernels of ``csrc/bigru_pooled.cu`` and
 ``csrc/bigru_pooled_bwd.cu``; the one-direction scan in bf16 the same
 design, ``csrc/gru_scan_resident.cu``, in f32 the streamed
 ``csrc/gru_scan.cu`` (:func:`scan_kernel` is the rule).
-The fused scan's backward is a kernel too
-(``csrc/bigru_pooled_bwd.cu``), fed by a training forward that keeps each
-step's state (the JAX package's custom VJP differentiates its XLA scan
-instead: it has no backward kernel); the one-direction scan's backward
+The fused scan's backward is a kernel too, fed by a training forward that
+keeps each step's state (the JAX package's custom VJP differentiates its
+XLA scan instead: it has no backward kernel): in bf16 the W-resident
+``csrc/bigru_resident_bwd.cu``, in f32 the streamed
+``csrc/bigru_pooled_bwd.cu`` (:func:`bwd_kernel` is the rule); the
+one-direction scan's backward
 differentiates its plain version, as the JAX package's does.  On a CPU
 tensor each runs its plain versions (``*_plain``), the kernels' contracts.
 Nothing falls back from one to the other.
@@ -35,14 +37,19 @@ import torch
 
 from . import _build
 
-# The backward kernel's blocks run H / 2 threads, at most 256 so that two
-# fit an SM (csrc/bigru_pooled_bwd.cu); the training forward feeds only it
+# The backward kernels' bound, and so the training forward's (it feeds only
+# them): the bf16 kernel's cluster has H / 32 blocks, at most 16
+# (csrc/bigru_resident_bwd.cu); the f32 kernel's blocks run H / 2 threads,
+# at most 256 so that two fit an SM (csrc/bigru_pooled_bwd.cu)
 MAX_TRAIN_HIDDEN = 512
 # The bf16 forward's cluster has H / 32 blocks, at most 16
 # (csrc/bigru_resident.cu)
 MAX_RESIDENT_HIDDEN = 512
-# rows a cluster of the bf16 forward takes, in order of preference
+# rows a cluster of the bf16 forward and backward takes, in order of
+# preference
 RESIDENT_ROWS = (32, 16)
+# Shared memory a block can use (H100: 227 KB)
+MAX_SHARED_BYTES = 232448
 
 
 def resident_plan(batch: int, capacity: dict, directions: int = 2) -> tuple:
@@ -74,6 +81,28 @@ def scan_kernel(dtype: torch.dtype, hidden: int) -> str:
             and hidden <= MAX_RESIDENT_HIDDEN):
         return "gru_scan_fwd_resident"
     return "gru_scan_fwd"
+
+
+def bwd_kernel(dtype: torch.dtype) -> str:
+    """The entry point K1's backward launches for ``dtype`` (every H the
+    backward admits, ``H % 32 == 0`` and ``H <= MAX_TRAIN_HIDDEN``, fits
+    both kernels): bf16 runs the W-resident kernel
+    (``csrc/bigru_resident_bwd.cu``: W in registers across H / 32 blocks,
+    dh reduce-scattered between them); f32 (whose W slice does not fit the
+    registers) runs the streamed kernel (``csrc/bigru_pooled_bwd.cu``,
+    which takes W transposed)."""
+    if dtype == torch.bfloat16:
+        return "bigru_resident_bwd"
+    return "bigru_pooled_bwd"
+
+
+def resident_bwd_smem(hidden: int, rows: int) -> int:
+    """Shared memory of a block of the W-resident backward, as
+    ``csrc/bigru_resident_bwd.cu:resident_bwd_smem`` computes it: the
+    receive buffers ``[2][H / 32 peers][rows][32]`` f32, the A tile ``[2
+    planes][rows][96 + 8]`` bf16 and two mbarriers (chip_smoke.py holds it
+    against the library's ``bigru_resident_bwd_smem`` on the card)."""
+    return 4 * 2 * (hidden // 32) * rows * 32 + 2 * 2 * rows * 104 + 16
 
 
 def bigru_pooled_scan_plain(xf: torch.Tensor, xb: torch.Tensor,
@@ -205,7 +234,7 @@ def _check_inputs(xf, xb, w_f, w_b, lengths, train=False) -> None:
                          f"T >= 1, B >= 1; got {tuple(xf.shape)}")
     if train and hidden > MAX_TRAIN_HIDDEN:
         raise ValueError(f"bigru_pooled_bwd needs H <= {MAX_TRAIN_HIDDEN} "
-                         f"(H / 2 threads a block); got H={hidden}")
+                         f"(the backward kernels' bound); got H={hidden}")
     if xf.dtype == torch.bfloat16 and hidden > MAX_RESIDENT_HIDDEN:
         raise ValueError(f"bigru_pooled_fwd in bf16 needs H <= "
                          f"{MAX_RESIDENT_HIDDEN} (H / 32 blocks a cluster); "
@@ -292,10 +321,11 @@ def bigru_pooled_bwd(g: torch.Tensor, w_f: torch.Tensor, w_b: torch.Tensor,
                      gates: torch.Tensor, argmax: torch.Tensor):
     """The gradient of the pooled scan from the training forward's state:
     ``(dxf, dxb, dw_f, dw_b)`` as :func:`bigru_pooled_bwd_plain` returns
-    them.  A CUDA tensor launches ``bigru_pooled_bwd`` (counted in
-    ``bigru_pooled_bwd.launches``), which writes ``dx`` and the f32 ``dhg``;
-    ``dW = hp^T dhg`` is then one f32 product over ``B T`` rows, as the JAX
-    package leaves it to XLA.  A CPU tensor runs the plain version."""
+    them.  A CUDA tensor launches the kernel :func:`bwd_kernel` names
+    (counted in ``bigru_pooled_bwd.launches``), which writes ``dx`` and the
+    f32 ``dhg``; ``dW = hp^T dhg`` is then one f32 product over ``B T``
+    rows, as the JAX package leaves it to XLA.  A CPU tensor runs the plain
+    version."""
     if not g.is_cuda:
         return bigru_pooled_bwd_plain(g, w_f, w_b, lengths, hp, gates, argmax)
     two, batch, seq, hidden = hp.shape
@@ -320,17 +350,37 @@ def bigru_pooled_bwd(g: torch.Tensor, w_f: torch.Tensor, w_b: torch.Tensor,
     _check_on_card(g, (("g", g),), (("w_f", w_f), ("w_b", w_b),
                                     ("lengths", lengths), ("hp", hp),
                                     ("gates", gates), ("argmax", argmax)))
+    dxf, dxb, dhg = launch_bigru_pooled_bwd(g, w_f, w_b, lengths, hp, gates,
+                                           argmax)
+    dw = torch.bmm(hp.view(2, -1, hidden).transpose(1, 2),
+                   dhg.view(2, -1, 3 * hidden))
+    return dxf, dxb, dw[0].to(w_f.dtype), dw[1].to(w_b.dtype)
+
+
+def launch_bigru_pooled_bwd(g, w_f, w_b, lengths, hp, gates, argmax):
+    """The launch of :func:`bigru_pooled_bwd` alone, on CUDA inputs it has
+    checked: the kernel :func:`bwd_kernel` names -> ``(dxf, dxb, dhg)``,
+    counted in ``bigru_pooled_bwd.launches``."""
+    _, batch, seq, hidden = hp.shape
     dxf = torch.empty(batch, seq, 3 * hidden, dtype=g.dtype, device=g.device)
     dxb = torch.empty_like(dxf)
     dhg = torch.empty(2, batch, seq, 3 * hidden, dtype=torch.float32,
                       device=g.device)
-    _launch("bigru_pooled_bwd", g, w_f.t().contiguous(),
-            w_b.t().contiguous(), lengths, hp, gates, argmax, dxf, dxb, dhg,
-            batch, seq, hidden, int(g.dtype == torch.bfloat16))
+    entry = bwd_kernel(g.dtype)
+    if entry == "bigru_resident_bwd":
+        if any(t.data_ptr() % 16 for t in (g, w_f, w_b)):
+            # the kernel reads a thread's pool gradients as one vector and
+            # W's columns as 32-bit words
+            raise ValueError("g, w_f and w_b must start on a 16-byte "
+                             "boundary")
+        _launch(entry, g, w_f, w_b, lengths, hp, gates, argmax, dxf, dxb,
+                dhg, batch, seq, hidden)
+    else:
+        _launch(entry, g, w_f.t().contiguous(), w_b.t().contiguous(),
+                lengths, hp, gates, argmax, dxf, dxb, dhg, batch, seq,
+                hidden, int(g.dtype == torch.bfloat16))
     bigru_pooled_bwd.launches += 1
-    dw = torch.bmm(hp.view(2, -1, hidden).transpose(1, 2),
-                   dhg.view(2, -1, 3 * hidden))
-    return dxf, dxb, dw[0].to(w_f.dtype), dw[1].to(w_b.dtype)
+    return dxf, dxb, dhg
 
 
 class _BigruPooled(torch.autograd.Function):

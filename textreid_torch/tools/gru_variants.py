@@ -2,9 +2,11 @@
 backward; K3: the one-direction scan) side by side.
 
 A development aid for ``csrc/bigru_resident.cu`` (K1's bf16 forward),
-``csrc/bigru_pooled.cu``, ``csrc/bigru_pooled_bwd.cu``,
-``csrc/gru_scan_resident.cu`` (K3's bf16 forward) and ``csrc/gru_scan.cu``
-(K3's streamed kernel): each variant is those sources (with the headers
+``csrc/bigru_resident_bwd.cu`` (K1's bf16 backward),
+``csrc/bigru_pooled.cu``, ``csrc/bigru_pooled_bwd.cu`` (the streamed
+kernels: f32, and bf16 for comparison), ``csrc/gru_scan_resident.cu``
+(K3's bf16 forward) and ``csrc/gru_scan.cu`` (K3's streamed kernel): each
+variant is those sources (with the headers
 ``gru_cell.cuh`` and ``gru_resident.cuh`` beside them) after a few text
 substitutions, built by its
 own ``nvcc`` into ``build/gru_variants/`` and loaded with ctypes beside the
@@ -21,9 +23,12 @@ variant, bf16, H=512, T=105 (the variants marked "wrong" compute garbage
 and are there for their times alone): the pooled-only forward at B=256, 128 and 64
 (and the streamed kernel it replaced, kept for comparison, at B=256),
 one dependent forward step (the slope from T=5 to T=105 at B=8), the
-backward kernel alone at B=128 (the lesser of two rounds of CUDA events)
-with its largest error against ``bigru_pooled_bwd_plain`` on the same
-saved state, relative to the plain gradient's largest magnitude; then K3,
+W-resident backward kernel and the streamed one it replaced in bf16
+(``streamed_backward``), each alone at B=128 (the lesser of two rounds of
+CUDA events) with its largest error against ``bigru_pooled_bwd_plain`` on
+the same saved state, relative to the plain gradient's largest magnitude,
+and each one's dependent step (the slope from T=55 to T=105 at B=8); then
+K3,
 the W-resident scan at B=256, 128 and 1 and the streamed one at B=256,
 and each one's dependent step.
 """
@@ -43,12 +48,25 @@ from ..ops import _build, gru
 
 OUT = _build.BUILD_DIR.parent / "gru_variants"
 _MMA = "                mma_bf16(acc[mt][j], a_{}, bw[i][j]);\n"
+_BWD_MMA = "                mma_bf16(acc[j], a_{}, bw[i][j]);\n"
 VARIANTS = {  # name: [(text, replacement), ...]
     "as committed": [],
-    "backward 2 threads a unit": [("constexpr int kBwdParts = 4;",
-                                   "constexpr int kBwdParts = 2;")],
-    "forward in 32-row groups": [("const int options[2] = {32, 16};",
-                                  "const int options[2] = {32, 32};")],
+    "streamed backward 2 threads a unit": [("constexpr int kBwdParts = 4;",
+                                            "constexpr int kBwdParts = 2;")],
+    "forward and backward in 32-row groups": [
+        ("const int options[2] = {32, 16};",
+         "const int options[2] = {32, 32};")],
+    # deliberately wrong, for the time alone: what a backward step spends
+    # on its products, on the lo half of them, and on the exchange of the
+    # partial sums
+    "backward without products (wrong)": [(_BWD_MMA.format("hi"), ""),
+                                          (_BWD_MMA.format("lo"), "")],
+    "backward without lo products (wrong)": [(_BWD_MMA.format("lo"), "")],
+    "backward without exchange (wrong)": [
+        ("            sizeof(float) * (csize - 1) * R * kUnits));",
+         "            0 * sizeof(float) * (csize - 1) * R * kUnits));"),
+        ("            st_async_v4(peer_recv[p]",
+         "            if (0) st_async_v4(peer_recv[p]")],
     # deliberately wrong, for the time alone: what a forward step spends on
     # its products, on the lo half of them, and on its copies
     "forward without products (wrong)": [(_MMA.format("hi"), ""),
@@ -74,6 +92,24 @@ def streamed_forward(xf: torch.Tensor, xb: torch.Tensor, w_f: torch.Tensor,
     gru._launch("bigru_pooled_fwd_streamed", xf, xb, w_f, w_b, lengths, out,
                 batch, seq, three_h // 3, int(xf.dtype == torch.bfloat16))
     return out
+
+
+def streamed_backward(g: torch.Tensor, w_f: torch.Tensor, w_b: torch.Tensor,
+                      lengths: torch.Tensor, hp: torch.Tensor,
+                      gates: torch.Tensor, argmax: torch.Tensor) -> tuple:
+    """K1's backward ``(dxf, dxb, dhg)`` (before the wrapper's dW product)
+    through the streamed kernel of ``csrc/bigru_pooled_bwd.cu``, W
+    transposed as its route did every call.  The W-resident kernel
+    replaced it for bf16 on the main path (f32 still runs it there).  For
+    comparison only: it counts no launch, and the port does not call it."""
+    _, batch, seq, hidden = hp.shape
+    dxf = torch.empty(batch, seq, 3 * hidden, dtype=g.dtype, device=g.device)
+    dxb = torch.empty_like(dxf)
+    dhg = torch.empty(2, batch, seq, 3 * hidden, device=g.device)
+    gru._launch("bigru_pooled_bwd", g, w_f.t().contiguous(),
+                w_b.t().contiguous(), lengths, hp, gates, argmax, dxf, dxb,
+                dhg, batch, seq, hidden, int(g.dtype == torch.bfloat16))
+    return dxf, dxb, dhg
 
 
 def streamed_scan(x: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
@@ -112,7 +148,8 @@ def _start_build(name: str, csrc: Path, edits) -> tuple:
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name in ("bigru_pooled_fwd", "bigru_pooled_fwd_train",
-                 "bigru_pooled_bwd", "bigru_pooled_fwd_streamed",
+                 "bigru_pooled_bwd", "bigru_resident_bwd",
+                 "bigru_pooled_fwd_streamed",
                  "gru_scan_fwd", "gru_scan_fwd_resident"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = list(_build.SIGNATURES[name])
@@ -174,34 +211,54 @@ def _time(name: str, lib: ctypes.CDLL) -> None:
     slope = [min(_ms(c), _ms(c)) for c in (fwd(_inputs(8, 5)),
                                            fwd(_inputs(8, 105)))]
     line.append(f"step {(slope[1] - slope[0]) / 100 * 1e3:.2f} us")
-    if hasattr(lib, "bigru_pooled_bwd"):
-        args = _inputs(128, 105, seed=4)
-        _, *saved = gru.bigru_pooled_fwd_train_plain(*args)
-        g = torch.randn(128, 1024, device="cuda").bfloat16()
-        wt = [w.t().contiguous() for w in args[2:4]]
-        dxf, dxb = (torch.empty_like(args[0]) for _ in range(2))
-        dhg = torch.empty(2, 128, 105, 1536, device="cuda")
-
-        def bwd():
-            return lib.bigru_pooled_bwd(
-                ptr(g), *map(ptr, wt), ptr(args[4]), *map(ptr, saved),
-                ptr(dxf), ptr(dxb), ptr(dhg), 128, 105, 512, 1, stream)
-
-        code = bwd()
-        torch.cuda.synchronize()
-        want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], args[4],
-                                          *saved)
-        hp = saved[0]
-        dw = torch.bmm(hp.view(2, -1, 512).transpose(1, 2),
-                       dhg.view(2, -1, 1536))
-        got = (dxf, dxb, dw[0].bfloat16(), dw[1].bfloat16())
-        err = max(((a.float() - b.float()).abs().max()
-                   / b.float().abs().max()).item()
-                  for a, b in zip(got, want))
-        line.append(f"backward kernel B=128 {min(_ms(bwd), _ms(bwd)):.4f} ms "
-                    f"(error {err:.1e}, launch code {code})")
+    for entry, kind in (("bigru_resident_bwd", "W-resident"),
+                        ("bigru_pooled_bwd", "streamed")):
+        if not hasattr(lib, entry):
+            continue
+        bwd, err, code = _backward(lib, entry, 128, 105)
+        line.append(f"{kind} backward B=128 {min(_ms(bwd), _ms(bwd)):.4f} "
+                    f"ms (error {err:.1e}, launch code {code})")
+        slope = [min(_ms(c), _ms(c)) for c in (
+            _backward(lib, entry, 8, 55)[0], _backward(lib, entry, 8, 105)[0])]
+        line.append(f"{kind} backward step "
+                    f"{(slope[1] - slope[0]) / 50 * 1e3:.2f} us")
     _time_scan(lib, line)
     print(", ".join(line), flush=True)
+
+
+def _backward(lib: ctypes.CDLL, entry: str, batch: int, seq: int) -> tuple:
+    """A call of ``lib``'s K1 backward ``entry`` (bf16, H=512) on the plain
+    training forward's state, its largest error against
+    ``bigru_pooled_bwd_plain`` (dx, and dW through the wrapper's product)
+    relative to the plain gradient's largest magnitude, and the first
+    call's launch code: ``(call, error, code)``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    args = _inputs(batch, seq, seed=4)
+    _, *saved = gru.bigru_pooled_fwd_train_plain(*args)
+    g = torch.randn(batch, 1024, device="cuda").bfloat16()
+    dxf, dxb = (torch.empty_like(args[0]) for _ in range(2))
+    dhg = torch.empty(2, batch, seq, 1536, device="cuda")
+    if entry == "bigru_resident_bwd":
+        w, extra = args[2:4], ()
+    else:
+        w, extra = [t.t().contiguous() for t in args[2:4]], (1,)
+    fn = getattr(lib, entry)
+
+    def call():
+        return fn(g.data_ptr(), *(t.data_ptr() for t in w),
+                  args[4].data_ptr(), *(t.data_ptr() for t in saved),
+                  dxf.data_ptr(), dxb.data_ptr(), dhg.data_ptr(), batch, seq,
+                  512, *extra, stream)
+
+    code = call()
+    torch.cuda.synchronize()
+    want = gru.bigru_pooled_bwd_plain(g, args[2], args[3], args[4], *saved)
+    dw = torch.bmm(saved[0].view(2, -1, 512).transpose(1, 2),
+                   dhg.view(2, -1, 1536))
+    got = (dxf, dxb, dw[0].bfloat16(), dw[1].bfloat16())
+    err = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item() for a, b in zip(got, want))
+    return call, err, code
 
 
 def _scan_inputs(batch, seq, hidden=512, seed=1):
