@@ -201,7 +201,29 @@ before the result line:
     HTTP beside the unsharded index: replies equal (DP_SEARCH_TOL, rows
     equal outside ties), K2 / K4 once a shard a search, ``/search`` p50
     of each.  ``python3 chip_smoke.py --dp`` runs this phase alone (a
-    development aid, no result line).
+    development aid, no result line); ``--dp-f64`` runs (a) in f32 and
+    then in f64 (masters and towers; the plain versions, as K1 has no f64
+    kernel) and logs both distances from one process.
+14. The tools and the quickstart (after K2's and K4's timings, before the
+    int8 profiles; ``drive_tools``): ``tools.export_torch`` on phase 8's
+    ``best.pth``, the file installed into a fresh state by
+    ``install_reference_checkpoint`` equal bit for bit to ``best.pth``
+    restored whole (query model, key towers, queues, pointer);
+    ``tools.parity_eval`` on it against ``test_net``'s t2i row (both f32):
+    rc 0, its npz replayed by ``test_net --load-result`` to the same row,
+    and rc 1 with the row moved by twice the budget; ``tools.bench_loader``
+    at 384x128 (4 and 8 threads, 32 batches of 128 an epoch, timed after
+    the first batch) against the demand of phase 10's flagship step time;
+    ``tools.int8_ffn_ab`` (its towers' minimum cosine, on against off, >=
+    INT8_COSINE_BAR); ``python -m textreid_torch.quickstart`` on ``cuda``
+    with K1 (forward, backward: one a step) and K2 launches counted into
+    the ``kernels`` line; last ``tools.profile_step --steps 2`` on the
+    flagship: K1's forward and backward, the convolutions and the products
+    above 0, no streamed backward, the step's device time within
+    PROFILE_TOOL_RTOL of ``profile_steps`` on the same step
+    (``profile_step.build_step``) in this process.  Every step profile of
+    the script (phases 10 and 14, accum8's) is the tool's summary
+    (:func:`profile_steps`).
 
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
@@ -307,21 +329,21 @@ INT8_COSINE_BAR = 0.999
 # served scores of the int8 encoders, kernels against plain versions: a
 # one-step difference of an int8 activation in 12 layers of bf16 towers
 INT8_SLICE_TOL = 5e-3
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): the roofline bounds
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# the roofline bounds take the card's peaks from
+# textreid_torch/utils/profiling.py:DEVICE_PEAKS (the NVIDIA H100 SXM's
+# dense data-sheet rates: 3.35 TB/s; 989 TFLOP/s bf16, 67 f32, 1,979 TOP/s
+# int8), the table tools/profile_step.py reads too
+BOUND_CARD = "NVIDIA H100 80GB HBM3"
 
 
 def bound(n_bytes, n_ops, dtype_name=None):
     """(bound ms, what binds): the larger of bytes over the memory rate and
     operations over the peak rate of ``dtype_name``; ``n_ops`` may instead
-    be a {dtype name: operations} dict, whose times at each rate add up."""
-    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    if not isinstance(n_ops, dict):
-        n_ops = {dtype_name: n_ops}
-    by_ops = sum(n / PEAK_OPS_S[name] for name, n in n_ops.items()) * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                            "operations")
+    be a {dtype name: operations} dict, whose times at each rate add up
+    (``utils/profiling.py:bound_ms`` at BOUND_CARD's peaks)."""
+    from textreid_torch.utils.profiling import bound_ms, device_peaks
+
+    return bound_ms(n_bytes, n_ops, device_peaks(BOUND_CARD), dtype_name)
 
 
 def fail(msg):
@@ -1926,10 +1948,9 @@ def time_int8_encoders(service, base, built):
     tower's forward with ``fused_ffn`` on and off beside the float tower,
     and /search p50 with the int8 text tower against the float one."""
     import torch
-    from textreid_torch.models.int8_text import int8_text_apply
-    from textreid_torch.models.int8_vit import int8_vit_apply
     from textreid_torch.models.model import preprocess_pixels
     from textreid_torch.serving import RetrievalIndex
+    from textreid_torch.tools.int8_ffn_ab import encode_cases
 
     out = {}
     index = service.index
@@ -1958,26 +1979,16 @@ def time_int8_encoders(service, base, built):
     dev = torch.from_numpy(batches[0]).cuda()
     x = preprocess_pixels(dev, None, model.pixel_mean, model.pixel_std)
     visual, v_tower = model.visual_model, built._int8_image_tower
-    textual, t_tower = model.textual_model, index._int8_text_tower
+    t_tower = index._int8_text_tower
     seq = service.max_text_length
     lens_np = rng.randint(5, seq + 1, 256).astype(np.int64)
     ids_np = np.zeros((256, seq), np.int64)
     for i, n in enumerate(lens_np):
         ids_np[i, :n] = rng.randint(1, 49408, n)
     ids, lens = torch.from_numpy(ids_np).cuda(), torch.from_numpy(lens_np).cuda()
+    # the cases of tools/int8_ffn_ab.py, which times them alone
+    cases = encode_cases(model, v_tower, t_tower, x, ids, lens)
     with torch.inference_mode():
-        cases = {
-            ("vit", "float"): lambda: model.encode_image(x),
-            ("vit", "off"): lambda: int8_vit_apply(visual, v_tower, x,
-                                                   fused_ffn=False),
-            ("vit", "on"): lambda: int8_vit_apply(visual, v_tower, x,
-                                                  fused_ffn=True),
-            ("text", "float"): lambda: model.encode_text(ids, lens),
-            ("text", "on"): lambda: int8_text_apply(textual, t_tower, ids,
-                                                    lens, fused_ffn=True),
-            ("text", "off"): lambda: int8_text_apply(textual, t_tower, ids,
-                                                     lens, fused_ffn=False),
-        }
         for _ in range(2):  # two rounds, so each case is timed twice apart
             for key, fn in cases.items():
                 out.setdefault(key, []).append(cuda_ms(fn, 5))
@@ -2662,34 +2673,30 @@ def kernel_bounds(bwd_steps):
     output written once, against the operations of the function.
     ``bwd_steps``: the (row, step) pairs with ``t < len`` of K1's timed
     backward inputs, the steps whose gradient its data needs."""
+    from textreid_torch.utils.profiling import (
+        attention_work,
+        k1_backward_work,
+        k1_forward_work,
+    )
+
     b, t, h = 256, 105, 512  # K1, K3: a batch of 256, bf16
     tb = 128  # K1's backward: the train step's batch, bf16
     q, d, g, k = 256, 256, 3074, 10  # K2, K4: the 3,074-row gallery
     ab, s, w, heads = 128, 193, 768, 12  # K5, K6: ViT-B/16 at 384x128, bf16
-    matmul = 2 * ab * heads * s * s * (w // heads)  # one [S,S] x [S,hd]
     (_, vr, vk, vn), (_, tr, tk, tn) = INT8_SHAPES[:2]  # K8, K9; K7
-    k1_bwd_bytes = (2 * tb * 2 * h + 2 * 2 * 3 * h * h + 4 * tb
-                    + 4 * 2 * tb * t * 5 * h + 4 * tb * 2 * h
-                    + 2 * 2 * tb * t * 3 * h + 2 * 2 * h * 3 * h)
+    k1_bwd_bytes, k1_bwd_ops = k1_backward_work(tb, t, h, bwd_steps)
     return {
-        # both directions: x and W read, the pooled [B, 2H] written;
-        # T steps of [B, H] x [H, 3H]
-        "bigru_pooled_fwd": bound(
-            2 * (2 * b * t * 3 * h + 2 * h * 3 * h + b * 2 * h),
-            2 * t * 2 * b * h * 3 * h, "bfloat16"),
-        # both directions: g, W, lengths, the saved f32 state (h_{t-1}, 4
-        # gates) and argmax read, dx and dW written; per valid (row, step)
-        # its share of dW at the f32 rate (dW is an f32 product) and the
-        # serial [3H] x [3H, H] product at the bf16 rate, twice (the bf16
-        # kernel runs it on the tensor cores as hi and lo products)
-        "bigru_pooled_bwd": bound(
-            k1_bwd_bytes,
-            {"float32": 2 * bwd_steps * 2 * 3 * h * h,
-             "bfloat16": 2 * 2 * bwd_steps * 2 * 3 * h * h}),
-        # ... as rows before this kernel priced it: both products at the
-        # f32 rate (logged beside the row, for comparison with them)
+        # the pooled-only forward (utils/profiling.py:k1_forward_work)
+        "bigru_pooled_fwd": bound(*k1_forward_work(b, t, h)),
+        # the backward with dW at the f32 rate and the serial product at
+        # the bf16 rate, twice (utils/profiling.py:k1_backward_work)
+        "bigru_pooled_bwd": bound(k1_bwd_bytes, k1_bwd_ops),
+        # ... as rows before this kernel priced it: both products (the
+        # serial one once) at the f32 rate (logged beside the row, for
+        # comparison with them)
         "bigru_pooled_bwd f32-priced": bound(
-            k1_bwd_bytes, 2 * 2 * bwd_steps * 2 * 3 * h * h, "float32"),
+            k1_bwd_bytes, k1_bwd_ops["float32"] + k1_bwd_ops["bfloat16"] // 2,
+            "float32"),
         # one direction: x, W and h0 read, every h_t written
         "gru_scan_fwd": bound(
             2 * (b * t * 3 * h + h * 3 * h + b * h + b * t * h),
@@ -2697,11 +2704,11 @@ def kernel_bounds(bwd_steps):
         "topk_similarity_f32": topk_bound("f32", q, g, d, k),
         "topk_similarity_int8": topk_bound("int8", q, g, d, k),
         # qkv read, out written; QK^T and PV
-        "fused_attention_fwd": bound(2 * ab * s * 4 * w, 2 * matmul,
+        "fused_attention_fwd": bound(*attention_work(ab, s, w, heads),
                                      "bfloat16"),
         # qkv and g read, dqkv written; S, dP, dV, dQ, dK
-        "fused_attention_bwd": bound(2 * ab * s * 7 * w, 5 * matmul,
-                                     "bfloat16"),
+        "fused_attention_bwd": bound(
+            *attention_work(ab, s, w, heads, backward=True), "bfloat16"),
         # the text FFN (bf16 out): int8 rows and both weights read, the
         # output written; two s8 products
         "int8_ffn": bound(
@@ -3536,12 +3543,19 @@ def drive_flagship_protocol():
         f"{state.step}")
     del state, meters
     torch.cuda.empty_cache()
-    shutil.rmtree(os.path.join(root, "output"))  # ~6 GB of checkpoints
+    # the straight run's best.pth is kept for the tools' phase
+    # (drive_tools), the rest deleted: ~6 GB of checkpoints
+    kept_best = os.path.join(WORK, "tools", "best.pth")
+    os.makedirs(os.path.dirname(kept_best), exist_ok=True)
+    os.replace(os.path.join(out_of("straight"), "best.pth"), kept_best)
+    shutil.rmtree(os.path.join(root, "output"))
     log(f"flagship as shipped: the phase took {time.time() - t_phase:.1f} s")
     return counts, {"eval_s": [e[2] for e in evals],
                     "snapshot_s": [s[1] for s in saves],
                     "write_s": [s[2] for s in saves], "restart_s": restart_s,
-                    "top1": top1, "test_top1": test_top1}
+                    "top1": top1, "test_top1": test_top1, "root": root,
+                    "yaml": yaml_of("straight"), "best": kept_best,
+                    "opts": opts}
 
 
 @contextmanager
@@ -3565,9 +3579,11 @@ def plain_train_kernels():
         yield
 
 
-def train_setup(model_name, compute_dtype_name):
+def train_setup(model_name, compute_dtype_name, f64=False):
     """Full-width train state of one of TRAIN_MODELS on the card and one
-    device batch of its IMS_PER_BATCH (B / 4 identities x 4)."""
+    device batch of its IMS_PER_BATCH (B / 4 identities x 4).  ``f64``:
+    masters and towers in f64 (``--dp-f64``; the loss tail stays f32, as
+    the step casts the embeddings)."""
     import torch
     from textreid_torch.engine import create_train_state, make_train_step
     from textreid_torch.models import build_model
@@ -3578,8 +3594,12 @@ def train_setup(model_name, compute_dtype_name):
     cfg.TPU.ALLOW_RANDOM_VOCAB = True
     cfg.TPU.COMPUTE_DTYPE = compute_dtype_name
     size = cfg.SOLVER.IMS_PER_BATCH
-    model = build_model(cfg, "cuda", torch.float32,
-                        compute_dtype(cfg, "cuda"), train=True)
+    if f64:
+        model = build_model(cfg, "cuda", torch.float64, torch.float64,
+                            train=True)
+    else:
+        model = build_model(cfg, "cuda", torch.float32,
+                            compute_dtype(cfg, "cuda"), train=True)
 
     def state_of(m):
         opt = make_optimizer(cfg, m)
@@ -3751,21 +3771,6 @@ def device_profile(fn, calls, families, what):
     return out
 
 
-# the train step's kernel families: K1's backward before its forwards (the
-# W-resident backward's name holds "bigru_resident" too), the streamed
-# backward (f32 only) apart, cuDNN's convolutions before the products
-# (their names hold "xmma" and "gemm" too)
-STEP_FAMILIES = (("K5", ("attention_fwd",)), ("K6", ("attention_bwd",)),
-                 ("K1 bwd", ("bigru_resident_bwd_kernel",)),
-                 ("K1 bwd streamed", ("bigru_pooled_bwd_kernel",)),
-                 ("K1 fwd", ("bigru_pooled", "bigru_resident")),
-                 ("convolutions", ("fprop", "dgrad", "wgrad", "winograd",
-                                   "convolve", "conv2d", "convolution",
-                                   "implicit_gemm", "nchwtonhwc",
-                                   "nhwctonchw")),
-                 ("BN", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
-                 ("matrix products", ("gemm", "cutlass", "cublas", "xmma",
-                                      "nvjet", "wgmma")))
 # the int8 ViT forward's: K8 (both its kernels) and K9 (both designs)
 # before the library's products
 INT8_VIT_FAMILIES = (("K8", ("matmul_requant",)),
@@ -3777,11 +3782,40 @@ INT8_VIT_FAMILIES = (("K8", ("matmul_requant",)),
                       ("elementwise",)))
 
 
-def profile_steps(step, state, batch, steps=2):
-    """Device time of a bf16 train step by kernel family (see
-    :func:`device_profile`)."""
-    return device_profile(lambda: step(state, batch), steps, STEP_FAMILIES,
-                          "the bf16 train step")
+def profile_steps(step, state, batch, steps=2, what="the bf16 train step",
+                  meta=None):
+    """Device time of ``steps`` train steps by kernel family, through
+    ``textreid_torch/tools/profile_step.py``'s ``capture`` and
+    ``summarize`` (``utils/profiling.py:STEP_FAMILIES`` by kernel name, the
+    convolutions and products by the call that launched each kernel;
+    ``meta``: the step's shapes, for the tool's roofline), logged:
+    {family: ms a step} with "other", "total", "launches" (kernels a step)
+    and "summary" (the tool's whole breakdown).  None when the trace holds
+    no device events."""
+    import contextlib
+    import io
+
+    import torch
+    from textreid_torch.tools import profile_step
+
+    out_dir = os.path.join(WORK, "step_profile")
+    meta = {"device": torch.cuda.get_device_name(), **(meta or {})}
+    profile_step.capture(lambda: step(state, batch), steps, out_dir, meta)
+    with contextlib.redirect_stdout(io.StringIO()):  # logged below
+        summary = profile_step.summarize(out_dir)
+    if summary["ms_per_step"] <= 0.0:
+        log(f"profile of {what}: the trace holds no device events")
+        return None
+    out = {**summary["by_family_ms"], "total": summary["ms_per_step"],
+           "launches": round(summary["launches_per_step"]),
+           "summary": summary}
+    log(f"profile of {what} (torch.profiler, device time a step; "
+        f"convolutions and products by launching call): "
+        + ", ".join(f"{k} {v:.2f} ms"
+                    for k, v in summary["by_family_ms"].items())
+        + f", total {out['total']:.2f} ms; {out['launches']:.0f} kernels a "
+        f"step")
+    return out
 
 
 def check_k1_bwd_family(profile, what, kernels=True):
@@ -3918,12 +3952,8 @@ def time_accum8(reps=3):
     accum_ms = timed(*accum, reps)
     accum_ms += timed(*accum, reps)
     single_ms += timed(*single, 8)
-    step, state, batch = accum
-    accum_prof = device_profile(lambda: step(state, batch), 1,
-                                STEP_FAMILIES, "the bf16 accum8 step")
-    step, state, batch = single
-    single_prof = device_profile(lambda: step(state, batch), 2,
-                                 STEP_FAMILIES, "the bf16 bs128 step")
+    accum_prof = profile_steps(*accum, steps=1, what="the bf16 accum8 step")
+    single_prof = profile_steps(*single, what="the bf16 bs128 step")
     check_k1_bwd_family(accum_prof, "the bf16 accum8 step")
     check_k1_bwd_family(single_prof, "the bf16 bs128 step")
     out = dict(
@@ -4121,7 +4151,7 @@ DP_SHARDS = (2, 4)
 DP_CARD_STEPS = 5  # steps a run of --dp-cards' torchrun comparison
 
 
-def dp_rank(store, out_path, backend):
+def dp_rank(store, out_path, backend, dtype_name="float32"):
     """One rank of :func:`drive_dp_steps` (``python3 chip_smoke.py
     --dp-rank STORE OUT BACKEND``, with ``RANK``, ``WORLD_SIZE`` and
     ``LOCAL_RANK`` set): the f32 flagship state broadcast from rank 0 (on
@@ -4131,7 +4161,11 @@ def dp_rank(store, out_path, backend):
     other; then rank 0,
     out of the group, takes the same steps in one process on all 128 rows
     from the same start, holds the two runs together
-    (:func:`compare_dp_steps`) and writes what it found to ``out_path``."""
+    (:func:`compare_dp_steps`) and writes what it found to ``out_path``.
+    ``dtype_name`` "float64" (``--dp-f64``) runs both in f64 through the
+    plain versions (K1 has no f64 kernel)."""
+    from contextlib import nullcontext
+
     import torch
     import torch.distributed as dist
     from textreid_torch.parallel import mesh as dp
@@ -4140,8 +4174,10 @@ def dp_rank(store, out_path, backend):
                           "file://" + store, backend=backend, timeout_s=300)
     rank, world = dp.rank(), dp.world_size()
     torch.manual_seed(0)
-    with cudnn_exact():
-        cfg, model, state_of, step, batch = train_setup(FLAGSHIP, "float32")
+    f64 = dtype_name == "float64"
+    with cudnn_exact(), (plain_train_kernels() if f64 else nullcontext()):
+        cfg, model, state_of, step, batch = train_setup(FLAGSHIP, "float32",
+                                                        f64)
         state = state_of(model)
         dp.replicate_state(state)
         start = state.state_dict()
@@ -4172,7 +4208,7 @@ def dp_rank(store, out_path, backend):
             return
         del state, model
         torch.cuda.empty_cache()
-        cfg, model, state_of, step, _ = train_setup(FLAGSHIP, "float32")
+        cfg, model, state_of, step, _ = train_setup(FLAGSHIP, "float32", f64)
         ref = state_of(model)
         ref.load_state_dict(start)
         want = [dp_record(ref, step(ref, batch), full=i == 0)
@@ -4312,11 +4348,13 @@ def compare_dp_steps(got, want, alt, start, decay):
     return worst
 
 
-def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
+def drive_dp_steps(ranks=DP_RANKS, backend="gloo", dtype_name="float32"):
     """Part 1 of the phase: the flagship's f32 step on ``ranks`` ranks
     (gloo: all on the one card; NCCL: one a card), 128 / ``ranks`` rows
     each, against one process on the same 128 rows; returns the ranks'
-    launches, summed."""
+    launches, summed, and the worst errors (:func:`compare_dp_steps`).
+    ``dtype_name`` "float64": both in f64 through the plain versions, no
+    launches (``--dp-f64``)."""
     import torch
 
     t0 = time.time()
@@ -4330,7 +4368,7 @@ def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
             os.remove(path)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--dp-rank", store, out,
-         backend], cwd=REPO, env={
+         backend, dtype_name], cwd=REPO, env={
              **os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks),
              "LOCAL_RANK": "0" if backend == "gloo" else str(r)})
         for r in range(ranks)]
@@ -4347,7 +4385,7 @@ def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
         fail(f"data-parallel step: ranks exited "
              f"{[p.returncode for p in procs]}")
     res = torch.load(out, weights_only=False)
-    want_counts = {k: v * DP_STEPS
+    want_counts = {k: v * DP_STEPS * (dtype_name != "float64")
                    for k, v in TRAIN_MODELS[FLAGSHIP][1].items()}
     for rank, counts in enumerate(res["counts"]):
         if counts != want_counts:
@@ -4360,7 +4398,8 @@ def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
         fail(f"data-parallel step: queue pointers {res['pointers']}, one "
              f"process {res['want_pointer']}")
     w = res["summary"]
-    log(f"data parallel, {ranks} ranks {where}, the flagship f32 at "
+    log(f"data parallel, {ranks} ranks {where}, the flagship "
+        f"{'f64 (plain versions)' if dtype_name == 'float64' else 'f32'} at "
         f"384x128, global batch 128 ({128 // ranks} a rank), "
         f"{DP_STEPS} steps against one process on the 128 rows: losses "
         f"within {w['loss']:.3e} (the one-process steps on the rows "
@@ -4377,9 +4416,8 @@ def drive_dp_steps(ranks=DP_RANKS, backend="gloo"):
         f"{', '.join(f'{v:.0e}' for v in DP_QUEUE_ATOL)}); the ranks' "
         f"states equal; launches a rank "
         f"{res['counts'][0]}; {res['step_s'] * 1e3:.0f} ms a {ranks}-rank "
-        f"f32 step; phase {time.time() - t0:.1f} s "
-        f"({card_line()})")
-    return {k: sum(c[k] for c in res["counts"]) for k in want_counts}
+        f"step; phase {time.time() - t0:.1f} s ({card_line()})")
+    return {k: sum(c[k] for c in res["counts"]) for k in want_counts}, w
 
 
 def drive_nccl_train_net():
@@ -4648,11 +4686,285 @@ def drive_dp_cards():
 def drive_data_parallel():
     """Phase 13 (see the module's docstring): the three parts; returns
     their launches, each part's apart, and the /search and step readings."""
-    steps = drive_dp_steps()
+    steps, _ = drive_dp_steps()
     nccl, step_ms = drive_nccl_train_net()
     gallery, p50 = drive_sharded_gallery()
     return {"dp steps": steps, "train_net nccl": nccl,
             "sharded gallery": gallery}, step_ms, p50
+
+
+# -- phase 14: the tools and the quickstart ---------------------------------
+
+# the device time of the flagship step from tools/profile_step.py's command
+# line against profile_steps' reading, in this process, of the same step
+# (profile_step.build_step: config/flagship.py's config and batch, the same
+# seed), in the same call: the same kernels (cuDNN picks by heuristics,
+# benchmark mode off), so they differ by the card's run-to-run spread
+PROFILE_TOOL_RTOL = 0.02
+TOOLS_LOADER_WORKERS = (4, 8)  # DATALOADER.NUM_WORKERS: the default, phase 8's
+# the loader's split: 1,024 identities x 4 JPEGs, 32 batches of 128 an epoch
+TOOLS_LOADER_IDS = 1024
+
+
+def parity_rc(args):
+    """``tools.parity_eval.main(args)``'s exit code (0 when it returns)
+    and its results."""
+    from textreid_torch.tools import parity_eval
+
+    try:
+        return 0, parity_eval.main(args)
+    except SystemExit as exc:
+        return exc.code, None
+
+
+def check_export(protocol, exported):
+    """The exported ``.pth`` installed into a fresh state (another seed)
+    by ``install_reference_checkpoint`` against ``best.pth`` restored
+    whole: the query model, the key model's towers, the queues and the
+    pointer, bit for bit (BatchNorm's ``num_batches_tracked``, written as
+    zeros as the JAX exporter writes it, and the frozen token table, no
+    reference weight, aside).  Returns the tensors compared."""
+    import torch
+    from textreid_torch.utils.bootstrap import (
+        build_train_state,
+        install_checkpoint,
+        install_reference_checkpoint,
+        read_reference_checkpoint,
+    )
+    from textreid_torch.utils.weight_convert import FROZEN_TABLE_KEY
+
+    cfg = yaml_cfg(FLAGSHIP_YAML)
+    cfg.merge_from_list(protocol["opts"])
+    source = build_train_state(cfg, "cuda")
+    install_checkpoint(source, protocol["best"])
+    cfg.SEED += 1
+    fresh = build_train_state(cfg, "cuda")
+    install_reference_checkpoint(fresh, read_reference_checkpoint(exported))
+    n, bad = 0, []
+    for which, towers_only in (("model", False), ("key_model", True)):
+        want = getattr(source, which).state_dict()
+        got = getattr(fresh, which).state_dict()
+        for key, value in want.items():
+            if key.endswith("num_batches_tracked") or key == \
+                    FROZEN_TABLE_KEY or (towers_only and not key.startswith(
+                        ("visual_model.", "textual_model."))):
+                continue
+            n += 1
+            if not torch.equal(got[key], value):
+                bad.append(f"{which}.{key}")
+    for name in ("v_queue", "t_queue", "id_queue"):
+        n += 1
+        if not torch.equal(getattr(fresh, name), getattr(source, name)):
+            bad.append(name)
+    if bad or fresh.queue_ptr != source.queue_ptr:
+        fail(f"the exported best.pth did not reinstall bit for bit: {bad[:8]}"
+             f", pointer {fresh.queue_ptr} against {source.queue_ptr}")
+    return n
+
+
+def drive_tools(protocol, flagship_step):
+    """Phase 14: the port's tools and its quickstart through their entry
+    points on the card.  ``tools.export_torch`` on phase 8's ``best.pth``
+    (the export reinstalled bit for bit, :func:`check_export`);
+    ``tools.parity_eval`` on it against ``test_net``'s numbers (rc 0, the
+    npz replayed by ``test_net --load-result``) and against them moved by
+    twice the budget (rc 1); ``tools.bench_loader`` at 384x128 against the
+    flagship step time of phase 10; ``tools.int8_ffn_ab``; the quickstart
+    on ``cuda`` (its launches counted); last ``tools.profile_step`` on the
+    flagship against :func:`profile_steps` on the same step built in this
+    process (``flagship_step``: phase 10's reading, whose step time sets
+    the loader's demand).  Returns (the quickstart's launches, what to
+    summarise)."""
+    import shutil
+
+    import torch
+    from textreid_torch import quickstart, test_net
+    from textreid_torch.tools import (
+        bench_loader,
+        export_torch,
+        int8_ffn_ab,
+        profile_step,
+    )
+
+    t0 = time.time()
+    work = os.path.join(WORK, "tools")
+    root, yaml, best = protocol["root"], protocol["yaml"], protocol["best"]
+    opts = protocol["opts"]
+    out = {}
+
+    # export, and the file back into a fresh state
+    exported = os.path.join(work, "exported.pth")
+    sd = export_torch.main(["--root", root, "--config-file", yaml,
+                            "--checkpoint-file", best, "--output", exported,
+                            "--device", "cuda", *opts])
+    out["export_tensors"] = len(sd)
+    out["export_checked"] = check_export(protocol, exported)
+    del sd
+    torch.cuda.empty_cache()
+    log(f"tools.export_torch on best.pth: {out['export_tensors']} tensors "
+        f"(reference layout, {os.path.getsize(exported) >> 20} MB), "
+        f"reinstalled by install_reference_checkpoint bit for bit "
+        f"({out['export_checked']} tensors: query model, key towers, "
+        f"queues; the pointer)")
+
+    # the parity gate against test_net's numbers (both f32: the gate builds
+    # its model in f32)
+    f32 = ["TPU.COMPUTE_DTYPE", "float32"]
+    with GridCapture() as cap:
+        test_net.main(["--root", root, "--config-file", yaml,
+                       "--checkpoint-file", best, "--device", "cuda",
+                       *opts, *f32])
+    want = cap.grid()["t2i"]
+    common = ["--root", root, "--config-file", yaml, "--checkpoint-file",
+              best, "--device", "cuda"]
+    folder = os.path.join(work, "parity")
+    rc, results = parity_rc(common + [
+        "--expected", ",".join(f"{v:.2f}" for v in want),
+        "--output-folder", folder, *opts])
+    if rc != 0:
+        fail(f"parity_eval at test_net's numbers {want}: rc {rc}")
+    from textreid_torch.tools.parity_eval import t2i_row
+
+    got = t2i_row(results)
+    moved = [v + 0.4 for v in want]  # twice the default budget of 0.2
+    rc_off, _ = parity_rc(common + [
+        "--expected", ",".join(f"{v:.2f}" for v in moved), *opts])
+    if rc_off != 1:
+        fail(f"parity_eval at {moved}, twice the budget off: rc {rc_off}")
+    cache = os.path.join(root, "output", "straight", "flagship",
+                         "inference", "cuhkpedes_test")
+    os.makedirs(cache, exist_ok=True)
+    shutil.copy(os.path.join(folder, "inference_data.npz"), cache)
+    with GridCapture() as cap:
+        test_net.main(["--root", root, "--config-file", yaml,
+                       "--checkpoint-file", best, "--device", "cuda",
+                       "--load-result", *opts])
+    replayed = cap.grid()["t2i"]
+    if max(abs(a - b) for a, b in zip(replayed, got)) > 0.005:
+        fail(f"test_net --load-result on parity_eval's npz: {replayed}, "
+             f"the gate's {got}")
+    shutil.rmtree(os.path.join(root, "output"))
+    out["parity"] = (want, got)
+    log(f"tools.parity_eval on best.pth (f32, 256 pairs): t2i R1, R5, R10, "
+        f"mAP {', '.join(f'{v:.4f}' for v in got)} against test_net's "
+        f"{', '.join(f'{v:.2f}' for v in want)}: rc 0; at "
+        f"{', '.join(f'{v:.2f}' for v in moved)}: rc {rc_off}; its npz "
+        f"replayed by test_net --load-result to the same t2i row")
+
+    # the loader against the step's demand
+    out["loader"] = {}
+    for workers in TOOLS_LOADER_WORKERS:
+        res = bench_loader.main([
+            "--ids", str(TOOLS_LOADER_IDS), "--imgs-per-id", "4", "--batch",
+            "128", "--epochs", "2", "--num-workers", str(workers),
+            "--step-ms", str(flagship_step["ms"]), "--output",
+            os.path.join(work, f"loader_{workers}.json"), "--device",
+            "cuda"])
+        out["loader"][workers] = res
+        log(f"tools.bench_loader, {res['n_images']} JPEGs of 300x100 to "
+            f"384x128, batch 128 ({res['batches_per_epoch']} an epoch), "
+            f"{workers} threads, {res['host_cpus']} host cores: img/s by "
+            f"epoch after the first batch "
+            f"{', '.join(f'{v:.1f}' for v in res['ours_steady_imgs_per_s_by_epoch'])}"
+            f" (whole epoch "
+            f"{', '.join(f'{v:.1f}' for v in res['ours_imgs_per_s_by_epoch'])}"
+            f"; first batch after "
+            f"{', '.join(f'{v:.2f}' for v in res['first_batch_s_by_epoch'])}"
+            f" s); decoded-image cache, after the first batch "
+            f"{', '.join(f'{v:.1f}' for v in res['ours_cached_steady_imgs_per_s_by_epoch'])}"
+            f"; the flagship step's demand {res['demand_imgs_per_s']:.1f} "
+            f"img/s (128 images in {flagship_step['ms']:.2f} ms, phase 10): "
+            f"cold {res['cold_over_demand']:.2f}x of it")
+
+    # K7 at the encode level
+    ab = int8_ffn_ab.main(["--iters", "10", "--output",
+                           os.path.join(work, "int8_ffn_ab.json")])
+    out["int8_ffn_ab"] = ab
+    for tower in ("vit", "text"):
+        if not ab[f"{tower}_ffn_min_cosine"] >= INT8_COSINE_BAR:
+            fail(f"int8_ffn_ab: {tower} fused_ffn on against off, minimum "
+                 f"cosine {ab[f'{tower}_ffn_min_cosine']}")
+    log(f"tools.int8_ffn_ab (B=128; ViT-B/16 384x128, CLIP text T=105; "
+        f"bf16, 10 forwards a timing, two rounds): ViT int8 fused_ffn off "
+        f"{ab['vit_off_ms']:.2f} ms, on (K7) {ab['vit_on_ms']:.2f} ms "
+        f"(float {ab['vit_float_ms']:.2f}), minimum cosine "
+        f"{ab['vit_ffn_min_cosine']:.5f}; text on (K7) {ab['text_on_ms']:.2f}"
+        f" ms, off {ab['text_off_ms']:.2f} ms (float "
+        f"{ab['text_float_ms']:.2f}), minimum cosine "
+        f"{ab['text_ffn_min_cosine']:.5f}")
+    torch.cuda.empty_cache()
+
+    # the quickstart on the card, its launches counted
+    qs_root = os.path.join(work, "quickstart")
+    shutil.rmtree(qs_root, ignore_errors=True)
+    zero_counts()
+    qs = quickstart.main(["--device", "cuda", "--root", qs_root])
+    torch.cuda.synchronize()
+    counts = read_counts(("bigru_pooled_fwd", "bigru_pooled_bwd",
+                          "topk_similarity_f32"))
+    if (counts["bigru_pooled_bwd"] != qs["steps"]
+            or counts["bigru_pooled_fwd"] < 2 * qs["steps"] + 2
+            or counts["topk_similarity_f32"] < 2
+            or qs["http_meta"] != qs["matches"]):
+        fail(f"the quickstart on the card: {qs['steps']} steps, launches "
+             f"{counts}, matches {qs['matches']} / {qs['http_meta']}")
+    out["quickstart"] = (qs, counts)
+    log(f"python -m textreid_torch.quickstart on cuda (ResNet-18 + bi-GRU "
+        f"H=32, MoCo K=16, D=32, bf16): {qs['steps']} steps over 2 epochs, "
+        f"t2i R@1 {qs['top1']:.2f}; launches {counts}; /search over HTTP "
+        f"equal to index.search: {qs['matches']}")
+
+    # last: the step profile (torch.profiler), the tool's command line
+    # against profile_steps on the same step built in this process
+    step, state, batch, meta = profile_step.build_step("", False, "cuda")
+    step(state, batch)  # the warm-up step, as the tool's
+    ref = profile_steps(step, state, batch, meta=meta,
+                        what="the tool's flagship step, in process")
+    del step, state, batch
+    torch.cuda.empty_cache()
+    if ref is None:
+        fail("profile_steps on the tool's flagship step: the trace holds no "
+             "device events")
+    prof = profile_step.main(["--steps", "2", "--out",
+                              os.path.join(work, "profile"), "--json-out",
+                              os.path.join(work, "profile_step.json")])
+    fam = prof["by_family_ms"]
+    if not all(fam[k] > 0 for k in ("K1 fwd", "K1 bwd", "convolutions",
+                                    "matrix products")):
+        fail("profile_step: families " + ", ".join(
+            f"{k} {fam[k]:.3f} ms" for k in ("K1 fwd", "K1 bwd",
+                                             "convolutions",
+                                             "matrix products")))
+    if fam["K1 bwd streamed"] > 0 or any(
+            "bigru_pooled_bwd_kernel" in k["name"]
+            for k in prof["top_kernels"]):
+        fail("profile_step: a bf16 step ran the streamed K1 backward")
+    apart = abs(prof["ms_per_step"] - ref["total"]) / ref["total"]
+    if not apart <= PROFILE_TOOL_RTOL:
+        fail(f"profile_step: {prof['ms_per_step']:.2f} ms a step on the "
+             f"device, profile_steps on the same step {ref['total']:.2f} ms "
+             f"({apart:.3f}; rtol {PROFILE_TOOL_RTOL})")
+    out["profile"], out["profile_ref"] = prof, ref
+    roof = {k: v for k, v in prof["roofline"].items()
+            if v["share"] is not None}
+    log(f"tools.profile_step --steps 2 (the flagship, bf16, B=128): device "
+        f"{prof['ms_per_step']:.2f} ms a step in "
+        f"{prof['launches_per_step']:.0f} kernels, by family "
+        + ", ".join(f"{k} {v:.2f}" for k, v in fam.items())
+        + f" ms; profile_steps on the same step {ref['total']:.2f} ms "
+        f"({apart * 100:.2f}% apart; rtol {PROFILE_TOOL_RTOL}); phase 10's "
+        f"step (train_setup's batch) "
+        + (f"{flagship_step['profile']['total']:.2f} ms"
+           if flagship_step["profile"] else "not profiled")
+        + "; roofline (bound of measured) " + ", ".join(
+            f"{k} {v['bound_ms']:.3f} of {v['measured_ms']:.2f} ms "
+            f"({v['share'] * 100:.1f}%)" for k, v in roof.items())
+        + "; longest kernels " + "; ".join(
+            f"{k['name'][:60]} {k['ms']:.2f} ms x{k['calls']:.0f}"
+            for k in prof["top_kernels"][:5]))
+    out["seconds"] = time.time() - t0
+    log(f"the tools' phase took {out['seconds']:.1f} s")
+    return counts, out
 
 
 def main():
@@ -4670,7 +4982,7 @@ def main():
     if sys.argv[1:2] == ["--dp-rank"]:
         # a rank of phase 13's 2-rank step, started by drive_dp_steps
         _build.library()
-        dp_rank(*sys.argv[2:5])
+        dp_rank(*sys.argv[2:6])
         return
     card = card_line()
     require_cuda("cuda")
@@ -4703,6 +5015,24 @@ def main():
         # a development aid: data parallelism across the machine's cards
         # (NCCL), prints no result line
         drive_dp_cards()
+        return
+    if sys.argv[1:] == ["--dp-f64"]:
+        # a development aid: phase 13's 2-rank step against one process in
+        # f32 (the kernels), then in f64 (the plain versions), one call;
+        # prints no result line
+        runs = {name: drive_dp_steps(dtype_name=name)[1]
+                for name in ("float32", "float64")}
+        log("data-parallel step against one process, f32 / f64: " + "; ".join(
+            f"{what} {runs['float32'][key]:.3e} / {runs['float64'][key]:.3e}"
+            f" (reversed order {runs['float32']['alt_' + key]:.3e} / "
+            f"{runs['float64']['alt_' + key]:.3e})"
+            for what, key in (("losses", "loss"), ("step-1 gradients",
+                                                   "grad"),
+                              ("updates", "update")))
+            + f"; queues after each step f32 "
+            f"{', '.join(f'{v:.3e}' for v in runs['float32']['queue'])}, "
+            f"f64 {', '.join(f'{v:.3e}' for v in runs['float64']['queue'])}"
+            f" ({card_line()})")
         return
     if sys.argv[1:] == ["--dp"]:
         # a development aid: phase 13 alone (about 90 s); prints no result
@@ -4793,6 +5123,9 @@ def main():
     k1_times = time_k1_backward()
     attn_times = time_attention()
     topk_times = time_topk()  # after every host-paced timing, as the profile
+    # the tools and the quickstart: after every host-paced timing, their
+    # profile (tools.profile_step) last
+    tools_counts, tools = drive_tools(protocol, rn_train)
     profile_int8_vit(*to_device(vit_forward, "cuda"),
                      enc_times[("vit", "off")])
     del vit_forward
@@ -4903,18 +5236,41 @@ def main():
                          for n in (None,) + DP_SHARDS) + " ms"
             for q in (False, True) for rows in DP_GALLERY_ROWS)
         + f" ({card})")
+    loader = tools["loader"]
+    parity_want, parity_got = tools["parity"]
+    ab, prof = tools["int8_ffn_ab"], tools["profile"]
+    log(f"summary, the tools and the quickstart (phase 14, "
+        f"{tools['seconds']:.1f} s): export_torch of best.pth reinstalled "
+        f"bit for bit ({tools['export_checked']} tensors); parity_eval rc 0 "
+        f"at test_net's t2i {', '.join(f'{v:.2f}' for v in parity_want)} "
+        f"(the gate's {', '.join(f'{v:.4f}' for v in parity_got)}), rc 1 "
+        f"twice the budget off; the loader at 384x128, after the first "
+        f"batch, cold / warm / cached img/s "
+        + ", ".join(f"{w} threads {r['ours_cold_imgs_per_s']:.1f} / "
+                    f"{r['ours_warm_imgs_per_s']:.1f} / "
+                    f"{r['ours_cached_warm_imgs_per_s']:.1f}"
+                    for w, r in loader.items())
+        + f" against the step's demand "
+        f"{loader[TOOLS_LOADER_WORKERS[0]]['demand_imgs_per_s']:.1f}; K7 at "
+        f"the encode level (off / on): ViT {ab['vit_off_ms']:.2f} / "
+        f"{ab['vit_on_ms']:.2f} ms, text {ab['text_off_ms']:.2f} / "
+        f"{ab['text_on_ms']:.2f} ms; profile_step's flagship step "
+        f"{prof['ms_per_step']:.2f} ms on the device (profile_steps on the "
+        f"same step {tools['profile_ref']['total']:.2f}); the quickstart on "
+        f"cuda, launches {tools_counts} ({card})")
     log(f"launches: serving {counts}; eval {eval_launches}; int8 serving "
         f"{int8_counts}; int8 encoders {enc_counts}; int8 flagship gallery "
         f"{trunk_counts}; "
         + "; ".join(f"training {name} {launched}"
                     for name, launched in train_launches.items())
         + "; " + "; ".join(f"data parallel, {name} {launched}"
-                           for name, launched in dp_launches.items()))
+                           for name, launched in dp_launches.items())
+        + f"; the quickstart {tools_counts}")
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
             counts, eval_launches, int8_counts, enc_counts, trunk_counts,
-            *train_launches.values(), *dp_launches.values()))
+            *train_launches.values(), *dp_launches.values(), tools_counts))
 
     bounds = kernel_bounds(k1_times[("steps",)])
     bounds.update(int8_conv_bounds())

@@ -42,7 +42,7 @@ def test_port_never_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 66, names\n"
         "for name in ('train_net', 'test_net', 'server', 'engine.steps',\n"
         "             'engine.trainer', 'engine.inference', 'solver.build',\n"
         "             'models.vit', 'ops.attention', 'ops.quant',\n"
@@ -53,7 +53,10 @@ def test_port_never_imports_jax():
         "             'models.resnet', 'models.int8_tower',\n"
         "             'models.quant_tower', 'ops.int8_conv',\n"
         "             'utils.profiling', 'parallel', 'parallel.mesh',\n"
-        "             'evaluation.retrieval'):\n"
+        "             'evaluation.retrieval', 'quickstart',\n"
+        "             'tools.export_torch', 'tools.parity_eval',\n"
+        "             'tools.profile_step', 'tools.bench_loader',\n"
+        "             'tools.convert_icfg', 'tools.int8_ffn_ab'):\n"
         "    assert 'textreid_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m == 'textreid_tpu' or m.startswith(\n"
@@ -65,7 +68,7 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 59
+    assert int(out.stdout.strip()) >= 66
 
 
 def test_no_source_line_imports_the_jax_package():
@@ -78,7 +81,7 @@ def test_no_source_line_imports_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for folder, _, names in os.walk(os.path.join(REPO, "textreid_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 53
+    assert len(files) >= 60
     hits = []
     for path in files:
         with open(path) as f:

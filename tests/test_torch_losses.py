@@ -111,3 +111,70 @@ def test_moco_loss_tail_masks_same_ids(data, epsilon):
     assert list(got) == list(want)
     for name in want:
         _close(got[name], want[name])
+
+
+# identities repeated once, twice and three times, so that the label mask's
+# row norms differ between rows (1, sqrt 2, sqrt 3)
+CMP_LABELS = {"1-2-3": np.array([0, 1, 1, 2, 2, 2, 5, 7], np.int32),
+              "3-3-2": np.array([4, 4, 4, 1, 1, 1, 6, 6], np.int32)}
+
+
+def _cmp_inputs(data, labels, scale):
+    return {"proj": data["proj"], "v": data["v"] * scale,
+            "t": data["t"] * scale, "labels": CMP_LABELS[labels]}
+
+
+def _cmp_pair(name):
+    """(port function, JAX function, float argument names) of a CMP loss."""
+    if name == "cmpc":
+        return ((lambda a: tl.cmpc_loss(a["proj"], a["v"], a["t"],
+                                        a["labels"].long())),
+                (lambda a: jl.cmpc_loss(a["proj"], a["v"], a["t"],
+                                        a["labels"])),
+                ("proj", "v", "t"))
+    return ((lambda a: tl.cmpm_loss(a["v"], a["t"], a["labels"])),
+            (lambda a: jl.cmpm_loss(a["v"], a["t"], a["labels"])),
+            ("v", "t"))
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("labels", sorted(CMP_LABELS))
+@pytest.mark.parametrize("name", ["cmpc", "cmpm"])
+def test_cross_modal_projection_loss(data, name, labels, scale):
+    port, ref, _ = _cmp_pair(name)
+    args = _cmp_inputs(data, labels, scale)
+    got = port({k: _t(v) for k, v in args.items()})
+    want = ref({k: jnp.asarray(v) for k, v in args.items()})
+    assert np.isfinite(float(got))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("labels", sorted(CMP_LABELS))
+@pytest.mark.parametrize("name", ["cmpc", "cmpm"])
+def test_cross_modal_projection_loss_gradient(data, name, labels):
+    """Every float input's gradient against ``jax.grad`` (rtol 1e-5; atol
+    1e-6 of the largest entry, for entries that cancel to near zero)."""
+    import jax
+
+    port, ref, wrt = _cmp_pair(name)
+    args = _cmp_inputs(data, labels, 1.0)
+    tensors = {k: _t(v).clone().requires_grad_(k in wrt)
+               for k, v in args.items()}
+    port(tensors).backward()
+    grads = jax.grad(lambda fl: ref({**args, **fl}))(
+        {k: jnp.asarray(args[k]) for k in wrt})
+    for k in wrt:
+        want = np.asarray(grads[k])
+        np.testing.assert_allclose(tensors[k].grad.numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+def test_cmpm_mask_divide_is_the_row_wise_one():
+    """The broadcast divide by row norms equals a row-wise divide when
+    each identity's rows share their norm, as they always do."""
+    labels = torch.from_numpy(CMP_LABELS["1-2-3"])
+    mask = (labels[:, None] == labels[None, :]).float()
+    norms = torch.linalg.vector_norm(mask, dim=1)
+    torch.testing.assert_close(mask / norms, mask / norms[:, None],
+                               rtol=0, atol=0)
+    assert len(set(norms.tolist())) == 3

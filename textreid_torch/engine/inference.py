@@ -85,14 +85,19 @@ def inference(model, data_loader, dataset_name: str = "cuhkpedes-test",
                          embeds["pids"], embeds["image_ids"], topk=topk,
                          rerank=rerank, device=device)
     if cache and save_data and rank() == 0 and not os.path.exists(cache):
-        # dual-format cache: the embeddings (replayable here and by the JAX
-        # package) plus the reference's {image_pid, text_pid, similarity[,
-        # rvn_mat, rtn_mat]} (replayable by the torch code's --load-result)
-        extra = {k: results[k] for k in ("image_pid", "text_pid", "similarity",
-                                         "rvn_mat", "rtn_mat") if k in results}
-        np.savez(cache, **embeds, **extra)
+        save_inference_data(cache, embeds, results)
     logger.info("\n%s", format_results_table(results))
     return results["t2i"]["cmc"][0]
+
+
+def save_inference_data(path: str, embeds: dict, results: dict) -> None:
+    """The dual-format ``inference_data.npz``: the embeddings (replayable
+    here and by the JAX package) plus the reference's ``{image_pid,
+    text_pid, similarity[, rvn_mat, rtn_mat]}`` (replayable by the torch
+    code's ``--load-result``)."""
+    extra = {k: results[k] for k in ("image_pid", "text_pid", "similarity",
+                                     "rvn_mat", "rtn_mat") if k in results}
+    np.savez(path, **embeds, **extra)
 
 
 @torch.inference_mode()

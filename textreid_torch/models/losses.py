@@ -1,11 +1,12 @@
 """Loss library (counterpart of ``textreid_tpu/models/losses.py``).
 
 The identity-classification loss with optional label smoothing, the
-soft-margin global alignment loss and the MoCo InfoNCE loss, as pure
+soft-margin global alignment loss, the MoCo InfoNCE loss and the
+cross-modal projection losses (``cmpc_loss``, ``cmpm_loss``, which no head
+uses: kept for capability parity, as in the JAX package), as pure
 functions of f32 tensors.  The same-identity exclusion of queue negatives
 is an additive ``-inf`` mask on the negative logits (built by the train
-step), exactly as in the JAX package.  ``cmpc_loss`` and ``cmpm_loss`` are
-not ported yet (ROADMAP Queue A item 3).
+step), exactly as in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,3 +95,46 @@ def infonce_loss(v_pos: torch.Tensor, v_neg: torch.Tensor,
         return (torch.logsumexp(logits, dim=-1) - logits[:, 0]).mean()
 
     return one_side(v_pos, v_neg) + one_side(t_pos, t_neg)
+
+
+def cmpc_loss(projection: torch.Tensor, visual_embed: torch.Tensor,
+              textual_embed: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Cross-Modal Projection Classification loss: each embedding projected
+    onto the other modality's unit vector, classified by ``projection
+    [feature, classes]`` with its columns (axis 0) L2-normalised."""
+    visual_norm = l2_normalize(visual_embed, dim=-1)
+    textual_norm = l2_normalize(textual_embed, dim=-1)
+    projection = l2_normalize(projection, dim=0)
+    image_proj_text = (visual_embed * textual_norm).sum(
+        dim=1, keepdim=True) * textual_norm
+    text_proj_image = (textual_embed * visual_norm).sum(
+        dim=1, keepdim=True) * visual_norm
+    return (cross_entropy(image_proj_text @ projection, labels)
+            + cross_entropy(text_proj_image @ projection, labels))
+
+
+def cmpm_loss(visual_embed: torch.Tensor, textual_embed: torch.Tensor,
+              labels: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+    """Cross-Modal Projection Matching loss: the KL divergence of each
+    modality's softmax over projections from the normalised identity mask.
+
+    The mask is divided by its row norms broadcast along the last axis
+    (``[B, B] / [B]``), as the JAX package writes it; within one identity
+    every row has the same norm, so this equals a row-wise divide.  Its
+    zero entries enter the log as ``log(epsilon)``, so each row's sum adds
+    large terms of opposite sign: the order of operations is the JAX
+    package's."""
+    labels_mask = (labels[:, None] == labels[None, :]).to(visual_embed.dtype)
+    visual_norm = l2_normalize(visual_embed, dim=-1)
+    textual_norm = l2_normalize(textual_embed, dim=-1)
+    image_proj_text = visual_embed @ textual_norm.T
+    text_proj_image = textual_embed @ visual_norm.T
+    mask_norm = labels_mask / torch.linalg.vector_norm(labels_mask, dim=1)
+
+    def kl_side(logits):
+        pred = F.softmax(logits, dim=1)
+        return (pred * (F.log_softmax(logits, dim=1)
+                        - torch.log(mask_norm + epsilon))).sum(dim=1).mean()
+
+    return kl_side(image_proj_text) + kl_side(text_proj_image)

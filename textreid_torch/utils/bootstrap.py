@@ -1,6 +1,8 @@
 """Model and state bootstrap (counterpart of ``textreid_tpu/utils/
-bootstrap.py``): config + checkpoint -> a serving model on a device, and a
-reference ``.pth`` installed into a training state (``MODEL.WEIGHT``)."""
+bootstrap.py``): config + checkpoint -> a serving model on a device, a
+seeded training state, and a checkpoint of this package or a reference
+``.pth`` installed into a training state (``MODEL.WEIGHT``,
+``tools/export_torch.py``)."""
 
 from __future__ import annotations
 
@@ -46,6 +48,43 @@ def build_eval_model(cfg, checkpoint_file: str = "", device="cuda",
         load_reference_state_dict(model,
                                   read_reference_checkpoint(checkpoint_file))
     return model
+
+
+def build_train_state(cfg, device="cuda"):
+    """Seeded f32 training state for ``cfg`` on ``device``: the model, its
+    optimizer and, for the MoCo head, the key model and the queues
+    (``engine/state.py:create_train_state`` at ``SOLVER.IMS_PER_BATCH``).
+    Raises when CUDA is asked for and absent."""
+    from ..engine.state import create_train_state
+    from ..solver import make_optimizer
+
+    device = require_cuda(device)
+    model = build_model(cfg, device, torch.float32)
+    return create_train_state(cfg, model, make_optimizer(cfg, model),
+                              cfg.SOLVER.IMS_PER_BATCH)
+
+
+def is_port_checkpoint(payload: dict) -> bool:
+    """Whether a ``.pth``'s payload is a checkpoint of this package
+    (``utils/checkpoint.py:Checkpointer``: ``step`` and ``meta`` beside the
+    state) rather than a reference-layout ``{"model": ...}``."""
+    return "step" in payload and "meta" in payload
+
+
+def install_checkpoint(state, path: str) -> str:
+    """Install ``path`` into a training state, in place: a checkpoint of
+    this package restored whole (``TrainState.load_state_dict``, strict), or
+    a reference-layout ``.pth`` through :func:`install_reference_checkpoint`.
+    Returns which it was: ``"port"`` or ``"reference"``."""
+    refuse_directory(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if is_port_checkpoint(payload):
+        state.load_state_dict(payload)
+        return "port"
+    install_reference_checkpoint(state, {
+        re.sub(r"^module\.", "", k): v
+        for k, v in payload.get("model", payload).items()})
+    return "reference"
 
 
 def install_reference_checkpoint(state, sd: dict) -> None:

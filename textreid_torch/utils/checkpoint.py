@@ -19,6 +19,10 @@ package's: ``best``, ``epoch_N`` and ``preempt``.
   never touches ``best`` or ``preempt``.
 * ``resume`` restores the whole state and returns ``meta``; ``load`` is a
   weights-only load (the model and, where the file has it, the key model).
+  A file whose keys or shapes do not match the state exactly (a renamed
+  module, a partial save, a DataParallel ``module.`` prefix) falls back to
+  :func:`align_state_dict`, the longest-suffix key alignment of the JAX
+  package's ``align_pytree``; a load that aligns nothing is refused.
 * In a data-parallel group (``parallel/mesh.py``) every rank calls
   ``save`` at the same points and rank 0 alone writes (and prunes); every
   :meth:`Checkpointer.wait`, and so every save and read, ends in a barrier,
@@ -38,7 +42,7 @@ import os
 import re
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,6 +50,93 @@ from ..parallel.mesh import barrier, broadcast_object
 from ..parallel.mesh import rank as process_rank
 
 EPOCH_FILE = re.compile(r"epoch_(\d+)\.pth")
+
+
+def align_state_dict(target: Dict[str, torch.Tensor], loaded: dict,
+                     logger: Optional[logging.Logger] = None,
+                     label: str = "", min_cover: float = 0.5,
+                     stats: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Longest-suffix key alignment of ``loaded`` onto ``target``'s keys
+    (flat ``state_dict`` keys, compared component-wise at ``.``): the
+    counterpart of the JAX package's ``align_pytree``, with its contract.
+
+    For each target key, the loaded key with the longest suffix overlap
+    wins, provided it is the only one at that length and the shapes agree.
+    A full match of the shorter key (a DataParallel ``module.`` prefix on
+    either side) is always accepted; a partial one only when it spans at
+    least two components covering ``min_cover`` of BOTH keys, so that a
+    bare ``weight`` cannot alias an unrelated module's.  Unmatched entries
+    keep their current values, with a warning on the
+    ``PersonSearch.checkpoint`` logger.  ``stats``, when given, gains the
+    ``matched`` and ``total`` counts.  Returns a dict with ``target``'s
+    keys, in its order."""
+    logger = logger or logging.getLogger("PersonSearch.checkpoint")
+    where = f"[{label}]" if label else ""
+    l_paths = {tuple(k.split(".")): k for k in loaded}
+
+    def suffix_len(a: Tuple[str, ...], b: Tuple[str, ...]) -> int:
+        n = 0
+        while n < len(a) and n < len(b) and a[-1 - n] == b[-1 - n]:
+            n += 1
+        return n
+
+    out, unmatched, n_matched = {}, [], 0
+    for key, cur in target.items():
+        path = tuple(key.split("."))
+        candidates, best_len = [], 0
+        for lpath in l_paths:
+            n = suffix_len(path, lpath)
+            if n > best_len:
+                candidates, best_len = [lpath], n
+            elif n == best_len and n > 0:
+                candidates.append(lpath)
+        best = None
+        if len(candidates) == 1 and best_len > 0:
+            lpath = candidates[0]
+            if best_len == min(len(path), len(lpath)) or (
+                    best_len >= 2 and best_len >= min_cover * len(path)
+                    and best_len >= min_cover * len(lpath)):
+                best = l_paths[lpath]
+        if best is None:
+            unmatched.append(key)
+            out[key] = cur
+            continue
+        leaf = loaded[best]
+        if tuple(leaf.shape) != tuple(cur.shape):
+            logger.warning(
+                "align%s: %s matched %s but shapes differ (%s vs %s); "
+                "keeping initialization", where, key, best,
+                tuple(leaf.shape), tuple(cur.shape))
+            out[key] = cur
+            continue
+        if best != key:
+            logger.warning("align%s: %s loaded from %s", where, key, best)
+        n_matched += 1
+        out[key] = leaf
+    if unmatched:
+        logger.warning(
+            "align%s: %d leaves not found in checkpoint, kept "
+            "initialization: %s", where, len(unmatched),
+            ", ".join(unmatched[:10]))
+    if stats is not None:
+        stats["matched"] = stats.get("matched", 0) + n_matched
+        stats["total"] = stats.get("total", 0) + len(target)
+    return out
+
+
+def _strict_match(module: torch.nn.Module, sd: dict) -> None:
+    """Raise ``KeyError`` when ``sd``'s keys are not ``module``'s, and
+    ``ValueError`` when a shape differs: the mismatches that send
+    :meth:`Checkpointer.load` to the alignment."""
+    want = module.state_dict()
+    missing = sorted(set(want) - set(sd))
+    unexpected = sorted(set(sd) - set(want))
+    if missing or unexpected:
+        raise KeyError(f"missing {missing[:8]}, unexpected {unexpected[:8]}")
+    shapes = [f"{k} {tuple(sd[k].shape)} vs {tuple(v.shape)}"
+              for k, v in want.items() if tuple(sd[k].shape) != tuple(v.shape)]
+    if shapes:
+        raise ValueError(f"shapes differ: {shapes[:8]}")
 
 
 def refuse_directory(path: str) -> None:
@@ -178,9 +269,46 @@ class Checkpointer:
     def load(self, path: str, state):
         """Weights-only load: the model and, where both the file and the
         state have one, the key model; the optimizer, queues and progress
-        keep their values."""
+        keep their values.
+
+        A file whose keys or shapes do not match (and only that: a missing
+        file or a read error propagates) falls back to
+        :func:`align_state_dict`, as the JAX package's ``load`` falls back
+        to ``align_pytree``: unmatched entries keep their values, a load
+        that matched nothing raises ``ValueError`` before anything is
+        written, and one that matched under half is logged as an error."""
         payload = self._read(path)
-        state.model.load_state_dict(payload["model"])
+        pairs = [("model", state.model)]
         if state.key_model is not None and "key_model" in payload:
-            state.key_model.load_state_dict(payload["key_model"])
+            pairs.append(("key_model", state.key_model))
+        try:
+            for field, module in pairs:
+                _strict_match(module, payload[field])
+        except (KeyError, ValueError) as exc:
+            self.logger.warning(
+                "Strict load failed (%s: %s); falling back to "
+                "longest-suffix key alignment", type(exc).__name__, exc)
+            return self._load_aligned(path, payload, pairs, state)
+        for field, module in pairs:
+            module.load_state_dict(payload[field])
+        return state
+
+    def _load_aligned(self, path: str, payload: dict, pairs, state):
+        stats: dict = {}
+        aligned = [(module, align_state_dict(
+            module.state_dict(), payload[field], self.logger, label=field,
+            stats=stats)) for field, module in pairs]
+        matched, total = stats.get("matched", 0), stats.get("total", 0)
+        if total and matched == 0:
+            raise ValueError(
+                f"Aligned load of {path} matched 0/{total} weight leaves — "
+                "refusing to return a pure-initialization state (wrong or "
+                "corrupted checkpoint?)")
+        if matched < 0.5 * total:
+            self.logger.error(
+                "Aligned load of %s matched only %d/%d weight leaves; the "
+                "rest keep initialization — verify this is the intended "
+                "checkpoint", path, matched, total)
+        for module, sd in aligned:
+            module.load_state_dict(sd)
         return state

@@ -24,6 +24,10 @@
   ``Int8ConvTower``.
 * :func:`load_reference_state_dict` — a reference ``.pth`` state dict ->
   the port's model, refusing any key it does not know.
+* :func:`export_reference_state_dict` — a train state of the port (a
+  checkpoint's payload) -> the reference layout the upstream torch code
+  loads, MoCo key encoders and queues included: the JAX package's
+  ``export_textreid_checkpoint``.
 
 Layout rules: flax conv ``[kh, kw, in, out]`` -> torch ``[out, in, kh, kw]``;
 flax dense ``[in, out]`` -> torch ``[out, in]``; our GRU ``fwd_w_ih_l0
@@ -429,5 +433,93 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping) -> None:
 def save_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Write the model's state dict as a reference ``.pth``
     (``{"model": state_dict}``), with CPU tensors."""
-    torch.save({"model": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()}}, path)
+    save_reference_state_dict(model.state_dict(), path)
+
+
+def save_reference_state_dict(sd: Mapping, path: str) -> None:
+    """Write a state dict (torch or numpy values) as a reference ``.pth``
+    (``{"model": state_dict}``), with CPU tensors."""
+    torch.save({"model": {k: _cpu_tensor(v) for k, v in sd.items()}}, path)
+
+
+def _cpu_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return torch.from_numpy(np.array(value))
+
+
+# the key model's names -> the reference's key encoders (the inverse of
+# utils/bootstrap.py:_KEY_ENCODER_NAMES); its other entries are dropped
+_KEY_EXPORT_NAMES = (("visual_model.", "embed_model.v_encoder_k."),
+                     ("textual_model.", "embed_model.t_encoder_k."),
+                     ("embed_model.v_fc_q.", "embed_model.v_fc_k."),
+                     ("embed_model.t_fc_q.", "embed_model.t_fc_k."))
+
+
+def _export_tower(out: dict, sd: Mapping, renames) -> None:
+    """``sd``'s entries under ``renames`` (``(ours, reference)`` prefixes),
+    as the JAX exporter writes them: the frozen token table left out (no
+    reference weight), BatchNorm's ``num_batches_tracked`` an int64 zero,
+    and a learned token table (``embed.weight`` with no bias: an
+    ``nn.Embedding(padding_idx=0)``) with its pad row 0 zeroed."""
+    for key, value in sd.items():
+        if key == FROZEN_TABLE_KEY:
+            continue
+        name = next((ref + key[len(ours):] for ours, ref in renames
+                     if key.startswith(ours)), None)
+        if name is None:
+            continue
+        value = _cpu_tensor(value)
+        if key.endswith("num_batches_tracked"):
+            value = torch.zeros((), dtype=torch.int64)
+        elif (key == "textual_model.embed.weight"
+              and "textual_model.embed.bias" not in sd):
+            value = value.clone()
+            value[0] = 0.0
+        out[name] = value
+
+
+def export_reference_state_dict(cfg, payload: Mapping) -> dict:
+    """A train state of the port -> a reference-layout state dict (CPU
+    tensors): the JAX package's ``export_textreid_checkpoint``, key for key
+    and value for value.
+
+    ``payload`` has ``TrainState.state_dict``'s schema (a checkpoint's
+    payload, or ``train_state_from_jax``'s output): ``model`` and, for the
+    MoCo head, ``key_model``, ``v_queue``, ``t_queue`` ``[K, D]``,
+    ``id_queue [K]`` and ``queue_ptr``; anything else (the optimizer,
+    ``step``, ``meta``) is dropped.  The query model keeps its names (the
+    reference's), but for the simple head's embed layers
+    (``visual_embed_layer``, ``textual_embed_layer`` there); the key model
+    goes under the reference's key encoders (``v_encoder_k``,
+    ``t_encoder_k``, ``{v,t}_fc_k``), its copies of the embed layers and
+    the loss projection left out; the queues become ``[D, K]``,
+    ``id_queue [1, K]`` and ``queue_ptr [1]``, both int64.  Only a bi-GRU
+    text tower has a reference counterpart: another raises
+    ``ValueError``."""
+    if cfg.MODEL.TEXTUAL_MODEL != "bigru":
+        raise ValueError(
+            f"the reference has no {cfg.MODEL.TEXTUAL_MODEL!r} textual "
+            "tower — only bigru states can be exported to its layout")
+    moco = cfg.MODEL.EMBEDDING.EMBED_HEAD == "moco"
+    query = [("visual_model.", "visual_model."),
+             ("textual_model.", "textual_model.")]
+    if moco:
+        query.append(("embed_model.", "embed_model."))
+    else:
+        query += [(ours, ref) for ref, ours in _SIMPLE_HEAD_NAMES.items()]
+        query.append(("embed_model.loss_evaluator.",
+                      "embed_model.loss_evaluator."))
+    out: dict = {}
+    _export_tower(out, payload["model"], query)
+    if not moco:
+        return out
+    _export_tower(out, payload["key_model"], _KEY_EXPORT_NAMES)
+    em = "embed_model."
+    out[em + "v_queue"] = _cpu_tensor(payload["v_queue"]).T.contiguous()
+    out[em + "t_queue"] = _cpu_tensor(payload["t_queue"]).T.contiguous()
+    out[em + "id_queue"] = _cpu_tensor(payload["id_queue"]).reshape(
+        1, -1).to(torch.int64)
+    out[em + "queue_ptr"] = torch.as_tensor(
+        np.asarray(payload["queue_ptr"])).reshape(1).to(torch.int64)
+    return out
