@@ -225,6 +225,34 @@ before the result line:
     the script (phases 10 and 14, accum8's) is the tool's summary
     (:func:`profile_steps`).
 
+15. The rest of the mesh (``parallel/mesh.py``; right after phase 13,
+    :func:`drive_mesh`), in ranks of this script (``--mesh-rank``), gloo on
+    the one card: (a) full-CLIP f32 at full width on 4 ranks as ``data 2 x
+    model 2`` (every ``TransformerBlock`` FFN of both towers split), 32
+    rows (16 a data shard), 2 steps, against one process on the 32 rows
+    from the same start by phase 13's gates (:func:`compare_dp_steps`:
+    losses, step 1's gathered gradients and updates, queues, the
+    reversed-order yardstick), every rank's split leaves at ``tp_spec``'s
+    shapes, K5 48 and K6 24 a rank a step as in one process; then
+    ``train_net.main`` on the full-CLIP yaml with ``TPU.MODEL_PARALLEL 2``
+    on the 4 ranks (``--backend gloo``, f32, 32 rows, 2 steps): its
+    checkpoint loads into one process equal, bit for bit, to the ranks'
+    gathered state; (b) the flagship f32 on 4 ranks, 2 steps each: flat
+    data parallelism, with ``TPU.OPTIMIZER_SHARDING`` (equal bit for bit:
+    parameters, key parameters, moments, queues), and 2 slices x 2 with it
+    (against the flat run by phase 13's gates, the one process on the rows
+    reversed as the yardstick), each rank's optimizer-state bytes, K1
+    forward 2 and backward 1 a rank a step; (c) ``RetrievalIndex(mesh=)``
+    over a process-group mesh of 2 ranks, each holding 49,152 of 98,304
+    rows, float and int8: replies equal to the unsharded index's
+    (DP_SEARCH_TOL, rows equal outside ties), K2 / K4 once a rank a search.
+    ``python3 chip_smoke.py --mesh`` runs this phase alone (no result
+    line).  ``--dp-cards`` on four cards or more also times (NCCL, one rank
+    a card, in turns) the full-CLIP bf16 step at ``data n/2 x model 2``
+    against ``data n``, 128 rows a data shard, and the flagship's with and
+    without ZeRO-1, each rank's peak memory beside it (``--dp-cards mesh``:
+    that part alone).
+
 The last line of standard output is the result JSON.  Without a card, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -4232,23 +4260,39 @@ def dp_rank(store, out_path, backend, dtype_name="float32"):
 def dp_record(state, metrics, full):
     """What :func:`compare_dp_steps` reads of a step, on the CPU: the
     losses, the BatchNorm statistics and the queues; with ``full`` also the
-    model and its gradients."""
+    model and its gradients (in the single-process layout: a collective on
+    a model axis)."""
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
-           "queues": {n: getattr(state, n).cpu() for n in
+           "queues": {n: getattr(state, n).to("cpu", copy=True) for n in
                       ("v_queue", "t_queue", "id_queue")},
-           "stats": {(which, n): v.detach().cpu()
+           "stats": {(which, n): v.detach().to("cpu", copy=True)
                      for which in ("model", "key_model")
                      for n, v in getattr(state, which).state_dict().items()
                      if n.endswith(("running_mean", "running_var"))}}
     if full:
-        out["model"] = {n: p.detach().cpu()
+        # a leaf split over the model axis: its parts gathered
+        from textreid_torch.parallel.mesh import (
+            MODEL_AXIS,
+            axis,
+            gather_split,
+        )
+
+        split = state.sharding.tp if state.sharding is not None else {}
+
+        def whole(name, t):
+            t = t.detach()
+            return (gather_split(t, split[name], axis(MODEL_AXIS))
+                    if name in split else t).to("cpu", copy=True)
+
+        out["model"] = {n: whole(n, p)
                         for n, p in state.model.named_parameters()}
-        out["grads"] = {n: p.grad.detach().cpu()
+        out["grads"] = {n: whole(n, p.grad)
                         for n, p in state.model.named_parameters()}
     return out
 
 
-def compare_dp_steps(got, want, alt, start, decay):
+def compare_dp_steps(got, want, alt, start, decay, rows=128,
+                     what="data-parallel"):
     """The data-parallel steps (``got``) against the one-process steps
     (``want``), each error bounded by the larger of a floor and
     DP_NOISE_RATIO times the error of ``alt``, the one-process steps on the
@@ -4259,7 +4303,8 @@ def compare_dp_steps(got, want, alt, start, decay):
     (floor STEP_LOSS_RTOL) and queues (DP_QUEUE_ATOL), the ids equal; step
     1's BatchNorm statistics within DP_STATS_RTOL; step 1's gradients and
     updates by the rules of the f32 comparison (phase 9, floor
-    STEP_UPDATE_RTOL).  Returns the worst errors."""
+    STEP_UPDATE_RTOL).  ``rows``: the global batch; ``what`` names the
+    runs in the messages.  Returns the worst errors."""
     import torch
 
     def unreversed(queues, steps):
@@ -4269,7 +4314,7 @@ def compare_dp_steps(got, want, alt, start, decay):
         for name, q in queues.items():
             q = q.clone()
             for i in range(steps):
-                block = slice(i * 128, (i + 1) * 128)
+                block = slice(i * rows, (i + 1) * rows)
                 q[block] = q[block].flip(0)
             out[name] = q
         return out
@@ -4285,7 +4330,7 @@ def compare_dp_steps(got, want, alt, start, decay):
             worst["alt_loss"] = max(worst["alt_loss"], yard)
             if not math.isfinite(a) or err > max(STEP_LOSS_RTOL,
                                                  DP_NOISE_RATIO * yard):
-                fail(f"data-parallel step {i + 1}, {name}: ranks {a:.6f}, "
+                fail(f"{what} step {i + 1}, {name}: ranks {a:.6f}, "
                      f"one process {b:.6f} ({err:.3e}; reversed order "
                      f"{yard:.3e})")
         for key, v in w["stats"].items():
@@ -4293,7 +4338,7 @@ def compare_dp_steps(got, want, alt, start, decay):
                    / v.abs().max().clamp_min(1e-30)).item()
             worst["stats"][i] = max(worst["stats"][i], err)
             if i == 0 and err > DP_STATS_RTOL:
-                fail(f"data-parallel step 1, {key}: {err:.3e}")
+                fail(f"{what} step 1, {key}: {err:.3e}")
         r_queues = unreversed(r["queues"], i + 1)
         for name in ("v_queue", "t_queue"):
             err = (g["queues"][name] - w["queues"][name]).abs().max().item()
@@ -4301,11 +4346,11 @@ def compare_dp_steps(got, want, alt, start, decay):
             worst["queue"][i] = max(worst["queue"][i], err)
             worst["alt_queue"][i] = max(worst["alt_queue"][i], yard)
             if err > max(DP_QUEUE_ATOL[i], DP_NOISE_RATIO * yard):
-                fail(f"data-parallel step {i + 1}, {name}: {err:.3e} "
+                fail(f"{what} step {i + 1}, {name}: {err:.3e} "
                      f"(reversed order {yard:.3e})")
         for q in (g["queues"], r_queues):
             if not torch.equal(q["id_queue"], w["queues"]["id_queue"]):
-                fail(f"data-parallel step {i + 1}: id queues differ")
+                fail(f"{what} step {i + 1}: id queues differ")
 
     def step_errors(run):
         """{tensor: (gradient error, update error)} of ``run``'s step 1
@@ -4327,21 +4372,21 @@ def compare_dp_steps(got, want, alt, start, decay):
 
     dp_err, alt_err = step_errors(got[0]), step_errors(alt[0])
     ranked = sorted(dp_err, key=lambda n: -dp_err[n][0])
-    log("data-parallel step 1, the tensors farthest from one process "
+    log(f"{what} step 1, the tensors farthest from one process "
         "(gradient error, update error; the reversed-order one-process step "
         "in brackets): " + "; ".join(
             f"{n} {dp_err[n][0]:.2e}, {dp_err[n][1]:.2e} "
             f"[{alt_err[n][0]:.2e}, {alt_err[n][1]:.2e}]" for n in ranked[:8]))
     bad = []
     for name, errs in dp_err.items():
-        for what, err, yard in zip(("gradient", "update"), errs,
+        for kind, err, yard in zip(("gradient", "update"), errs,
                                    alt_err[name]):
             if not math.isfinite(err) or err > max(STEP_UPDATE_RTOL,
                                                    DP_NOISE_RATIO * yard):
-                bad.append(f"{what} of {name} {err:.3e} (reversed order "
+                bad.append(f"{kind} of {name} {err:.3e} (reversed order "
                            f"{yard:.3e})")
     if bad:
-        fail(f"data-parallel step 1: {'; '.join(bad[:8])}")
+        fail(f"{what} step 1: {'; '.join(bad[:8])}")
     for k, col in (("grad", 0), ("update", 1)):
         worst[k] = max(v[col] for v in dp_err.values())
         worst["alt_" + k] = max(v[col] for v in alt_err.values())
@@ -4613,9 +4658,11 @@ def drive_sharded_gallery():
     return launched, p50
 
 
-def drive_dp_cards():
+def drive_dp_cards(mesh_only=False):
     """A development aid, ``python3 chip_smoke.py --dp-cards`` on a machine
-    with two cards or more (prints no result line): (a) the flagship's f32
+    with two cards or more (prints no result line); on four or more it
+    first runs :func:`drive_mesh_cards` (alone with ``--dp-cards mesh``);
+    then (a) the flagship's f32
     step on every card, one NCCL rank a card, against one process on the
     same 128 rows (:func:`drive_dp_steps`' gates); (b) ``torchrun
     --standalone --nproc-per-node N -m textreid_torch.train_net`` on the
@@ -4631,6 +4678,12 @@ def drive_dp_cards():
     n = torch.cuda.device_count()
     if n < 2:
         fail(f"--dp-cards needs two cards or more, found {n}")
+    if mesh_only or n >= 4:
+        if n < 4:
+            fail(f"--dp-cards mesh needs four cards or more, found {n}")
+        drive_mesh_cards(n)
+        if mesh_only:
+            return
     drive_dp_steps(n, "nccl")
     t0 = time.time()
     data = training_split(128 * n, DP_CARD_STEPS)
@@ -4691,6 +4744,585 @@ def drive_data_parallel():
     gallery, p50 = drive_sharded_gallery()
     return {"dp steps": steps, "train_net nccl": nccl,
             "sharded gallery": gallery}, step_ms, p50
+
+
+# -- phase 15: the rest of the mesh -------------------------------------------
+
+MESH_RANKS = 4     # gloo ranks on the one card, (a) and (b)
+TP_MESH = (2, 2)   # (a): data x model
+TP_ROWS = 32       # (a): full-CLIP's global batch, 16 rows a data shard
+FULLCLIP = "full-CLIP"
+# a TransformerBlock's c_fc weight and bias and c_proj weight, 12 blocks in
+# each of full-CLIP's two towers
+FULLCLIP_SPLIT_LEAVES = 72
+GALLERY_RANKS = 2  # (c)
+GALLERY_ROWS = 98304
+GALLERY_QUERIES = ((1, 10), (3, 5), (16, 10), (1, 64))  # (queries, k)
+
+
+def launch_ranks(task, ranks, *args, timeout=900, nccl=False):
+    """``python3 chip_smoke.py --mesh-rank TASK STORE OUT *args`` on
+    ``ranks`` ranks, every one on ``cuda:0`` (gloo, which takes CUDA
+    tensors: NCCL refuses two ranks on one card), or with ``nccl`` one a
+    card; returns each rank's output (``OUT.<rank>``; None where a rank
+    wrote none)."""
+    import torch
+
+    work = os.path.join(WORK, "mesh")
+    os.makedirs(work, exist_ok=True)
+    store, out = (os.path.join(work, f"{task}.store"),
+                  os.path.join(work, f"{task}.pt"))
+    for path in [store] + [f"{out}.{r}" for r in range(ranks)]:
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", task,
+         store, out, *map(str, args)], cwd=REPO, env={
+             **os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks),
+             "LOCAL_RANK": str(r) if nccl else "0"}) for r in range(ranks)]
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in procs) and time.time() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"phase 15, {task}: ranks exited "
+             f"{[p.returncode for p in procs]}")
+    return [torch.load(f"{out}.{r}", weights_only=False)
+            if os.path.exists(f"{out}.{r}") else None for r in range(ranks)]
+
+
+def mesh_rank(task, store, out_path, *args):
+    """One rank of phase 15 (started by :func:`launch_ranks`; ``RANK`` and
+    ``WORLD_SIZE`` in the environment): joins the gloo group at ``store``
+    (``train_net`` joins it itself) and writes ``task``'s result to
+    ``out_path.<rank>``."""
+    import torch
+    from textreid_torch.parallel import mesh as dp
+
+    rank = int(os.environ["RANK"])
+    if task == "cards_step":  # one NCCL rank a card
+        dp.init_process_group("cuda", "file://" + store, timeout_s=600)
+    elif task != "tp_train_net":
+        dp.init_process_group("cuda:0", "file://" + store, backend="gloo",
+                              timeout_s=600)
+    result = {"tp": rank_tp_steps, "zero": rank_zero_slices,
+              "gallery": rank_gallery, "tp_train_net": rank_tp_train_net,
+              "cards_step": rank_cards_step}[task](store, *args)
+    if dp.is_distributed():
+        dp.destroy_process_group()
+    if result is not None:
+        torch.save(result, f"{out_path}.{rank}")
+
+
+def optimizer_bytes(optimizer):
+    import torch
+
+    return sum(v.numel() * v.element_size()
+               for slot in optimizer.state.values() for v in slot.values()
+               if isinstance(v, torch.Tensor) and v.dim() > 0)
+
+
+def rank_tp_steps(store):
+    """(a) on one rank: full-CLIP f32 at full width on the ``data 2 x model
+    2`` mesh, rank 0's start everywhere, TP_STEPS steps on this data
+    shard's rows of the TP_ROWS-row batch; then rank 0, out of the group,
+    takes the same steps in one process on the TP_ROWS rows from the same
+    start (and on them reversed: the yardstick), and holds the runs
+    together (:func:`compare_dp_steps`)."""
+    import torch
+    from textreid_torch.parallel import mesh as dp
+
+    rank = dp.rank()
+    torch.manual_seed(0)
+    with cudnn_exact():
+        cfg, model, state_of, step, batch = train_setup(FULLCLIP, "float32")
+        batch = {k: v[:TP_ROWS] for k, v in batch.items()}
+        state = state_of(model)
+        dp.shard_state(state, dp.make_mesh(*TP_MESH))
+        start = state.state_dict()  # the single-process layout
+        rows = TP_ROWS // dp.data_size()
+        r = dp.data_rank()
+        mine = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        zero_counts()
+        got, t0 = [], time.time()
+        for i in range(DP_STEPS):
+            got.append(dp_record(state, step(state, mine), full=i == 0))
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / DP_STEPS
+        mine = {"counts": read_counts(TRAIN_KERNELS), "shapes": {
+            n: tuple(p.shape) for n, p in state.model.named_parameters()},
+            "tp": dict(state.sharding.tp),
+            "metrics": [g["metrics"] for g in got],
+            "axes": (dp.axis(dp.DATA_AXIS).ranks,
+                     dp.axis(dp.MODEL_AXIS).ranks),
+            "step_s": step_s}
+        ranks = dp.all_gather_object(mine)
+        dp.destroy_process_group()
+        if rank != 0:
+            return None
+        del state, model
+        torch.cuda.empty_cache()
+        cfg, model, state_of, step, _ = train_setup(FULLCLIP, "float32")
+        ref = state_of(model)
+        ref.load_state_dict(start)
+        full = {n: tuple(p.shape) for n, p in ref.model.named_parameters()}
+        zero_counts()
+        want = [dp_record(ref, step(ref, batch), full=i == 0)
+                for i in range(DP_STEPS)]
+        one_counts = read_counts(TRAIN_KERNELS)
+        ref.load_state_dict(start)
+        flipped = {k: v.flip(0) for k, v in batch.items()}
+        alt = [dp_record(ref, step(ref, flipped), full=i == 0)
+               for i in range(DP_STEPS)]
+    decay = {n: g["weight_decay"] for g in ref.optimizer.param_groups
+             for n, p in ref.model.named_parameters()
+             if any(p is q for q in g["params"])}
+    summary = compare_dp_steps(got, want, alt, start["model"], decay,
+                               rows=TP_ROWS, what="tensor-parallel")
+    return {"ranks": ranks, "full_shapes": full, "one_counts": one_counts,
+            "summary": summary}
+
+
+def rank_zero_slices(store):
+    """(b) on one rank: the flagship f32 at full width on MESH_RANKS ranks,
+    three runs of DP_STEPS steps from rank 0's one start, 128 / MESH_RANKS
+    rows a rank: flat data parallelism, flat with ZeRO-1
+    (``TPU.OPTIMIZER_SHARDING``), and 2 slices x 2 with ZeRO-1; each
+    rank's optimizer-state bytes and launches a run; rank 0 keeps every
+    run's parameters and moments (the single-process layout) and, out of
+    the group, takes the one-process steps on the 128 rows reversed (the
+    yardstick of :func:`compare_dp_steps`)."""
+    import copy
+
+    import torch
+    from textreid_torch.parallel import mesh as dp
+
+    rank = dp.rank()
+    torch.manual_seed(0)
+    runs = {}
+    with cudnn_exact():
+        cfg, pristine, state_of, step, batch = train_setup(FLAGSHIP,
+                                                           "float32")
+        for name, slices, zero in (("flat", 1, False), ("zero", 1, True),
+                                   ("slices", 2, True)):
+            state = state_of(copy.deepcopy(pristine))
+            dp.shard_state(state, dp.make_mesh(0, 1, num_slices=slices),
+                           optimizer_sharding=zero)
+            if name == "flat":
+                start = state.state_dict()
+            rows = 128 // dp.data_size()
+            r = dp.data_rank()
+            mine = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+            zero_counts()
+            records, t0 = [], time.time()
+            for i in range(DP_STEPS):
+                records.append(dp_record(state, step(state, mine),
+                                         full=i == 0))
+            torch.cuda.synchronize()
+            step_s = (time.time() - t0) / DP_STEPS
+            info = dp.all_gather_object({
+                "counts": read_counts(TRAIN_KERNELS), "step_s": step_s,
+                "opt_bytes": optimizer_bytes(state.optimizer),
+                "zero": len(state.sharding.zero) if state.sharding else 0,
+                "data": dp.axis(dp.DATA_AXIS).ranks,
+                "slice": dp.axis(dp.SLICE_AXIS).ranks})
+            final = state.state_dict()  # gathered by every rank
+            runs[name] = {"records": records, "info": info, "final": (
+                final if rank == 0 and name != "slices" else None)}
+            del state
+            torch.cuda.empty_cache()
+        dp.destroy_process_group()
+        if rank != 0:
+            return None
+        ref = state_of(copy.deepcopy(pristine))
+        ref.load_state_dict(start)
+        flipped = {k: v.flip(0) for k, v in batch.items()}
+        alt = [dp_record(ref, step(ref, flipped), full=i == 0)
+               for i in range(DP_STEPS)]
+    decay = {n: g["weight_decay"] for g in ref.optimizer.param_groups
+             for n, p in ref.model.named_parameters()
+             if any(p is q for q in g["params"])}
+    flat, zero = runs["flat"]["final"], runs["zero"]["final"]
+    unequal = [f"{which} {k}" for which in ("model", "key_model")
+               for k, v in flat[which].items()
+               if not torch.equal(v, zero[which][k])]
+    unequal += [f"moment {i} {k}" for i, slot in
+                flat["optimizer"]["state"].items() for k, v in slot.items()
+                if not torch.equal(v, zero["optimizer"]["state"][i][k])]
+    unequal += [k for k in ("v_queue", "t_queue", "id_queue")
+                if not torch.equal(flat[k], zero[k])]
+    summary = compare_dp_steps(runs["slices"]["records"],
+                               runs["flat"]["records"], alt, start["model"],
+                               decay, what="2 slices x 2 against the flat "
+                                           "mesh")
+    return {"info": {n: run["info"] for n, run in runs.items()},
+            "unequal": unequal, "summary": summary}
+
+
+def rank_gallery(store):
+    """(c) on one rank: ``RetrievalIndex(mesh=)`` over the process-group
+    mesh of GALLERY_RANKS ranks (this rank's block of the GALLERY_ROWS
+    rows), float and int8, beside the unsharded index of the same file in
+    this process: GALLERY_QUERIES through the flagship's text tower, the
+    launches of the sharded searches, the largest score difference and
+    the rows swapped within a tie; the p50 of 20 one-query searches of
+    each."""
+    import torch
+    from textreid_torch.config import flagship_cfg
+    from textreid_torch.parallel import mesh as dp
+    from textreid_torch.serving import RetrievalIndex
+    from textreid_torch.utils.bootstrap import build_eval_model
+
+    mesh = dp.make_mesh(0)
+    path = os.path.join(WORK, "mesh", f"unit_{GALLERY_ROWS}.{dp.rank()}.idx")
+    write_unit_index(path, GALLERY_ROWS)
+    cfg = flagship_cfg("")
+    cfg.TPU.ALLOW_RANDOM_VOCAB = True
+    torch.manual_seed(0)
+    model = build_eval_model(cfg, "", "cuda", torch.bfloat16)
+    rng = np.random.RandomState(21)
+    queries = []
+    for n, k in GALLERY_QUERIES:
+        lens = rng.randint(1, 106, n).astype(np.int32)
+        ids = np.zeros((n, 105), np.int32)
+        for i, ln in enumerate(lens):
+            ids[i, :ln] = rng.randint(1, 512, ln)
+        queries.append((ids, lens, k))
+    out, errors = {}, []
+    for quantize in (False, True):
+        kernel = "topk_similarity_int8" if quantize else "topk_similarity_f32"
+        sharded = RetrievalIndex(model, mesh=mesh, quantize=quantize)
+        sharded.load_index(path)
+        plain = RetrievalIndex(model, quantize=quantize)
+        plain.load_index(path)
+        zero_counts()
+        got = [sharded.search(ids, lens, k) for ids, lens, k in queries]
+        torch.cuda.synchronize()
+        counts = read_counts((kernel,))
+        want = [plain.search(ids, lens, k) for ids, lens, k in queries]
+        worst, ties = 0.0, 0
+        for (sa, ma), (sb, mb) in zip(got, want):
+            if sa.shape != sb.shape or not np.isfinite(sa).all():
+                errors.append(f"scores {sa.shape}, unsharded {sb.shape}")
+                continue
+            worst = max(worst, float(np.abs(sa - sb).max()))
+            for r, c in zip(*np.nonzero(ma != mb)):
+                row = np.nonzero(mb[r] == ma[r, c])[0]
+                if row.size == 0 or abs(sb[r, row[0]] - sa[r, c]) > \
+                        DP_SEARCH_TOL:
+                    errors.append(f"query {r} slot {c} row {ma[r, c]} "
+                                  f"against {mb[r, c]}")
+                ties += 1
+        ms = {}
+        for name, index in (("sharded", sharded), ("unsharded", plain)):
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                index.search(*queries[0][:2], k=10)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(times))
+        out[quantize] = {"counts": counts, "worst": worst, "ties": ties,
+                         "ms": ms, "shard_rows": sharded._mesh_shards[0]
+                         .shape[0] if not quantize else
+                         sharded._mesh_shards[0].values.shape[0]}
+    out["errors"] = errors
+    gathered = dp.all_gather_object(out)  # every rank takes part
+    return gathered if dp.rank() == 0 else None
+
+
+def rank_tp_train_net(store, root):
+    """(a) ``train_net.main`` on one rank: the full-CLIP yaml with
+    ``TPU.MODEL_PARALLEL 2`` on the MESH_RANKS-rank group at ``store``
+    (gloo on ``cuda:0``), f32, TP_ROWS rows a step, DP_STEPS steps, a
+    checkpoint at the end of the epoch; the state the ranks hold at the
+    end, gathered to the single-process layout (every rank takes part),
+    and the launches.  Rank 0 then loads the checkpoint into one process
+    (strict) and holds it against that gathered state, bit for bit."""
+    import torch
+    from textreid_torch import train_net
+
+    captured = {}
+    train = train_net.train
+
+    def recording(*args, **kwargs):
+        state, meters = train(*args, **kwargs)
+        captured.update(state=state.state_dict(), step=state.step,
+                        tp=len(state.sharding.tp))
+        return state, meters
+
+    argv = ["--root", root, "--config-file",
+            os.path.join(REPO, FULLCLIP_YAML), "--device", "cuda",
+            "--init-method", "file://" + store, "--backend", "gloo",
+            "SOLVER.IMS_PER_BATCH", str(TP_ROWS), "SOLVER.NUM_EPOCHS", "1",
+            "SOLVER.EVALUATE_PERIOD", "0", "SOLVER.CHECKPOINT_PERIOD", "1",
+            "SOLVER.LOG_PERIOD", "1", "TPU.MODEL_PARALLEL", "2",
+            "TPU.COMPUTE_DTYPE", "float32", "TPU.ALLOW_RANDOM_VOCAB", "True",
+            "DATALOADER.NUM_WORKERS", "2"]
+    zero_counts()
+    with mock.patch.object(train_net, "train", recording):
+        train_net.main(argv)
+    torch.cuda.synchronize()
+    out = {"counts": read_counts(TRAIN_KERNELS), "step": captured["step"],
+           "tp": captured["tp"]}
+    if int(os.environ["RANK"]) != 0:
+        return out
+    from textreid_torch.utils.bootstrap import build_train_state
+    from textreid_torch.utils.checkpoint import Checkpointer
+
+    ckpt = os.path.join(root, "output", "cuhkpedes", os.path.splitext(
+        os.path.basename(FULLCLIP_YAML))[0], "epoch_1.pth")
+    cfg = yaml_cfg(FULLCLIP_YAML)
+    cfg.SOLVER.IMS_PER_BATCH = TP_ROWS
+    cfg.TPU.ALLOW_RANDOM_VOCAB = True
+    state = build_train_state(cfg, "cuda")
+    t0 = time.time()
+    Checkpointer().resume(ckpt, state)
+    out["load_s"] = time.time() - t0
+    out["file_bytes"] = os.path.getsize(ckpt)
+    loaded, want = state.state_dict(), captured["state"]
+    out["unequal"] = [f"{which} {k}" for which in ("model", "key_model")
+                      for k, v in want[which].items()
+                      if not torch.equal(v, loaded[which][k])]
+    out["unequal"] += [f"moment {i} {k}" for i, slot in
+                       want["optimizer"]["state"].items()
+                       for k, v in slot.items()
+                       if not torch.equal(v, loaded["optimizer"]["state"][i][k])]
+    out["unequal"] += [k for k in ("v_queue", "t_queue", "id_queue")
+                       if not torch.equal(want[k], loaded[k])]
+    out["step_loaded"] = state.step
+    return out
+
+
+def rank_cards_step(store, model_name, num_model, zero, steps):
+    """``--dp-cards`` on one rank (one NCCL rank a card): ``model_name``'s
+    bf16 step at full width on the mesh of every rank with a model axis of
+    ``num_model``, ZeRO-1 when ``zero`` is "True"; every data shard takes
+    its own 128 rows (the global batch 128 x data), 2 warm-up steps, then
+    ``steps`` timed ones (CUDA-synchronised host clock); this rank's step
+    times, peak memory (``max_memory_allocated`` from after the state was
+    built and sharded, the state included) and optimizer-state bytes."""
+    import torch
+    from textreid_torch.parallel import mesh as dp
+
+    torch.manual_seed(0)
+    cfg, model, state_of, step, batch = train_setup(model_name, "bfloat16")
+    state = state_of(model)
+    dp.shard_state(state, dp.make_mesh(0, int(num_model)),
+                   optimizer_sharding=zero == "True")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2 + int(steps)):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = dp.all_gather_object({
+        "ms": times[2:], "peak": torch.cuda.max_memory_allocated(),
+        "opt_bytes": optimizer_bytes(state.optimizer),
+        "data": dp.data_size(), "model": dp.axis(dp.MODEL_AXIS).size})
+    return out if dp.rank() == 0 else None
+
+
+def drive_mesh_cards(n):
+    """``--dp-cards``' mesh part, on ``n`` >= 4 cards under NCCL, runs in
+    turns: the full-CLIP bf16 step at ``data n/2 x model 2`` against ``data
+    n``, 128 rows a data shard; then the flagship's bf16 step at ``data n``
+    with and without ZeRO-1: each rank's peak memory and optimizer state."""
+    t0 = time.time()
+    runs = {("full-CLIP", 2, False): [], ("full-CLIP", 1, False): [],
+            (FLAGSHIP, 1, True): [], (FLAGSHIP, 1, False): []}
+    order = list(runs)[:2] * 2 + list(runs)[2:] * 2
+    for key in order:
+        name, num_model, zero = key
+        runs[key].append(launch_ranks("cards_step", n, name, num_model, zero,
+                                      DP_CARD_STEPS, nccl=True)[0])
+    for (name, num_model, zero), readings in runs.items():
+        for i, ranks in enumerate(readings):
+            ms = np.median([np.median(r["ms"]) for r in ranks])
+            rows = 128 * ranks[0]["data"]
+            log(f"--dp-cards, {name} bf16 at data {ranks[0]['data']} x model "
+                f"{num_model}{', ZeRO-1' if zero else ''} on {n} cards "
+                f"(NCCL), 128 rows a data shard, run {i + 1}: step ms by rank "
+                + ", ".join(f"{np.median(r['ms']):.2f}" for r in ranks)
+                + f"; median {ms:.2f} ms, {rows / ms * 1e3:.0f} images a "
+                f"second; peak GiB by rank "
+                + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+                + "; optimizer state GiB by rank "
+                + ", ".join(f"{r['opt_bytes'] / 2**30:.3f}" for r in ranks))
+    log(f"--dp-cards, the mesh part: {time.time() - t0:.1f} s "
+        f"({card_line()})")
+
+
+def drive_mesh():
+    """Phase 15 (see the module's docstring): (a) tensor parallelism,
+    (b) ZeRO-1 and slices, (c) the gallery across processes.  Returns the
+    launches of each part (summed over the ranks) and the readings."""
+    import shutil
+
+    t_phase = time.time()
+    launched, readings = {}, {}
+    card = card_line()
+
+    # (a) the split step against one process, then train_net
+    t0 = time.time()
+    res = launch_ranks("tp", MESH_RANKS)[0]
+    want = {k: v * DP_STEPS for k, v in TRAIN_MODELS[FULLCLIP][1].items()}
+    if res["one_counts"] != want:
+        fail(f"tensor-parallel step: one process launched "
+             f"{res['one_counts']}, not {want}")
+    for r, rank in enumerate(res["ranks"]):
+        if rank["counts"] != want:
+            fail(f"tensor-parallel step: rank {r} launched "
+                 f"{rank['counts']}, not {want}")
+        if rank["metrics"] != res["ranks"][0]["metrics"]:
+            fail(f"tensor-parallel step: rank {r}'s losses differ")
+        if len(rank["tp"]) != FULLCLIP_SPLIT_LEAVES:
+            fail(f"tensor-parallel step: rank {r} split {len(rank['tp'])} "
+                 f"leaves, not {FULLCLIP_SPLIT_LEAVES}")
+        for name, shape in rank["shapes"].items():
+            full = list(res["full_shapes"][name])
+            if name in rank["tp"]:
+                full[rank["tp"][name]] //= TP_MESH[1]
+            if tuple(full) != shape:
+                fail(f"tensor-parallel step: rank {r} holds {name} "
+                     f"{shape}, tp_spec gives {tuple(full)}")
+    launched["tensor-parallel steps"] = {
+        k: sum(rank["counts"][k] for rank in res["ranks"]) for k in want}
+    w = res["summary"]
+    readings["tp_step_s"] = [rank["step_s"] for rank in res["ranks"]]
+    log(f"phase 15 (a), full-CLIP f32 at 384x128 on {MESH_RANKS} ranks on "
+        f"the one card (gloo) as data {TP_MESH[0]} x model {TP_MESH[1]}, "
+        f"{TP_ROWS} rows ({TP_ROWS // TP_MESH[0]} a data shard), {DP_STEPS} "
+        f"steps against one process on the {TP_ROWS} rows: losses within "
+        f"{w['loss']:.3e} (reversed order {w['alt_loss']:.3e}), step-1 "
+        f"gradients within {w['grad']:.3e}, updates {w['update']:.3e} "
+        f"(reversed order {w['alt_grad']:.3e}, {w['alt_update']:.3e}), "
+        f"queues after each step {', '.join(f'{v:.3e}' for v in w['queue'])}"
+        f" (reversed order {', '.join(f'{v:.3e}' for v in w['alt_queue'])}"
+        f"); {len(res['ranks'][0]['tp'])} leaves split a rank at tp_spec's "
+        f"shapes; launches a rank {res['ranks'][0]['counts']} (one process "
+        f"{res['one_counts']}); a step "
+        f"{', '.join(f'{v * 1e3:.0f}' for v in readings['tp_step_s'])} ms "
+        f"by rank; {time.time() - t0:.1f} s ({card})")
+
+    t0 = time.time()
+    data = training_split(TP_ROWS, DP_STEPS)
+    root = os.path.join(WORK, "mesh", "train_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "datasets"))
+    os.symlink(data, os.path.join(root, "datasets", "cuhkpedes"))
+    ranks = launch_ranks("tp_train_net", MESH_RANKS, root)
+    first = ranks[0]
+    for r, rank in enumerate(ranks):
+        if rank is None or rank["counts"] != want or rank["step"] != DP_STEPS \
+                or rank["tp"] != FULLCLIP_SPLIT_LEAVES:
+            fail(f"train_net with TPU.MODEL_PARALLEL 2: rank {r} "
+                 f"{rank and {k: rank[k] for k in ('counts', 'step', 'tp')}}")
+    if first["unequal"] or first["step_loaded"] != DP_STEPS:
+        fail(f"train_net with TPU.MODEL_PARALLEL 2: its checkpoint loaded "
+             f"into one process differs from the ranks' state: "
+             f"{first['unequal'][:8]}")
+    launched["tensor-parallel train_net"] = {
+        k: sum(rank["counts"][k] for rank in ranks) for k in want}
+    shutil.rmtree(os.path.join(root, "output"), ignore_errors=True)
+    log(f"phase 15 (a), train_net.main on the full-CLIP yaml with "
+        f"TPU.MODEL_PARALLEL 2 on {MESH_RANKS} ranks (f32, {TP_ROWS} rows, "
+        f"{DP_STEPS} steps): the {first['file_bytes'] / 2**30:.2f} GiB "
+        f"checkpoint, in the single-process layout, loads into one process "
+        f"in {first['load_s']:.2f} s equal bit for bit to the ranks' "
+        f"gathered state (both models, the moments, the queues); launches a "
+        f"rank {first['counts']}; {time.time() - t0:.1f} s ({card})")
+
+    # (b) ZeRO-1 and slices
+    t0 = time.time()
+    res = launch_ranks("zero", MESH_RANKS)[0]
+    want_b = {k: v * DP_STEPS for k, v in TRAIN_MODELS[FLAGSHIP][1].items()}
+    for name, info in res["info"].items():
+        for r, rank in enumerate(info):
+            if rank["counts"] != want_b:
+                fail(f"{name} run: rank {r} launched {rank['counts']}, not "
+                     f"{want_b}")
+        launched[f"{name} run"] = {
+            k: sum(rank["counts"][k] for rank in info) for k in want_b}
+    if res["unequal"]:
+        fail(f"ZeRO-1: the run differs from flat data parallelism at "
+             f"{res['unequal'][:8]}")
+    info = res["info"]
+    if any(rank["data"] != (0, 1, 2, 3) for rank in info["flat"]) or [
+            rank["data"] for rank in info["slices"]] != [(0, 1), (0, 1),
+                                                         (2, 3), (2, 3)] or [
+            rank["slice"] for rank in info["slices"]] != [(0, 2), (1, 3),
+                                                          (0, 2), (1, 3)]:
+        fail(f"slices: groups {[(rank['data'], rank['slice']) for rank in info['slices']]}")
+    if not all(rank["zero"] for rank in info["zero"] + info["slices"]):
+        fail("ZeRO-1 split no leaf")
+    opt = {n: [rank["opt_bytes"] / 2**20 for rank in run]
+           for n, run in info.items()}
+    readings["optimizer_mib"] = opt
+    w = res["summary"]
+    log(f"phase 15 (b), the flagship f32 at 384x128 on {MESH_RANKS} ranks on "
+        f"the one card (gloo), 128 rows ({128 // MESH_RANKS} a rank), "
+        f"{DP_STEPS} steps a run: ZeRO-1 equal bit for bit to flat data "
+        f"parallelism (parameters, key parameters, moments, queues); 2 "
+        f"slices x 2 with ZeRO-1 against the flat mesh: losses within "
+        f"{w['loss']:.3e} (reversed-order yardstick {w['alt_loss']:.3e}), "
+        f"step-1 gradients {w['grad']:.3e}, updates {w['update']:.3e}, "
+        f"BatchNorm statistics {', '.join(f'{v:.3e}' for v in w['stats'])},"
+        f" queues {', '.join(f'{v:.3e}' for v in w['queue'])}; optimizer "
+        f"state a rank (MiB) flat {', '.join(f'{v:.1f}' for v in opt['flat'])}"
+        f", ZeRO-1 {', '.join(f'{v:.1f}' for v in opt['zero'])}, slices + "
+        f"ZeRO-1 {', '.join(f'{v:.1f}' for v in opt['slices'])}; a step (ms, "
+        f"rank 0) " + ", ".join(f"{n} {run[0]['step_s'] * 1e3:.0f}"
+                                for n, run in info.items())
+        + f"; launches a rank {info['flat'][0]['counts']}; "
+        f"{time.time() - t0:.1f} s ({card})")
+
+    # (c) the gallery across processes
+    t0 = time.time()
+    ranks = launch_ranks("gallery", GALLERY_RANKS)[0]
+    parts = []
+    for quantize in (False, True):
+        kernel = "topk_similarity_int8" if quantize else "topk_similarity_f32"
+        for r, rank in enumerate(ranks):
+            if rank["errors"]:
+                fail(f"gallery across processes, rank {r}: "
+                     f"{rank['errors'][:4]}")
+            got = rank[quantize]
+            if got["counts"] != {kernel: len(GALLERY_QUERIES)}:
+                fail(f"gallery across processes ({'int8' if quantize else 'float'}), "
+                     f"rank {r}: launches {got['counts']}, not one a search")
+            if got["worst"] > DP_SEARCH_TOL:
+                fail(f"gallery across processes, rank {r}: scores "
+                     f"{got['worst']:.3e} from the unsharded index's")
+            if got["shard_rows"] != GALLERY_ROWS // GALLERY_RANKS:
+                fail(f"gallery across processes, rank {r}: holds "
+                     f"{got['shard_rows']} rows")
+        launched[f"gallery across processes, {kernel}"] = {
+            kernel: sum(rank[quantize]["counts"][kernel] for rank in ranks)}
+        parts.append(
+            f"{'int8' if quantize else 'float'}: scores within "
+            f"{max(rank[quantize]['worst'] for rank in ranks):.2e}, "
+            f"{sum(rank[quantize]['ties'] for rank in ranks)} slots swapped "
+            f"within a tie, one query {ranks[0][quantize]['ms']['sharded']:.3f}"
+            f" ms sharded, {ranks[0][quantize]['ms']['unsharded']:.3f} "
+            f"unsharded (rank 0)")
+    readings["gallery_ms"] = {q: ranks[0][q]["ms"] for q in (False, True)}
+    log(f"phase 15 (c), a gallery of {GALLERY_ROWS} rows across "
+        f"{GALLERY_RANKS} processes on the one card (gloo; "
+        f"{GALLERY_ROWS // GALLERY_RANKS} rows a rank), the flagship's text "
+        f"tower, {len(GALLERY_QUERIES)} searches: replies equal to the "
+        f"unsharded index's; K2 / K4 once a rank a search; "
+        + "; ".join(parts) + f"; {time.time() - t0:.1f} s ({card})")
+    readings["seconds"] = time.time() - t_phase
+    log(f"phase 15: {readings['seconds']:.1f} s ({card})")
+    return launched, readings
 
 
 # -- phase 14: the tools and the quickstart ---------------------------------
@@ -4984,6 +5616,12 @@ def main():
         _build.library()
         dp_rank(*sys.argv[2:6])
         return
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        # a rank of phase 15 (or of --dp-cards' mesh part), started by
+        # launch_ranks
+        _build.library()
+        mesh_rank(*sys.argv[2:])
+        return
     card = card_line()
     require_cuda("cuda")
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5011,10 +5649,16 @@ def main():
         time_kernels()
         time_k1_backward()
         return
-    if sys.argv[1:] == ["--dp-cards"]:
-        # a development aid: data parallelism across the machine's cards
-        # (NCCL), prints no result line
-        drive_dp_cards()
+    if sys.argv[1:2] == ["--dp-cards"]:
+        # a development aid: data parallelism and the mesh across the
+        # machine's cards (NCCL), prints no result line; "--dp-cards mesh"
+        # the mesh part alone
+        drive_dp_cards(mesh_only=sys.argv[2:] == ["mesh"])
+        return
+    if sys.argv[1:] == ["--mesh"]:
+        # a development aid: phase 15 alone (about 150 s); prints no result
+        # line
+        drive_mesh()
         return
     if sys.argv[1:] == ["--dp-f64"]:
         # a development aid: phase 13's 2-rank step against one process in
@@ -5120,6 +5764,7 @@ def main():
     vit_train, rn_train = (train_times[name] for name in TIMED_MODELS)
     accum = time_accum8()
     dp_launches, dp_step_ms, dp_p50 = drive_data_parallel()
+    mesh_launches, mesh = drive_mesh()
     k1_times = time_k1_backward()
     attn_times = time_attention()
     topk_times = time_topk()  # after every host-paced timing, as the profile
@@ -5236,6 +5881,18 @@ def main():
                          for n in (None,) + DP_SHARDS) + " ms"
             for q in (False, True) for rows in DP_GALLERY_ROWS)
         + f" ({card})")
+    log(f"summary, the mesh (phase 15, {mesh['seconds']:.1f} s; gloo ranks "
+        f"on the one card): full-CLIP f32 at data 2 x model 2, 32 rows, a "
+        f"step {', '.join(f'{v * 1e3:.0f}' for v in mesh['tp_step_s'])} ms "
+        f"by rank; the flagship's optimizer state a rank (MiB), flat / "
+        f"ZeRO-1 / 2 slices + ZeRO-1: "
+        + " / ".join(f"{np.mean(mesh['optimizer_mib'][n]):.1f}"
+                     for n in ("flat", "zero", "slices"))
+        + "; a gallery of 98304 rows across 2 processes, one query: "
+        + "; ".join(f"{'int8' if q else 'float'} sharded "
+                    f"{mesh['gallery_ms'][q]['sharded']:.3f} ms, unsharded "
+                    f"{mesh['gallery_ms'][q]['unsharded']:.3f}"
+                    for q in (False, True)) + f" ({card})")
     loader = tools["loader"]
     parity_want, parity_got = tools["parity"]
     ab, prof = tools["int8_ffn_ab"], tools["profile"]
@@ -5265,12 +5922,15 @@ def main():
                     for name, launched in train_launches.items())
         + "; " + "; ".join(f"data parallel, {name} {launched}"
                            for name, launched in dp_launches.items())
+        + "; " + "; ".join(f"phase 15, {name} {launched}"
+                           for name, launched in mesh_launches.items())
         + f"; the quickstart {tools_counts}")
 
     def launches(name):
         return sum(run.get(name, 0) for run in (
             counts, eval_launches, int8_counts, enc_counts, trunk_counts,
-            *train_launches.values(), *dp_launches.values(), tools_counts))
+            *train_launches.values(), *dp_launches.values(),
+            *mesh_launches.values(), tools_counts))
 
     bounds = kernel_bounds(k1_times[("steps",)])
     bounds.update(int8_conv_bounds())

@@ -2,8 +2,8 @@
 (``textreid_torch/parallel/mesh.py``, ``models/common.py:batch_norm``).
 
 ``make_mesh`` against the JAX package's on the conftest's 8 virtual CPU
-devices (shapes, the oversize refusal) and its own refusals of what is not
-ported (a model axis, several slices, ZeRO-1).  On 2 gloo ranks on the CPU
+devices (shapes, with a model axis and several slices; the device layout;
+the oversize refusal).  On 2 gloo ranks on the CPU
 (``tests/torch_dp_worker.py``): the gather with gradient, forward and
 backward, against one process summing the ranks' losses; training
 BatchNorm on each rank's half of a batch against ``batch_norm`` on the
@@ -19,6 +19,8 @@ import torch
 from textreid_tpu.parallel import make_mesh as jax_make_mesh
 from textreid_tpu.parallel.mesh import DATA_AXIS as JAX_DATA
 from textreid_tpu.parallel.mesh import MODEL_AXIS as JAX_MODEL
+from textreid_tpu.parallel.mesh import SLICE_AXIS as JAX_SLICE
+from textreid_tpu.parallel.mesh import data_shard_count as jax_shard_count
 from textreid_tpu.parallel.mesh import local_batch_size as jax_local_batch
 from textreid_torch.models.common import batch_norm
 from textreid_torch.parallel import (
@@ -28,11 +30,7 @@ from textreid_torch.parallel import (
     local_batch_size,
     make_mesh,
 )
-from textreid_torch.parallel.mesh import (
-    NOT_PORTED,
-    is_distributed,
-    refuse_optimizer_sharding,
-)
+from textreid_torch.parallel.mesh import SLICE_AXIS, is_distributed
 
 from torch_dp_worker import launch
 
@@ -68,22 +66,37 @@ def test_local_batch_must_divide():
         local_batch_size(10, make_mesh(4, devices=DEVICES))
 
 
-def test_what_is_not_ported_raises():
-    """A model axis and several slices are meshes JAX builds; the port
-    refuses them, and ZeRO-1, naming the ROADMAP item that holds them."""
-    assert jax_make_mesh(4, 2).shape[JAX_MODEL] == 2
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        make_mesh(4, 2, devices=DEVICES)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        make_mesh(0, 1, devices=DEVICES, num_slices=2)
-    from textreid_torch.config import get_default_cfg
+@pytest.mark.parametrize("args", [
+    dict(num_data=4, num_model=2), dict(num_data=0, num_model=2),
+    dict(num_slices=2), dict(num_data=2, num_model=2, num_slices=2)])
+def test_model_and_slice_meshes_match_jax(args):
+    """A model axis and several slices: the axes, their sizes, the data
+    shards and the devices' places (``(slice, data, model)``, the model
+    index fastest) are JAX's."""
+    want = jax_make_mesh(**args)
+    devices = [torch.device("cpu", i) for i in range(8)]
+    got = make_mesh(**args, devices=devices)
+    assert tuple(got.shape) == tuple(want.axis_names)
+    assert got.shape == dict(want.shape)
+    assert data_shard_count(got) == jax_shard_count(want)
+    assert local_batch_size(64, got) == jax_local_batch(64, want)
+    ids = [d.id for d in want.devices.reshape(-1)]
+    assert [d.index for d in got.devices] == ids
+    # a gallery shard a data index: its model index 0, slice 0
+    first = want.devices[0] if SLICE_AXIS in got.shape else want.devices
+    assert [d.index for d in got.shard_devices] == [
+        d.id for d in first[:, 0]]
+    assert (JAX_SLICE in want.axis_names) == (SLICE_AXIS in got.shape)
 
-    cfg = get_default_cfg()
-    refuse_optimizer_sharding(cfg)
-    cfg.TPU.OPTIMIZER_SHARDING = True
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
-        refuse_optimizer_sharding(cfg)
-    assert NOT_PORTED == "ROADMAP Queue A item 11"
+
+@pytest.mark.parametrize("args", [dict(num_data=0, num_slices=3),
+                                  dict(num_data=5, num_slices=2)])
+def test_slice_meshes_refuse_as_jax(args):
+    with pytest.raises(ValueError) as want:
+        jax_make_mesh(**args)
+    with pytest.raises(ValueError) as got:
+        make_mesh(**args, devices=DEVICES)
+    assert str(got.value) == str(want.value)
 
 
 def test_no_group_no_card_no_mesh():
@@ -170,8 +183,9 @@ def test_global_batch_norm_on_two_ranks(two_ranks):
 
 def test_a_rank_slices_its_rows_of_a_whole_global_batch(monkeypatch):
     """Without ``TPU.PROCESS_SHARD_DATA`` every rank's loader gives the
-    whole global batch and the trainer keeps the rank's rows (rank-major);
-    a process-sharded loader's batch, and one rank, pass whole."""
+    whole global batch and the trainer keeps its data shard's rows
+    (shard-major); a process-sharded loader's batch, and one shard, pass
+    whole."""
     from textreid_torch.engine import trainer
 
     batch = {"pids": np.arange(8), "pixels": np.arange(16).reshape(8, 2)}
@@ -180,8 +194,8 @@ def test_a_rank_slices_its_rows_of_a_whole_global_batch(monkeypatch):
         process_shard = None
 
     assert trainer.local_rows(batch, Loader()) is batch  # one rank
-    monkeypatch.setattr(trainer, "world_size", lambda: 2)
-    monkeypatch.setattr(trainer, "rank", lambda: 1)
+    monkeypatch.setattr(trainer, "data_size", lambda: 2)
+    monkeypatch.setattr(trainer, "data_rank", lambda: 1)
     mine = trainer.local_rows(batch, Loader())
     np.testing.assert_array_equal(mine["pids"], [4, 5, 6, 7])
     np.testing.assert_array_equal(mine["pixels"], batch["pixels"][4:])

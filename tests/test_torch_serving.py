@@ -206,18 +206,39 @@ def test_http_round_trip(indexes):
 
 
 def test_unported_options_raise(indexes):
-    """A gallery sharded over devices is ported (``mesh=``, see
-    ``tests/test_torch_retrieval.py``); a mesh with a tensor-parallel model
-    axis is still to port (ROADMAP Queue A item 11) and raises as it is
-    made.  The int8 encoders of this ModifiedResNet tower are ported: the
-    int8-dataflow trunk (``True``, ``"dataflow"``), calibrated when the
-    gallery is built, and the interceptor (``"intercept"``)."""
+    """Every option of the JAX index is ported.  A gallery sharded over
+    devices (``mesh=``, see ``tests/test_torch_retrieval.py``), also on a
+    mesh with a tensor-parallel model axis: sharded over ``data``,
+    replicated over ``model``, as JAX's ``shard_map`` with ``P(DATA_AXIS)``
+    (its 23 rows: the augmented pad rows), answering as JAX's index on a
+    ``data 2 x model 2`` mesh does.  The int8 encoders of this
+    ModifiedResNet tower: the int8-dataflow trunk (``True``,
+    ``"dataflow"``), calibrated when the gallery is built, and the
+    interceptor (``"intercept"``)."""
+    from textreid_tpu.parallel import make_mesh as jax_make_mesh
     from textreid_torch.parallel import make_mesh
 
-    _, port_index = indexes
-    cpus = [torch.device("cpu")] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-        RetrievalIndex(port_index.model, mesh=make_mesh(2, 2, devices=cpus))
+    jax_index, port_index = indexes
+    cpus = [torch.device("cpu", i) for i in range(4)]
+    batches = [np.random.RandomState(0).randint(0, 255, (8, 64, 32, 3),
+                                                dtype=np.uint8)
+               for _ in range(3)]
+    got = RetrievalIndex(port_index.model, query_batch=4,
+                         mesh=make_mesh(2, 2, devices=cpus))
+    want = JaxRetrievalIndex(jax_index.model, jax_index.state,
+                             query_batch=4, mesh=jax_make_mesh(2, 2),
+                             use_pallas=True)
+    for index in (got, want):
+        index.build_gallery(batches, meta=np.arange(24), valid_rows=23)
+    assert got.mesh.shape == {"data": 2, "model": 2}
+    assert [d.index for d in got.mesh.shard_devices] == [0, 2]
+    assert len(got._mesh_shards) == 2
+    assert got._augmented and want._augmented
+    ids, lens = _queries()
+    got_s, got_m = got.search(ids, lens, k=5)
+    want_s, want_m = want.search(ids, lens, k=5)
+    np.testing.assert_allclose(got_s, want_s, atol=1e-4)
+    np.testing.assert_array_equal(got_m, want_m)
     sharded = RetrievalIndex(port_index.model, mesh=make_mesh(2, devices=cpus))
     assert sharded.mesh.shape["data"] == 2
     for kwargs in ({"int8_encode": True},

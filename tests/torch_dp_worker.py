@@ -14,7 +14,14 @@ Tasks (``IN.pt`` holds the payload, a pickled dict; each rank writes
   (``engine/steps.py``, ``engine/grad_cache.py``) on the rank's rows of
   each global batch, from a given state;
 * ``main``: ``textreid_torch.<module>.main(argv)`` (``train_net`` or
-  ``test_net``), optionally sending SIGTERM to itself at one iteration.
+  ``test_net``), optionally sending SIGTERM to itself at one iteration;
+* ``mesh_runs``: train steps on a ``(slice, data, model)`` mesh
+  (``parallel/mesh.py:make_mesh``, ``shard_state``: a model axis, ZeRO-1,
+  slices) on the rank's data shard of each global batch, each recorded in
+  the single-process layout; optionally a checkpoint written and resumed,
+  an eval-mode encode, the placements and the mesh's groups;
+* ``gallery``: ``evaluation/retrieval.py``'s sharded top-k over a
+  process-group mesh, each rank holding its block of the gallery.
 
 :func:`launch` starts the ranks, joins them within a timeout, kills every
 rank on overrun and raises with their output.
@@ -170,6 +177,123 @@ def task_steps(p, rank, world):
                           if q.grad is not None},
                 "state": state.state_dict(), "step": state.step})
         out[name] = records
+    return out
+
+
+def _full_grads(state):
+    """The query model's gradients in the single-process layout (a split
+    leaf's parts gathered over the model group)."""
+    from textreid_torch.parallel.mesh import MODEL_AXIS, axis, gather_split
+
+    tp = state.sharding.tp if state.sharding is not None else {}
+    return {n: gather_split(q.grad, tp[n], axis(MODEL_AXIS)) if n in tp
+            else q.grad.clone() for n, q in state.model.named_parameters()
+            if q.grad is not None}
+
+
+def task_mesh_runs(p, rank, world):
+    """For each run of ``p["runs"]`` (``{name: {"cfg", "pieces",
+    "batches", "mesh": (num_data, num_model, num_slices), "zero": bool,
+    optional "min_zero1", "checkpoint": path, "encode": batch}}``): every
+    step's metrics, gradients and state (the single-process layout), the
+    rank's shapes of the split leaves and its optimizer-state bytes; with
+    ``checkpoint``, step 1's state written there and step 2 taken again
+    after resuming from it; with ``encode``, ``encode_step`` of that batch
+    in eval mode; and each mesh axis' ranks."""
+    from textreid_torch.config import get_default_cfg
+    from textreid_torch.engine import make_train_step
+    from textreid_torch.engine.steps import encode_step
+    from textreid_torch.models import model as model_module
+    from textreid_torch.models.m_resnet import ModifiedResNet
+    from textreid_torch.parallel import mesh as dp
+    from textreid_torch.utils.checkpoint import Checkpointer
+
+    if "rn_spec" in p:
+        model_module.build_m_resnet = lambda cfg: ModifiedResNet(
+            **p["rn_spec"])
+    out = {}
+    for name, run in p["runs"].items():
+        cfg = get_default_cfg()
+        cfg.merge_from_other(run["cfg"])
+        state = _state({**p, "pieces": run["pieces"]}, cfg)
+        num_data, num_model, num_slices = run["mesh"]
+        mesh = dp.make_mesh(num_data, num_model, num_slices=num_slices)
+        dp.shard_state(state, mesh, optimizer_sharding=run.get("zero", False),
+                       min_zero1_elems=run.get("min_zero1",
+                                               dp.MIN_ZERO1_ELEMS))
+        step = make_train_step(cfg)
+        shard = (dp.data_rank(), dp.data_size())
+        record = {"axes": {a: dp.axis(a).ranks for a in (
+                      dp.DATA_AXIS, dp.MODEL_AXIS, dp.SLICE_AXIS,
+                      dp.BATCH_AXES)},
+                  "shard": shard,
+                  "shapes": {n: tuple(q.shape) for n, q in
+                             state.model.named_parameters()},
+                  "tp": dict(state.sharding.tp) if state.sharding else {},
+                  "zero": dict(state.sharding.zero) if state.sharding
+                  else {}, "steps": []}
+        for i, batch in enumerate(run["batches"]):
+            if i == 1 and run.get("checkpoint"):
+                os.makedirs(os.path.dirname(run["checkpoint"]),
+                            exist_ok=True)
+                saver = Checkpointer(os.path.dirname(run["checkpoint"]))
+                saver.save("step1", state)
+                saver.wait()
+                before = state.state_dict()
+            metrics = step(state, _torch_batch(_rows(batch, *shard)))
+            record["steps"].append({
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": _full_grads(state), "state": state.state_dict()})
+        record["opt_bytes"] = sum(
+            v.numel() * v.element_size()
+            for slot in state.optimizer.state.values()
+            for v in slot.values()
+            if isinstance(v, torch.Tensor) and v.dim() > 0)
+        if run.get("checkpoint"):
+            saver.resume(saver.path("step1"), state)
+            record["resumed_equal"] = all(
+                torch.equal(a, b) for a, b in zip(
+                    state.state_dict()["model"].values(),
+                    before["model"].values()))
+            metrics = step(state, _torch_batch(_rows(run["batches"][1],
+                                                     *shard)))
+            record["resumed"] = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "state": state.state_dict()}
+        if "encode" in run:
+            state.model.eval()
+            v, t = encode_step(state.model, {
+                k: torch.from_numpy(run["encode"][k])
+                for k in ("pixels", "token_ids", "lengths")})
+            record["encode"] = (v.clone(), t.clone())
+        out[name] = record
+    return out
+
+
+def task_gallery(p, rank, world):
+    """``sharded_topk_retrieval`` and its int8 composition over the
+    process-group mesh of every rank, each rank holding its block:
+    ``{(quantize, k): (scores, rows)}`` on every rank."""
+    from textreid_torch.evaluation.retrieval import (
+        shard_rows,
+        sharded_topk_retrieval,
+        sharded_topk_retrieval_quantized,
+    )
+    from textreid_torch.ops.quant import QuantizedGallery, quantize_rows
+    from textreid_torch.parallel import make_mesh
+
+    mesh = make_mesh(0)
+    gallery = torch.from_numpy(p["gallery"])
+    queries = torch.from_numpy(p["queries"]) if rank == 0 else \
+        torch.zeros(p["queries"].shape)  # broadcast from data rank 0
+    quant = quantize_rows(gallery)
+    mine = [QuantizedGallery(*parts) for parts in zip(
+        shard_rows(mesh, quant.values), shard_rows(mesh, quant.scales))]
+    out = {"shard": shard_rows(mesh, gallery)[0]}
+    for k in p["ks"]:
+        out[False, k] = sharded_topk_retrieval(mesh, queries, gallery, k=k)
+        out[True, k] = sharded_topk_retrieval_quantized(mesh, queries, mine,
+                                                        k=k)
     return out
 
 

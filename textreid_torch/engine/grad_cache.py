@@ -32,14 +32,14 @@ each microbatch with its own statistics, so only LayerNorm towers compute
 the single-pass step's objective (the JAX package's documented delta).
 
 Data parallelism (``parallel/mesh.py``), as JAX composes the two: each
-rank splits its own rows into the M microbatches, and the global
-microbatch i is every rank's microbatch i (BatchNorm on their joint
+data shard splits its own rows into the M microbatches, and the global
+microbatch i is every shard's microbatch i (BatchNorm on their joint
 statistics).  The keys, ids and pass-1 embeddings are gathered a
 microbatch at a time, so the global batch the loss sees is microbatch-major
-(microbatch 0 of rank 0, of rank 1, ..., then microbatch 1); each rank
+(microbatch 0 of shard 0, of shard 1, ..., then microbatch 1); each rank
 replays its own microbatches against its rows of the cached gradients,
-scaled by the world size as the gather's backward would sum them, and
-the gradients are averaged in ``finish_step``.  The result is the
+scaled by the data-shard count as the gather's backward would sum them,
+and the gradients are averaged in ``finish_step``.  The result is the
 one-process step on the global batch in that order.
 """
 
@@ -50,7 +50,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..models.common import running_stats_frozen
-from ..parallel.mesh import gather_columns, gather_ids, rank, world_size
+from ..parallel.mesh import data_rank, data_size, gather_columns, gather_ids
 from .state import TrainState
 from .steps import (
     MOCO_TEMPERATURE,
@@ -102,13 +102,13 @@ def cached_grads(model, micros: List[dict], remat: bool,
 
 def own_rows(grad: torch.Tensor, n_micro: int) -> list:
     """This rank's rows of each microbatch of a microbatch-major global
-    ``grad``, times the world size (the sum the gather's backward would
-    form over the ranks' identical losses); ``grad``'s chunks with one
-    rank."""
-    chunks, world = grad.chunk(n_micro), world_size()
-    if world == 1:
+    ``grad``, times the data-shard count (the sum the gather's backward
+    would form over the shards' identical losses); ``grad``'s chunks with
+    one shard."""
+    chunks, shards = grad.chunk(n_micro), data_size()
+    if shards == 1:
         return chunks
-    return [c.chunk(world)[rank()] * world for c in chunks]
+    return [c.chunk(shards)[data_rank()] * shards for c in chunks]
 
 
 def make_grad_cache_step(cfg, n_micro: int):

@@ -4,9 +4,11 @@ embeddings ordered by dataset index, and hand them to the ranking
 evaluator.  Eval batches have a fixed shape (the loader pads the last one
 and marks the real rows in ``valid``); the similarity, CMC, mAP and
 re-ranking math runs on the model's device (``evaluation/metrics.py``).
-In a data-parallel group (``parallel/mesh.py``) each rank encodes every
-world-th eval batch (``DataLoader.batch_shard``) and the ranks' embeddings
-are gathered and put in dataset order, so every rank scores the one-process
+In a process group (``parallel/mesh.py``) each data shard encodes every
+n-th eval batch (``DataLoader.batch_shard``; the ranks of a model group
+encode the same batches, each transformer FFN split between them, as the
+JAX package encodes on its mesh) and the shards' embeddings are gathered
+and put in dataset order, so every rank scores the one-process
 embeddings; rank 0 alone writes the cache.
 """
 
@@ -20,19 +22,27 @@ import numpy as np
 import torch
 
 from ..evaluation.metrics import evaluation, format_results_table, rank_grid
-from ..parallel.mesh import all_gather_object, is_distributed, rank, world_size
+from ..parallel.mesh import (
+    BATCH_AXES,
+    all_gather_object,
+    axis,
+    data_distributed,
+    data_rank,
+    data_size,
+    rank,
+)
 from .steps import encode_step
 
 
 def compute_embeddings(model, data_loader) -> dict:
     """Encode the whole loader on the model's device (in a group, this
-    rank's share of it, then every rank's gathered); per-sample numpy
+    data shard's share of it, then every shard's gathered); per-sample numpy
     arrays ordered by dataset index."""
     device = next(model.parameters()).device
     chunks = {k: [] for k in ("v_embed", "t_embed", "index", "pids",
                               "image_ids")}
-    if is_distributed():
-        data_loader = data_loader.batch_shard(rank(), world_size())
+    if data_distributed():
+        data_loader = data_loader.batch_shard(data_rank(), data_size())
     for batch in data_loader:
         valid = np.asarray(batch["valid"], bool)
         v, t = encode_step(model, {
@@ -42,7 +52,8 @@ def compute_embeddings(model, data_loader) -> dict:
         chunks["t_embed"].append(t.float().cpu().numpy()[valid])
         for k in ("index", "pids", "image_ids"):
             chunks[k].append(np.asarray(batch[k])[valid])
-    chunks = {k: [c for part in all_gather_object(chunks) for c in part[k]]
+    chunks = {k: [c for part in all_gather_object(chunks, axis(BATCH_AXES))
+                  for c in part[k]]
               for k in chunks}
     order = np.argsort(np.concatenate(chunks.pop("index")))
     return {k: np.concatenate(v)[order] for k, v in chunks.items()}

@@ -9,7 +9,11 @@ the same pieces are live objects the step updates in place:
   (the frozen token table is a buffer, as it is a constant in JAX, and is
   never averaged);
 * ``v_queue`` / ``t_queue`` ``[K, D]`` f32, ``id_queue [K]`` (init -1) and
-  ``queue_ptr`` (a host int: the enqueue advances it by the batch size).
+  ``queue_ptr`` (a host int: the enqueue advances it by the batch size);
+* ``sharding`` — set by ``parallel/mesh.py:shard_state`` when the rank
+  holds parts of the leaves (a model axis, ZeRO-1): :meth:`state_dict`
+  then gathers the single-process layout (a collective: every rank calls
+  it) and :meth:`load_state_dict` takes the rank's parts of one.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ class TrainState:
     t_queue: Optional[torch.Tensor] = None
     id_queue: Optional[torch.Tensor] = None
     queue_ptr: int = 0
+    sharding: Optional[object] = None
 
     def load(self, pieces: dict) -> None:
         """Install ``utils.weight_convert.train_state_from_jax`` output:
@@ -60,7 +65,10 @@ class TrainState:
     def state_dict(self) -> dict:
         """Everything a checkpoint holds, as a snapshot: every tensor
         (the optimizer's too) copied to the CPU, so that later in-place
-        updates of the live state do not reach it."""
+        updates of the live state do not reach it.  Sharded, the
+        single-process layout, gathered over the mesh."""
+        if self.sharding is not None:
+            return self.sharding.gather(self)
         out = {"model": self.model.state_dict(),
                "optimizer": self.optimizer.state_dict(), "step": self.step}
         if self.key_model is not None:
@@ -71,7 +79,10 @@ class TrainState:
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore what :meth:`state_dict` gave, in place: both models, the
-        optimizer, ``step``, the queues and the pointer."""
+        optimizer, ``step``, the queues and the pointer (sharded: this
+        rank's parts of them)."""
+        if self.sharding is not None:
+            sd = self.sharding.split(self, sd)
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])

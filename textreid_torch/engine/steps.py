@@ -32,18 +32,21 @@ dtype they check.  Unlike the JAX package, whose bi-GRU is built without a
 dtype and so runs in f32, the port's text tower runs in the compute dtype
 too.  Embeddings are cast to f32 before the losses, as in JAX.
 
-Data parallelism (``parallel/mesh.py``): each rank runs its rows of the
-global batch (rank r holds rows ``r * ls ... (r + 1) * ls``) through the
-towers, with BatchNorm on the global batch's statistics; the query
-embeddings are gathered with their gradient and the keys and ids without
-it, so that every rank computes the losses of the global batch, the
+The mesh (``parallel/mesh.py``): each rank runs its data shard's rows of
+the global batch (shard s holds rows ``s * ls ... (s + 1) * ls``; the
+ranks of a model group hold the same rows and split every transformer
+FFN between them, ``models/vit.py``) through the towers, with BatchNorm
+on the global batch's statistics; the query embeddings are gathered over
+the data shards with their gradient and the keys and ids without it, so
+that every rank computes the losses of the global batch, the
 same-identity queue mask over the global ids, and enqueues the global keys
 in global batch order; the bi-GRU's "batch" pool rule reads the global
 batch's longest caption (``models/gru.py``).  The gradients are averaged
-over the ranks before
-the optimizer step (:func:`finish_step`).  Every rank's state stays the
-single-process step's on the global batch; with one rank no collective is
-issued.
+over the data shards before the optimizer step (:func:`finish_step`;
+ZeRO-1's optimizer then updates each rank's part and rebuilds the
+parameters, ``solver/build.py``).  Every rank's state stays the
+single-process step's on the global batch (its parts of it on a model
+axis); with one rank no collective is issued.
 """
 
 from __future__ import annotations
@@ -163,7 +166,8 @@ def query_forward(model, batch, use_fc: Optional[bool], remat: bool):
 
 
 def gather_keys(v_k, t_k, ids):
-    """The global batch's keys and ids, rank-major, without a gradient."""
+    """The global batch's keys and ids, shard-major, without a
+    gradient."""
     v_k, t_k = gather_columns((v_k, t_k), grad=False)
     return v_k, t_k, gather_ids(ids)
 
@@ -171,7 +175,7 @@ def gather_keys(v_k, t_k, ids):
 def finish_step(state: TrainState, loss_dict) -> dict:
     """Optimizer step and the metrics: every loss and their sum, as 0-d
     device tensors.  The gradients are in ``.grad``; in a data-parallel
-    group they are averaged over the ranks first."""
+    group they are averaged over the data shards first."""
     all_reduce_grads(state.model.parameters())
     state.optimizer.step()
     state.step += 1

@@ -18,13 +18,14 @@ that a resume runs the interrupted epoch again, and training returns.
 However training ends, the checkpoint write in flight is waited for and
 the SIGTERM handler uninstalled.
 
-In a data-parallel group (``parallel/mesh.py``) every rank steps on its
-rows of the global batch (the loader's ``process_shard``, or its slice of
-the global batch when the loader gives the whole of it), sets the epoch,
-evaluates (each encoding its share of the batches) and polls the
-preemption flag at the same iterations, so that no collective waits on a
-rank that left; the meters and the log are rank 0's, and the evaluation's
-R@1 is rank 0's on every rank, so the ``best`` decision agrees.
+In a process group (``parallel/mesh.py``) every rank steps on its data
+shard's rows of the global batch (the loader's ``process_shard``, or its
+slice of the global batch when the loader gives the whole of it), sets the
+epoch, evaluates (each data shard encoding its share of the batches) and
+polls the preemption flag at the same iterations, so that no collective
+waits on a rank that left; the meters and the log are rank 0's, and the
+evaluation's R@1 is rank 0's on every rank, so the ``best`` decision
+agrees.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import time
 
 import torch
 
-from ..parallel.mesh import broadcast_object, rank, world_size
+from ..parallel.mesh import broadcast_object, data_rank, data_size
 from ..solver.build import set_learning_rate
 from ..utils.meters import MetricLogger
 from ..utils.preempt import PreemptionGuard
@@ -47,17 +48,18 @@ BATCH_KEYS = ("pixels", "erase", "token_ids", "lengths", "pids")
 
 
 def local_rows(batch: dict, loader) -> dict:
-    """This rank's rows of ``batch`` (rank-major), unless the loader
-    decodes them alone (``process_shard``) or there is one rank."""
-    world = world_size()
-    if world == 1 or getattr(loader, "process_shard", None) is not None:
+    """This rank's rows of ``batch`` (its data shard's, shard-major: the
+    ranks of a model group hold the same rows), unless the loader decodes
+    them alone (``process_shard``) or there is one data shard."""
+    shards = data_size()
+    if shards == 1 or getattr(loader, "process_shard", None) is not None:
         return batch
     n = batch["pids"].shape[0]
-    if n % world:
-        raise ValueError(f"Global batch {n} not divisible by process count "
-                         f"{world}")
-    start = rank() * (n // world)
-    return {k: v[start:start + n // world] for k, v in batch.items()}
+    if n % shards:
+        raise ValueError(f"Global batch {n} not divisible by data-shard "
+                         f"count {shards}")
+    start = data_rank() * (n // shards)
+    return {k: v[start:start + n // shards] for k, v in batch.items()}
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

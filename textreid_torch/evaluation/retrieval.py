@@ -12,7 +12,18 @@ merged on the first device: laid out shard-major, ``[Q, n * k_local]``,
 and reduced to the global top-k by a stable sort, so that equal scores
 keep the candidates' order, as JAX's ``lax.top_k`` over the same layout
 keeps it (the lower shard first; inside a shard the kernel's order, ties to
-the larger row).
+the larger row).  A mesh with a model axis (or slices) shards over
+``data`` and holds each shard once, on the device of its model index 0
+(``Mesh.shard_devices``), as JAX's ``shard_map`` with ``P(DATA_AXIS)``
+replicates over the other axes.
+
+On a process-group mesh (``make_mesh`` inside ``torch.distributed``, one
+rank a card) each rank holds only its own ``G / n`` block of the data
+axis: the queries are broadcast from the data group's first rank, each
+rank ranks its block with K2 or K4, the ``[Q, k_local]`` values and global
+row ids are all-gathered over the data group and merged as above, and
+every rank returns the global top-k (JAX's ``shard_map`` over ``data``
+across processes).
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from ..ops.ranking import (
     topk_similarity_quantized,
     topk_similarity_quantized_plain,
 )
-from ..parallel.mesh import DATA_AXIS
+from ..parallel.mesh import DATA_AXIS, all_gather_along, axis
 
 
 def _plan_shards(n_shards: int, g_count: int, k: int):
@@ -53,17 +64,18 @@ def _plan_shards(n_shards: int, g_count: int, k: int):
 
 def shard_rows(mesh, x: torch.Tensor) -> List[torch.Tensor]:
     """``x [G, ...]`` in ``mesh``'s data shards: contiguous blocks of
-    ``G / n`` rows, shard s on ``mesh.devices[s]``, each in an allocation
-    of its own (the kernels take 16-byte-aligned rows and scales: a view
-    into ``x`` would start wherever its first row lies)."""
-    if mesh.distributed:
-        raise ValueError(
-            "a process-group mesh holds one card a process: shard a "
-            "gallery over this process's cards, make_mesh(devices=...)")
+    ``G / n`` rows, shard s on ``mesh.shard_devices[s]``, each in an
+    allocation of its own (the kernels take 16-byte-aligned rows and
+    scales: a view into ``x`` would start wherever its first row lies).
+    On a process-group mesh, this rank's block alone (a list of one), on
+    its card."""
     n = mesh.shape[DATA_AXIS]
     _plan_shards(n, x.shape[0], 1)
+    if mesh.distributed:
+        part = x.chunk(n)[axis(DATA_AXIS).index]
+        return [torch.empty_like(part, device=mesh.devices[0]).copy_(part)]
     return [torch.empty_like(part, device=device).copy_(part)
-            for part, device in zip(x.chunk(n), mesh.devices)]
+            for part, device in zip(x.chunk(n), mesh.shard_devices)]
 
 
 def _global_merge(vals: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
@@ -93,10 +105,34 @@ def _to_width(queries: torch.Tensor, width: int) -> torch.Tensor:
 def _shards(mesh, gallery: Shards) -> List[torch.Tensor]:
     if isinstance(gallery, torch.Tensor):
         return shard_rows(mesh, gallery)
-    if len(gallery) != mesh.shape[DATA_AXIS]:
+    want = 1 if mesh.distributed else mesh.shape[DATA_AXIS]
+    if len(gallery) != want:
         raise ValueError(f"{len(gallery)} shards for a mesh of "
-                         f"{mesh.shape[DATA_AXIS]}")
+                         f"{mesh.shape[DATA_AXIS]}"
+                         + (" (one a rank)" if mesh.distributed else ""))
     return list(gallery)
+
+
+def _rank_shards(mesh, queries: torch.Tensor, shards: list, rows: int,
+                 k: int, rank_one):
+    """``rank_one(queries, shard, k_local)`` on each shard (``rows`` of
+    them a shard), merged to the global top-k; on a process-group mesh
+    this rank's one shard, the queries broadcast from the data group's
+    first rank and the candidates all-gathered over the data group."""
+    n = mesh.shape[DATA_AXIS]
+    per_shard, k_local = _plan_shards(n, rows * n, k)
+    if not mesh.distributed:
+        out = [rank_one(queries, s, k_local) for s in shards]
+        return _global_merge([o[0] for o in out], [o[1] for o in out],
+                             per_shard, k)
+    ax = axis(DATA_AXIS)
+    queries = queries.to(mesh.devices[0]).contiguous().clone()
+    if ax.size > 1:
+        torch.distributed.broadcast(queries, ax.ranks[0], group=ax.group)
+    vals, idx = rank_one(queries, shards[0], k_local)
+    return _global_merge(all_gather_along(vals.contiguous(), ax),
+                         all_gather_along(idx.to(torch.int32), ax),
+                         per_shard, k)
 
 
 def sharded_topk_retrieval(mesh, queries: torch.Tensor, gallery: Shards,
@@ -110,16 +146,15 @@ def sharded_topk_retrieval(mesh, queries: torch.Tensor, gallery: Shards,
     scores, [Q, k] int32 global gallery indices)`` on the first shard's
     device."""
     shards = _shards(mesh, gallery)
-    rows, k_local = _plan_shards(len(shards),
-                                 sum(s.shape[0] for s in shards), k)
-    if k_local <= K_MAX:
-        out = [topk_similarity(queries.to(s.device), s, k_local)
-               for s in shards]
-    else:
-        out = [topk_similarity_plain(_to_width(queries.to(s.device),
-                                               s.shape[1]), s, k_local)
-               for s in shards]
-    return _global_merge([o[0] for o in out], [o[1] for o in out], rows, k)
+
+    def rank_one(q, s, k_local):
+        q = q.to(s.device)
+        if k_local <= K_MAX:
+            return topk_similarity(q, s, k_local)
+        return topk_similarity_plain(_to_width(q, s.shape[1]), s, k_local)
+
+    return _rank_shards(mesh, queries, shards, shards[0].shape[0], k,
+                        rank_one)
 
 
 def sharded_topk_retrieval_quantized(mesh, queries: torch.Tensor, gallery,
@@ -135,14 +170,13 @@ def sharded_topk_retrieval_quantized(mesh, queries: torch.Tensor, gallery,
             shard_rows(mesh, gallery.values),
             shard_rows(mesh, gallery.scales))]
     shards = _shards(mesh, gallery)
-    rows, k_local = _plan_shards(
-        len(shards), sum(s.values.shape[0] for s in shards), k)
-    if k_local <= K_MAX:
-        out = [topk_similarity_quantized(queries.to(s.values.device),
-                                         s.values, s.scales, k_local)
-               for s in shards]
-    else:
-        out = [topk_similarity_quantized_plain(
-            _to_width(queries.to(s.values.device), s.values.shape[1]),
-            s.values, s.scales, k_local) for s in shards]
-    return _global_merge([o[0] for o in out], [o[1] for o in out], rows, k)
+
+    def rank_one(q, s, k_local):
+        q = q.to(s.values.device)
+        if k_local <= K_MAX:
+            return topk_similarity_quantized(q, s.values, s.scales, k_local)
+        return topk_similarity_quantized_plain(
+            _to_width(q, s.values.shape[1]), s.values, s.scales, k_local)
+
+    return _rank_shards(mesh, queries, shards, shards[0].values.shape[0], k,
+                        rank_one)

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_gather_stats, all_reduce_sum_, is_distributed
+from ..parallel.mesh import all_gather_stats, all_reduce_sum_, data_distributed
 
 # the smallest kh kw cout of a convolution that runs in int8 (None: none
 # does), and the smallest out_features of a dense layer that does; set by
@@ -126,16 +126,16 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     nothing reads it.
 
     Inside a data-parallel group (``parallel/mesh.py``) train mode
-    normalises with the statistics of the global batch, every rank's rows
-    (:class:`_GlobalBatchNorm`), as the JAX step does under a data mesh,
-    and the running statistics move towards them; with one rank the path
-    above, unchanged."""
+    normalises with the statistics of the global batch, every data shard's
+    rows (:class:`_GlobalBatchNorm`, over the data axes), as the JAX step
+    does under a data mesh, and the running statistics move towards them;
+    with one shard the path above, unchanged."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean.to(x.dtype),
                             bn.running_var.to(x.dtype),
                             bn.weight.to(x.dtype), bn.bias.to(x.dtype),
                             False, 0.0, bn.eps)
-    if is_distributed():
+    if data_distributed():
         out, mean, var = _GlobalBatchNorm.apply(x, bn.weight, bn.bias,
                                                 bn.eps)
     else:

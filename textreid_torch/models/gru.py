@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gru import bigru_pooled_scan, gru_scan, zero_participation
-from ..parallel.mesh import global_max, is_distributed
+from ..parallel.mesh import data_distributed, global_max
 from .common import linear
 
 
@@ -165,7 +165,7 @@ class BiGRUEncoder(nn.Module):
             layer_in = torch.cat([out_f, out_b], dim=-1)
         last = self.num_layers - 1
         batch_max = None
-        if pool_mode == "batch" and self.training and is_distributed():
+        if pool_mode == "batch" and self.training and data_distributed():
             # a data-parallel step's rows are its rank's share of the global
             # batch, whose longest caption the "batch" rule reads
             batch_max = global_max(lengths.max())

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel.mesh import from_model_parallel, to_model_parallel
 from .common import conv2d, dense, layer_norm, linear
 
 
@@ -48,12 +49,20 @@ class _MLP(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN residual attention block; CLIP's QuickGELU MLP."""
+    """Pre-LN residual attention block; CLIP's QuickGELU MLP.
+
+    ``tensor_parallel`` (set by ``parallel/mesh.py:shard_model`` under a
+    model axis): the MLP holds this rank's ``4W / m`` columns of ``c_fc``
+    and rows of ``c_proj``; ``ln_2``'s output enters through Megatron's
+    *f*, the partial sum leaves through *g* (the model group's all-reduce)
+    and ``c_proj``'s bias is added once, after it.  Attention stays
+    replicated.  Off, the block is unchanged."""
 
     def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
+        self.tensor_parallel = False
         self.ln_1 = nn.LayerNorm(width, eps=1e-5)
         self.attn = _Attention(width)
         self.ln_2 = nn.LayerNorm(width, eps=1e-5)
@@ -65,9 +74,17 @@ class TransformerBlock(nn.Module):
                     self.attn.in_proj_bias)  # [B, S, 3W]
         x = x + linear(attention(qkv.contiguous(), self.heads, self.causal),
                        self.attn.out_proj)
+        if self.tensor_parallel:
+            return x + self._split_mlp(layer_norm(x, self.ln_2))
         h = linear(layer_norm(x, self.ln_2), self.mlp.c_fc)
         h = h * torch.sigmoid(1.702 * h)  # QuickGELU
         return x + linear(h, self.mlp.c_proj)
+
+    def _split_mlp(self, x: torch.Tensor) -> torch.Tensor:
+        h = linear(to_model_parallel(x), self.mlp.c_fc)
+        h = h * torch.sigmoid(1.702 * h)  # QuickGELU
+        h = from_model_parallel(dense(h, self.mlp.c_proj.weight))
+        return h + self.mlp.c_proj.bias.to(h.dtype)
 
 
 class _Transformer(nn.Module):

@@ -27,8 +27,10 @@ The interface (``search``, ``search_by_image``, ``load_index``,
 
 With ``mesh=`` (``parallel/mesh.py:make_mesh`` over this process's cards,
 a card may repeat) the gallery is ranked in shards, one a device of the
-mesh (``evaluation/retrieval.py``: K2 or K4 a shard, then the global
-merge), as the JAX package's mesh index: a gallery the shards do not
+mesh's data axis, replicated over a model axis as JAX's (``evaluation/
+retrieval.py``: K2 or K4 a shard, then the global merge); on a
+process-group mesh each rank holds its own shard and every rank gets the
+global reply; as the JAX package's mesh index: a gallery the shards do not
 divide is padded with an augmented column (real rows ``[g, 0]``, pad rows
 ``[0, -2]``, queries ``[q, 1]``: a pad row scores -2, below any cosine),
 and the int8 form quantizes the augmented matrix.  ``gallery`` and
@@ -329,6 +331,10 @@ class RetrievalIndex:
                 queries.shape[0], 1)], dim=1)
         rows = sum((s.values if self.quantize else s).shape[0]
                    for s in self._mesh_shards)
+        if self.mesh.distributed:  # this rank's shard alone
+            from .parallel.mesh import DATA_AXIS
+
+            rows *= self.mesh.shape[DATA_AXIS]
         rank = (sharded_topk_retrieval_quantized if self.quantize
                 else sharded_topk_retrieval)
         return rank(self.mesh, queries, self._mesh_shards, k=min(k, rows))

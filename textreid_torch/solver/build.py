@@ -19,15 +19,19 @@
   ``freeze_mask``.
 * The warmup + {step, exp, poly, cosine, linear} schedule is a function of
   the 0-based epoch, on the host.
+* ``TPU.OPTIMIZER_SHARDING`` (ZeRO-1, ``parallel/mesh.py:shard_state``):
+  :class:`Zero1Optimizer` keeps each data rank's part of the moments.
 """
 
 from __future__ import annotations
 
 import math
 from bisect import bisect_right
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
+
+from ..parallel.mesh import Axis, all_gather_along, shard_of
 
 _FROZEN_VISUAL = ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3", "layer1",
                   "layer2", "layer3")
@@ -125,3 +129,96 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Every group trains at ``lr`` times its factor."""
     for group in optimizer.param_groups:
         group["lr"] = lr * group["lr_factor"]
+
+
+class Zero1Optimizer:
+    """ZeRO-1 over the data axis ``axis`` (JAX's ``zero1_spec`` placement
+    of the ``opt_state`` leaves): the optimizer ``make_optimizer`` built,
+    with each parameter named in ``dims`` (``id(param) -> dimension``)
+    replaced by this rank's part of it along that dimension, so that its
+    moments (Adam's, AdamW's, SGD's momentum) exist for that part alone.
+    :meth:`step` gives each part its slice of the (already averaged)
+    gradient, runs the same ``torch.optim`` class with the same groups on
+    them, and all-gathers the parts over the data group into the whole
+    parameters, one collective per dtype; a parameter not in ``dims`` is
+    updated whole, on every rank.  The arithmetic on each element is the
+    replicated optimizer's, so the parameters stay bit-equal to it.  Not
+    ``ZeroRedundancyOptimizer``, which gives whole tensors to ranks.
+
+    ``param_groups`` and ``state`` are the inner optimizer's (the learning
+    rate is set on them); ``params`` are the model's parameters in the
+    order its state dict numbers them; ``state_dict`` holds this rank's
+    parts (``parallel/mesh.py:StateSharding`` gathers them)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 dims: Dict[int, int], axis: Axis):
+        self.axis = axis
+        self.params, self._parts = [], []
+        groups = []
+        for group in optimizer.param_groups:
+            members = []
+            for p in group["params"]:
+                d = dims.get(id(p))
+                part = None if d is None else shard_of(
+                    p.detach(), d, axis).clone()
+                self.params.append(p)
+                self._parts.append((part, d))
+                members.append(p if part is None else part)
+            groups.append({**group, "params": members})
+        self.inner = type(optimizer)(groups, **optimizer.defaults)
+        # moments already there (a resume before the sharding): the part
+        for p, (part, d) in zip(self.params, self._parts):
+            if p not in optimizer.state:
+                continue
+            self.inner.state[p if part is None else part] = {
+                k: shard_of(v, d, axis).clone()
+                if part is not None and isinstance(v, torch.Tensor)
+                and v.shape == p.shape else v
+                for k, v in optimizer.state[p].items()}
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p, (part, _) in zip(self.params, self._parts):
+            for t in (p, part):
+                if t is not None and t.grad is not None:
+                    if set_to_none:
+                        t.grad = None
+                    else:
+                        t.grad.zero_()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p, (part, d) in zip(self.params, self._parts):
+            if part is not None:
+                part.copy_(shard_of(p, d, self.axis))
+                part.grad = None if p.grad is None else shard_of(
+                    p.grad, d, self.axis).clone()
+        self.inner.step()
+        by_dtype: dict = {}
+        for p, (part, d) in zip(self.params, self._parts):
+            if part is not None and part.grad is not None:
+                by_dtype.setdefault((part.dtype, part.device), []).append(
+                    (p, part, d))
+        for items in by_dtype.values():
+            whole = all_gather_along(
+                torch.cat([part.reshape(-1) for _, part, _ in items]),
+                self.axis)
+            start = 0
+            for p, part, d in items:
+                n = part.numel()
+                p.copy_(torch.cat([w[start:start + n].view_as(part)
+                                   for w in whole], dim=d))
+                start += n
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd)

@@ -19,10 +19,13 @@ of the JAX package is not supported (it raises): export it with
 ``tools/export_torch.py``.
 
 Under ``torchrun --nproc-per-node N -m textreid_torch.test_net ...`` (or
-``--init-method`` with ``RANK`` and ``WORLD_SIZE``) each rank encodes its
-share of the eval batches on its card and every rank scores the gathered
-embeddings: the one-process grid, logged by rank 0, which alone writes
-``inference_data.npz``.
+``--init-method`` with ``RANK`` and ``WORLD_SIZE``) the ranks form the
+mesh of ``TPU.DATA_PARALLEL``, ``TPU.MODEL_PARALLEL`` and
+``TPU.NUM_SLICES`` (``parallel/mesh.py``); each data shard encodes its
+share of the eval batches on its card (under a model axis with every
+transformer FFN split over the model group, as the JAX package encodes on
+its mesh) and every rank scores the gathered embeddings: the one-process
+grid, logged by rank 0, which alone writes ``inference_data.npz``.
 """
 
 from __future__ import annotations
@@ -55,7 +58,14 @@ def main(argv=None):
     from .config import get_default_cfg
     from .data import make_data_loader
     from .engine.inference import inference
-    from .parallel.mesh import destroy_process_group, rank
+    from .parallel.mesh import (
+        destroy_process_group,
+        make_mesh,
+        rank,
+        shard_model,
+        tensor_parallel_dims,
+        world_size,
+    )
     from .utils.bootstrap import build_eval_model
     from .utils.logger import setup_logger
     from .utils.platform import compute_dtype, require_cuda
@@ -73,6 +83,11 @@ def main(argv=None):
         args.root, "output", "/".join(args.config_file.split("/")[-2:])[:-5])
     model = build_eval_model(cfg, args.checkpoint_file, device,
                              compute_dtype(cfg, device))
+    if world_size() > 1:
+        mesh = make_mesh(cfg.TPU.DATA_PARALLEL, cfg.TPU.MODEL_PARALLEL,
+                         num_slices=cfg.TPU.NUM_SLICES)
+        if mesh.model > 1:  # every rank loaded the same file
+            shard_model(model, tensor_parallel_dims(model, mesh.model))
     data_loaders_val = make_data_loader(cfg, is_train=False)
 
     top1 = {}

@@ -42,19 +42,25 @@ package.  In order:
 An orbax directory of the JAX package is not read, as ``MODEL.WEIGHT`` or
 ``--resume-from``: export it with ``tools/export_torch.py``.
 
-Data parallel (``parallel/mesh.py``): under ``torchrun --nproc-per-node N
--m textreid_torch.train_net ...`` (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment; or
+The mesh (``parallel/mesh.py``): under ``torchrun --nproc-per-node N -m
+textreid_torch.train_net ...`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``GROUP_RANK`` in the environment; or
 another store with ``--init-method``) each process trains on
-``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``) and the step is the
-one-process step on the global batch ``SOLVER.IMS_PER_BATCH``.  With
-``TPU.PROCESS_SHARD_DATA`` each process decodes only its rows of every
-global batch.  ``TPU.DATA_PARALLEL`` is 0 (every rank) or the world size;
-``TPU.MODEL_PARALLEL > 1``, ``TPU.NUM_SLICES > 1`` and
-``TPU.OPTIMIZER_SHARDING`` raise.  After the loads above, rank 0's state
-is broadcast.  Rank 0 logs, writes the checkpoints and the tensorboard
-files.  All ranks meet at an exit barrier before the group ends.  Without
-that environment: one process on one card.
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``) on the ``(slice,
+data, model)`` mesh of ``TPU.NUM_SLICES``, ``TPU.DATA_PARALLEL`` (0: every
+rank left) and ``TPU.MODEL_PARALLEL``, and the step is the one-process
+step on the global batch ``SOLVER.IMS_PER_BATCH``, sharded over the data
+axes.  ``TPU.MODEL_PARALLEL > 1`` splits every transformer FFN over the
+model axis, ``TPU.OPTIMIZER_SHARDING`` shards the optimizer's moments
+over the data axis (ZeRO-1), ``TPU.NUM_SLICES > 1`` groups the ranks by
+node.  With ``TPU.PROCESS_SHARD_DATA`` each process decodes only its data
+shard's rows of every global batch.  After the loads above, rank 0's state
+is broadcast and each rank keeps its shard (``shard_state``).  Rank 0
+logs, writes the checkpoints (in the single-process layout) and the
+tensorboard files.  All ranks meet at an exit barrier before the group
+ends.  Without that environment: one process on one card
+(``TPU.OPTIMIZER_SHARDING`` has nothing to shard there; a model axis or
+several slices raise).
 """
 
 from __future__ import annotations
@@ -174,26 +180,33 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
     )
     from .utils.checkpoint import Checkpointer, auto_resume_path
     from .parallel.mesh import (
+        data_rank,
+        data_size,
         make_mesh,
         rank,
-        refuse_optimizer_sharding,
-        replicate_state,
+        shard_state,
         world_size,
     )
     from .utils.meters import MetricLogger, TensorboardLogger
     from .utils.platform import compute_dtype
 
     logger = logging.getLogger("PersonSearch.train")
-    process_shard = None
+    process_shard, mesh = None, None
     if world_size() > 1:
-        refuse_optimizer_sharding(cfg)
         mesh = make_mesh(cfg.TPU.DATA_PARALLEL, cfg.TPU.MODEL_PARALLEL,
                          num_slices=cfg.TPU.NUM_SLICES)
         logger.info("Data parallel over %d ranks: %d of the %d rows of a "
-                    "batch each", world_size(), cfg.SOLVER.IMS_PER_BATCH //
-                    mesh.data, cfg.SOLVER.IMS_PER_BATCH)
+                    "batch each (mesh %s%s)", world_size(),
+                    cfg.SOLVER.IMS_PER_BATCH // data_size(),
+                    cfg.SOLVER.IMS_PER_BATCH, mesh.shape,
+                    ", ZeRO-1" if cfg.TPU.OPTIMIZER_SHARDING else "")
         if cfg.TPU.PROCESS_SHARD_DATA:
-            process_shard = (rank(), world_size())
+            process_shard = (data_rank(), data_size())
+    elif cfg.TPU.MODEL_PARALLEL > 1 or cfg.TPU.NUM_SLICES > 1:
+        raise ValueError(
+            f"TPU.MODEL_PARALLEL={cfg.TPU.MODEL_PARALLEL}, "
+            f"TPU.NUM_SLICES={cfg.TPU.NUM_SLICES}: a mesh of several ranks "
+            "needs a process group (torchrun --nproc-per-node N)")
     train_step = make_train_step(cfg)
     model = build_model(cfg, device, torch.float32,
                         compute_dtype(cfg, device), train=True)
@@ -230,7 +243,9 @@ def train(cfg, output_dir: str, device, resume_from: str = "",
         arguments.update(meta)
         # progress comes from the checkpoint, the budget from this run
         arguments["max_epoch"] = cfg.SOLVER.NUM_EPOCHS
-    replicate_state(state)
+    if mesh is not None:
+        shard_state(state, mesh,
+                    optimizer_sharding=bool(cfg.TPU.OPTIMIZER_SHARDING))
 
     if use_tensorboard and rank() == 0:
         meters = TensorboardLogger(os.path.join(output_dir, "tensorboard"),
@@ -304,6 +319,11 @@ def add_distributed_arguments(parser) -> None:
                              "group (default env://: MASTER_ADDR and "
                              "MASTER_PORT); used when RANK and WORLD_SIZE "
                              "are in the environment, as torchrun sets them")
+    parser.add_argument("--backend", default=None,
+                        help="torch.distributed backend of that group: nccl "
+                             "for cuda, gloo for cpu when not given (gloo "
+                             "takes CUDA tensors too: several ranks on one "
+                             "card, which NCCL refuses)")
 
 
 def join_process_group(device, args):
@@ -314,7 +334,7 @@ def join_process_group(device, args):
 
     if not launched_distributed():
         return device
-    return init_process_group(device, args.init_method)
+    return init_process_group(device, args.init_method, args.backend)
 
 
 if __name__ == "__main__":

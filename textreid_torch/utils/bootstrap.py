@@ -96,7 +96,9 @@ def install_reference_checkpoint(state, sd: dict) -> None:
     ``queue_ptr``.  The key model's other entries (its copies of the embed
     layers and the loss projection, which the key forward never reads)
     keep their values.  A queue whose shape does not match raises, naming
-    it, before anything is installed."""
+    it, before anything is installed.  A sharded state
+    (``parallel/mesh.py:shard_state``) takes its parts of the split
+    leaves."""
     queues = {}
     if state.key_model is not None and "embed_model.v_queue" in sd:
         for name, tr in (("v_queue", True), ("t_queue", True),
@@ -111,6 +113,9 @@ def install_reference_checkpoint(state, sd: dict) -> None:
                     "checkpoint's MOCO.K or FEATURE_SIZE does not match the "
                     "configured model")
             queues[name] = got
+    sharding = getattr(state, "sharding", None)
+    if sharding is not None:  # the tower names are the reference's
+        sd = sharding.split_model(sd)
     load_reference_state_dict(state.model, sd)
     if not queues:
         return
@@ -130,6 +135,8 @@ def install_reference_checkpoint(state, sd: dict) -> None:
         raise KeyError(f"the checkpoint's key encoders do not match the key "
                        f"model: missing {missing[:8]}, unexpected "
                        f"{unexpected[:8]}")
+    if sharding is not None:
+        key_sd = sharding.split_model(key_sd)
     state.key_model.load_state_dict(key_sd, strict=False)
     for name, value in queues.items():
         getattr(state, name).copy_(value)

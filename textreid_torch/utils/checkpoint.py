@@ -24,7 +24,10 @@ package's: ``best``, ``epoch_N`` and ``preempt``.
   :func:`align_state_dict`, the longest-suffix key alignment of the JAX
   package's ``align_pytree``; a load that aligns nothing is refused.
 * In a data-parallel group (``parallel/mesh.py``) every rank calls
-  ``save`` at the same points and rank 0 alone writes (and prunes); every
+  ``save`` at the same points and rank 0 alone writes (and prunes); a
+  sharded state (a model axis, ZeRO-1) is written in the single-process
+  layout, gathered by every rank, and split again when it is read, so a
+  file loads into any mesh and into one process alike; every
   :meth:`Checkpointer.wait`, and so every save and read, ends in a barrier,
   so no rank reads ahead of a write that came before.  Every rank resumes
   from the same file onto its own device; :func:`auto_resume_path` is
@@ -212,10 +215,15 @@ class Checkpointer:
         if not self.save_dir:
             return
         self.wait()
-        if not self.primary:
+        sharded = getattr(state, "sharding", None) is not None
+        if not self.primary and not sharded:
             return
         start = time.perf_counter()
+        # a sharded state is gathered to the single-process layout by every
+        # rank (parallel/mesh.py:StateSharding)
         payload = {**state.state_dict(), "meta": dict(meta)}
+        if not self.primary:
+            return
         snapshot_s = time.perf_counter() - start
         path = self.path(name)
         if not self.async_save:
@@ -281,6 +289,9 @@ class Checkpointer:
         pairs = [("model", state.model)]
         if state.key_model is not None and "key_model" in payload:
             pairs.append(("key_model", state.key_model))
+        if getattr(state, "sharding", None) is not None:
+            payload = {**payload, **{field: state.sharding.split_model(
+                payload[field]) for field, _ in pairs}}
         try:
             for field, module in pairs:
                 _strict_match(module, payload[field])
