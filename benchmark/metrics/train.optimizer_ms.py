@@ -1,0 +1,15 @@
+"""``train.optimizer_ms``: device milliseconds a step of the program's
+``train.optimizer`` span (the gradients' all-reduce, none on one card,
+and the optimizer's step), the mean over the traced steps of the first
+recording (``harness/spans.py``; CUDA events at each end of a span)."""
+
+from statistics import mean
+
+from benchmark.harness.spans import per_root
+
+
+def read(run):
+    if run.kind != "train":
+        return None
+    ms = per_root(run, "train.step", ("train.optimizer",), "device_ms")
+    return mean(ms) if ms else None

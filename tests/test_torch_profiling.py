@@ -1,18 +1,16 @@
 """``textreid_torch/utils/profiling.py`` on the CPU: ``nan_check`` over a
-module, a tensor and nested dicts; ``step_timer``'s elapsed time and its
-meter; ``live_memory`` and ``profile_trace`` without a card.
+module, a tensor and nested dicts; ``live_memory`` and ``profile_trace``
+without a card (its spans: ``tests/test_torch_tracing.py``).
 ``device_time_by_family`` reads a trace of the card and runs on it
 (``chip_smoke.py``'s profiles)."""
 
 import json
 import math
-import time
 
 import pytest
 import torch
 
 from textreid_torch.utils import profiling
-from textreid_torch.utils.meters import MetricLogger
 
 
 def test_nan_check_names_the_non_finite_tensors():
@@ -28,20 +26,6 @@ def test_nan_check_names_the_non_finite_tensors():
         [0.0, math.inf])}, "ids": torch.tensor([1, 2])}
     with pytest.raises(FloatingPointError, match=r"\['grads.w'\]"):
         profiling.nan_check(tree)
-
-
-def test_step_timer_measures_the_block_and_feeds_a_meter():
-    meters = MetricLogger()
-    with profiling.step_timer(meters, "step") as holder:
-        time.sleep(0.05)
-    assert 0.05 <= holder["elapsed"] < 1.0
-    assert meters.meters["step"].count == 1
-    assert meters.meters["step"].global_avg == pytest.approx(
-        holder["elapsed"])
-    with pytest.raises(RuntimeError, match="inside"):
-        with profiling.step_timer() as holder:
-            raise RuntimeError("inside")
-    assert holder["elapsed"] >= 0.0
 
 
 def test_live_memory_and_trace_without_a_card(tmp_path):

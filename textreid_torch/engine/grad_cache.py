@@ -20,6 +20,12 @@ cache of Gao et al. 2021):
    ``.grad`` (summed over the microbatches);
 5. one optimizer step and, for MoCo, one full-batch enqueue.
 
+Its spans are the single-pass steps' (``engine/steps.py``): the root
+``train.step``; ``train.ema`` and ``train.key_forward`` (1);
+``train.query_forward`` pass 1 and the loss tail's forward (2, 3);
+``train.backward`` the tail's backward and pass 2, whose replays exist for
+the backward (3, 4); ``train.optimizer`` and ``train.enqueue`` (5).
+
 Pass 2's replays leave the running statistics where pass 1 put them
 (``models/common.py:running_stats_frozen``), as JAX keeps pass 1's; in
 train mode a BatchNorm's output depends on the batch statistics alone,
@@ -51,6 +57,7 @@ import torch
 
 from ..models.common import running_stats_frozen
 from ..parallel.mesh import data_rank, data_size, gather_columns, gather_ids
+from ..utils.profiling import span
 from .state import TrainState
 from .steps import (
     MOCO_TEMPERATURE,
@@ -83,20 +90,24 @@ def cached_grads(model, micros: List[dict], remat: bool,
     """Passes 1-4 above: the gradients of ``tail_fn(embeds, projection)``
     (the full batch's loss dict) land in the parameters' ``.grad``;
     returns the loss dict."""
-    with torch.no_grad():
-        outs = [gather_columns(query_forward(model, m, use_fc, remat),
-                               grad=False) for m in micros]
-    embeds = tuple(torch.cat(o).requires_grad_(True) for o in zip(*outs))
-    loss_dict = tail_fn(embeds, model.projection.float())
-    sum(loss_dict.values()).backward()
-    cts = [own_rows(e.grad, len(micros)) for e in embeds]
-    with running_stats_frozen(model):
-        for i, micro in enumerate(micros):
-            replay = query_forward(model, micro, use_fc, remat)
-            pairs = [(out, ct[i]) for out, ct in zip(replay, cts)
-                     if out.requires_grad]
-            torch.autograd.backward([p[0] for p in pairs],
-                                    [p[1] for p in pairs])
+    with span("train.query_forward"):
+        with torch.no_grad():
+            outs = [gather_columns(query_forward(model, m, use_fc, remat),
+                                   grad=False) for m in micros]
+        embeds = tuple(torch.cat(o).requires_grad_(True)
+                       for o in zip(*outs))
+        loss_dict = tail_fn(embeds, model.projection.float())
+        loss = sum(loss_dict.values())
+    with span("train.backward"):
+        loss.backward()
+        cts = [own_rows(e.grad, len(micros)) for e in embeds]
+        with running_stats_frozen(model):
+            for i, micro in enumerate(micros):
+                replay = query_forward(model, micro, use_fc, remat)
+                pairs = [(out, ct[i]) for out, ct in zip(replay, cts)
+                         if out.requires_grad]
+                torch.autograd.backward([p[0] for p in pairs],
+                                        [p[1] for p in pairs])
     return loss_dict
 
 
@@ -121,35 +132,43 @@ def make_grad_cache_step(cfg, n_micro: int):
     remat = bool(cfg.TPU.REMAT)
 
     def simple_step(state: TrainState, batch) -> dict:
-        micros = split_micro(batch, n_micro)
-        labels = torch.cat([gather_ids(m["pids"].long()) for m in micros])
+        with span("train.step"):
+            micros = split_micro(batch, n_micro)
+            labels = torch.cat([gather_ids(m["pids"].long())
+                                for m in micros])
 
-        def tail_fn(embeds, projection):
-            return simple_loss_tail(projection, *embeds, labels, epsilon)
+            def tail_fn(embeds, projection):
+                return simple_loss_tail(projection, *embeds, labels,
+                                        epsilon)
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_dict = cached_grads(state.model, micros, remat, use_fc,
-                                 tail_fn)
-        return finish_step(state, loss_dict)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_dict = cached_grads(state.model, micros, remat, use_fc,
+                                     tail_fn)
+            return finish_step(state, loss_dict)
 
     def moco_step(state: TrainState, batch) -> dict:
-        micros = split_micro(batch, n_micro)
-        moco_ema(state, momentum)
-        keys = [gather_keys(*moco_key_forward(state.model, state.key_model,
-                                              use_fc, m), m["pids"].long())
-                for m in micros]
-        v_k, t_k, ids = (torch.cat(k) for k in zip(*keys))
+        with span("train.step"):
+            micros = split_micro(batch, n_micro)
+            with span("train.ema"):
+                moco_ema(state, momentum)
+            with span("train.key_forward"):
+                keys = [gather_keys(*moco_key_forward(
+                    state.model, state.key_model, use_fc, m),
+                    m["pids"].long()) for m in micros]
+                v_k, t_k, ids = (torch.cat(k) for k in zip(*keys))
 
-        def tail_fn(embeds, projection):
-            return moco_loss_tail(projection, *embeds, v_k, t_k, ids,
-                                  state.id_queue, state.v_queue,
-                                  state.t_queue, epsilon, MOCO_TEMPERATURE)
+            def tail_fn(embeds, projection):
+                return moco_loss_tail(projection, *embeds, v_k, t_k, ids,
+                                      state.id_queue, state.v_queue,
+                                      state.t_queue, epsilon,
+                                      MOCO_TEMPERATURE)
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_dict = cached_grads(state.model, micros, remat, use_fc,
-                                 tail_fn)
-        metrics = finish_step(state, loss_dict)
-        enqueue(state, v_k, t_k, ids)
-        return metrics
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_dict = cached_grads(state.model, micros, remat, use_fc,
+                                     tail_fn)
+            metrics = finish_step(state, loss_dict)
+            with span("train.enqueue"):
+                enqueue(state, v_k, t_k, ids)
+            return metrics
 
     return moco_step if is_moco else simple_step

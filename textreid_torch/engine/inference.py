@@ -10,6 +10,12 @@ encode the same batches, each transformer FFN split between them, as the
 JAX package encodes on its mesh) and the shards' embeddings are gathered
 and put in dataset order, so every rank scores the one-process
 embeddings; rank 0 alone writes the cache.
+
+``compute_embeddings`` is a span (``utils/profiling.py:span``),
+``eval.encode``, with three a batch: ``eval.stage`` (the batch's arrays
+made tensors and copied to the card), ``eval.forward`` (``encode_step``)
+and ``eval.fetch`` (the embeddings copied back, where the host waits for
+the card; each copy counted as a ``host_syncs``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..parallel.mesh import (
     data_size,
     rank,
 )
+from ..utils.profiling import count, span
 from .steps import encode_step
 
 
@@ -38,25 +45,31 @@ def compute_embeddings(model, data_loader) -> dict:
     """Encode the whole loader on the model's device (in a group, this
     data shard's share of it, then every shard's gathered); per-sample numpy
     arrays ordered by dataset index."""
-    device = next(model.parameters()).device
-    chunks = {k: [] for k in ("v_embed", "t_embed", "index", "pids",
-                              "image_ids")}
-    if data_distributed():
-        data_loader = data_loader.batch_shard(data_rank(), data_size())
-    for batch in data_loader:
-        valid = np.asarray(batch["valid"], bool)
-        v, t = encode_step(model, {
-            k: torch.as_tensor(np.asarray(batch[k])).to(device)
-            for k in ("pixels", "token_ids", "lengths")})
-        chunks["v_embed"].append(v.float().cpu().numpy()[valid])
-        chunks["t_embed"].append(t.float().cpu().numpy()[valid])
-        for k in ("index", "pids", "image_ids"):
-            chunks[k].append(np.asarray(batch[k])[valid])
-    chunks = {k: [c for part in all_gather_object(chunks, axis(BATCH_AXES))
-                  for c in part[k]]
-              for k in chunks}
-    order = np.argsort(np.concatenate(chunks.pop("index")))
-    return {k: np.concatenate(v)[order] for k, v in chunks.items()}
+    with span("eval.encode"):
+        device = next(model.parameters()).device
+        chunks = {k: [] for k in ("v_embed", "t_embed", "index", "pids",
+                                  "image_ids")}
+        if data_distributed():
+            data_loader = data_loader.batch_shard(data_rank(), data_size())
+        for batch in data_loader:
+            with span("eval.stage"):
+                valid = np.asarray(batch["valid"], bool)
+                inputs = {k: torch.as_tensor(np.asarray(batch[k])).to(device)
+                          for k in ("pixels", "token_ids", "lengths")}
+            with span("eval.forward"):
+                v, t = encode_step(model, inputs)
+            with span("eval.fetch"):
+                for k, x in (("v_embed", v), ("t_embed", t)):
+                    chunks[k].append(x.float().cpu().numpy()[valid])
+                    count("host_syncs")
+            for k in ("index", "pids", "image_ids"):
+                chunks[k].append(np.asarray(batch[k])[valid])
+        chunks = {k: [c for part in all_gather_object(chunks,
+                                                      axis(BATCH_AXES))
+                      for c in part[k]]
+                  for k in chunks}
+        order = np.argsort(np.concatenate(chunks.pop("index")))
+        return {k: np.concatenate(v)[order] for k, v in chunks.items()}
 
 
 def inference(model, data_loader, dataset_name: str = "cuhkpedes-test",

@@ -12,6 +12,13 @@ the reference's:
 4. the optimizer step;
 5. enqueue of the keys after the loss.
 
+Each step is a span (``utils/profiling.py:span``), ``train.step``, over
+its phases: ``train.ema``, ``train.key_forward`` (the key towers, the L2
+norm and the key gather), ``train.query_forward`` (the query towers and
+the loss tail), ``train.backward``, ``train.optimizer`` (the gradients'
+all-reduce and the optimizer step) and ``train.enqueue``; the simple step
+and the gradient-cache step use the same names for the phases they have.
+
 The simple head's step (``simple_train_step``) is the query forward, the
 instance and global-align losses and the optimizer step: no key model, no
 queue.  ``SOLVER.GRAD_ACCUM_STEPS > 1`` takes the gradient-cache step of
@@ -60,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from ..models import losses
 from ..models.common import running_stats_frozen
 from ..parallel.mesh import all_reduce_grads, gather_columns, gather_ids
+from ..utils.profiling import span
 from .state import TrainState
 
 # InfoNCE temperature (reference moco_head/loss.py:18)
@@ -176,8 +184,9 @@ def finish_step(state: TrainState, loss_dict) -> dict:
     """Optimizer step and the metrics: every loss and their sum, as 0-d
     device tensors.  The gradients are in ``.grad``; in a data-parallel
     group they are averaged over the data shards first."""
-    all_reduce_grads(state.model.parameters())
-    state.optimizer.step()
+    with span("train.optimizer"):
+        all_reduce_grads(state.model.parameters())
+        state.optimizer.step()
     state.step += 1
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["loss"] = sum(metrics.values())
@@ -191,15 +200,18 @@ def simple_train_step(cfg) -> Callable[[TrainState, dict], dict]:
     remat = bool(cfg.TPU.REMAT)
 
     def step(state: TrainState, batch) -> dict:
-        state.optimizer.zero_grad(set_to_none=True)
-        v_embed, t_embed = gather_columns(
-            query_forward(state.model, batch, None, remat))
-        loss_dict = simple_loss_tail(state.model.projection.float(),
-                                     v_embed, t_embed,
-                                     gather_ids(batch["pids"].long()),
-                                     epsilon)
-        sum(loss_dict.values()).backward()
-        return finish_step(state, loss_dict)
+        with span("train.step"):
+            with span("train.query_forward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                v_embed, t_embed = gather_columns(
+                    query_forward(state.model, batch, None, remat))
+                loss_dict = simple_loss_tail(
+                    state.model.projection.float(), v_embed, t_embed,
+                    gather_ids(batch["pids"].long()), epsilon)
+                loss = sum(loss_dict.values())
+            with span("train.backward"):
+                loss.backward()
+            return finish_step(state, loss_dict)
 
     return step
 
@@ -216,20 +228,28 @@ def moco_train_step(cfg) -> Callable[[TrainState, dict], dict]:
 
     def step(state: TrainState, batch) -> dict:
         model = state.model
-        moco_ema(state, momentum)
-        v_k, t_k, ids = gather_keys(
-            *moco_key_forward(model, state.key_model, use_fc, batch),
-            batch["pids"].long())
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_dict = moco_loss_tail(
-            model.projection.float(),
-            *gather_columns(query_forward(model, batch, use_fc, remat)),
-            v_k, t_k, ids, state.id_queue, state.v_queue, state.t_queue,
-            epsilon, MOCO_TEMPERATURE)
-        sum(loss_dict.values()).backward()
-        metrics = finish_step(state, loss_dict)
-        enqueue(state, v_k, t_k, ids)
-        return metrics
+        with span("train.step"):
+            with span("train.ema"):
+                moco_ema(state, momentum)
+            with span("train.key_forward"):
+                v_k, t_k, ids = gather_keys(
+                    *moco_key_forward(model, state.key_model, use_fc, batch),
+                    batch["pids"].long())
+            with span("train.query_forward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss_dict = moco_loss_tail(
+                    model.projection.float(),
+                    *gather_columns(query_forward(model, batch, use_fc,
+                                                  remat)),
+                    v_k, t_k, ids, state.id_queue, state.v_queue,
+                    state.t_queue, epsilon, MOCO_TEMPERATURE)
+                loss = sum(loss_dict.values())
+            with span("train.backward"):
+                loss.backward()
+            metrics = finish_step(state, loss_dict)
+            with span("train.enqueue"):
+                enqueue(state, v_k, t_k, ids)
+            return metrics
 
     return step
 

@@ -16,6 +16,14 @@ Tensors live on the device of the embeddings handed in (the model's); at
 CUHK-PEDES test size (6,156 captions x 3,074 images) the re-ranking
 matrices are ~150 MB in float32.  Sorts are stable, so equal scores keep
 the lower index first, as in the JAX package.
+
+``evaluation`` is a span (``utils/profiling.py:span``), ``eval.rank``,
+over ``eval.similarity`` (the embeddings to the device, the dedupe, the
+norms and the similarity), ``eval.rerank`` (both k-reciprocal terms),
+``eval.cmc_map`` (the metric grid) and ``eval.fetch`` (the matrices
+copied to the host); each copy to the host, where the host waits for the
+work queued before it, is counted as a ``host_syncs`` where it runs: one
+a grid column (its CMC and mAP together), one a matrix.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.losses import l2_normalize
+from ..utils.profiling import count, span
 
 
 def _descending_order(similarity: torch.Tensor) -> torch.Tensor:
@@ -103,8 +112,11 @@ def get_unique_indices(image_ids: np.ndarray) -> np.ndarray:
 
 
 def _pack(cmc, mean_ap, topk) -> dict:
-    return {"topk": list(topk), "cmc": [float(c) for c in cmc],
-            "mAP": float(mean_ap)}
+    """A column's CMC and mAP (float32, on the device) as Python floats,
+    in one copy to the host."""
+    values = torch.cat([cmc, mean_ap.reshape(1)]).tolist()
+    count("host_syncs")
+    return {"topk": list(topk), "cmc": values[:-1], "mAP": values[-1]}
 
 
 def rank_grid(similarity, text_pid, image_pid, topk, rvn=None,
@@ -152,29 +164,37 @@ def evaluation(image_embeds, text_embeds, image_pids, text_pids, image_ids,
         return torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x).to(device)
 
-    keep = torch.as_tensor(get_unique_indices(np.asarray(image_ids)),
-                           device=device)
-    image_n = l2_normalize(tensor(image_embeds).float()[keep], dim=-1)
-    text_n = l2_normalize(tensor(text_embeds).float(), dim=-1)
-    image_pid = tensor(image_pids)[keep]
-    text_pid = tensor(text_pids)
-    similarity = text_n @ image_n.T
+    with span("eval.rank"):
+        with span("eval.similarity"):
+            keep = torch.as_tensor(get_unique_indices(np.asarray(image_ids)),
+                                   device=device)
+            image_n = l2_normalize(tensor(image_embeds).float()[keep],
+                                   dim=-1)
+            text_n = l2_normalize(tensor(text_embeds).float(), dim=-1)
+            image_pid = tensor(image_pids)[keep]
+            text_pid = tensor(text_pids)
+            similarity = text_n @ image_n.T
 
-    rvn = rtn = None
-    if rerank:
-        # reference naming: rtn_mat reranks i2t, rvn_mat reranks t2i
-        rtn = k_reciprocal(image_n, text_n)
-        rvn = k_reciprocal(text_n, image_n)
-    results = rank_grid(similarity, text_pid, image_pid, topk, rvn, rtn)
-    results["similarity"] = similarity.cpu().numpy()
-    # deduped-gallery pids, exported so callers can write reference-format
-    # replay files
-    results["image_pid"] = image_pid.cpu().numpy()
-    results["text_pid"] = text_pid.cpu().numpy()
-    if rerank:
-        results["rvn_mat"] = rvn.cpu().numpy()
-        results["rtn_mat"] = rtn.cpu().numpy()
-    return results
+        rvn = rtn = None
+        if rerank:
+            with span("eval.rerank"):
+                # reference naming: rtn_mat reranks i2t, rvn_mat reranks t2i
+                rtn = k_reciprocal(image_n, text_n)
+                rvn = k_reciprocal(text_n, image_n)
+        with span("eval.cmc_map"):
+            results = rank_grid(similarity, text_pid, image_pid, topk, rvn,
+                                rtn)
+        with span("eval.fetch"):
+            # deduped-gallery pids, exported so callers can write
+            # reference-format replay files
+            fetched = {"similarity": similarity, "image_pid": image_pid,
+                       "text_pid": text_pid}
+            if rerank:
+                fetched.update(rvn_mat=rvn, rtn_mat=rtn)
+            for name, x in fetched.items():
+                results[name] = x.cpu().numpy()
+                count("host_syncs")
+        return results
 
 
 def format_results_table(results: dict) -> str:

@@ -8,7 +8,7 @@ Counterpart of the repository's ``tools/profile_step.py``:
     python -m textreid_torch.tools.profile_step [--steps 3] \
         [--out build/profile_step] [--json-out breakdown.json] \
         [--model ""|vit|fullclip] [--fused-attn] [--device cuda] \
-        [--summarize-only]
+        [--summarize-only | --spans] [--eval]
 
 The step is the one ``chip_smoke.py`` times: ``config/flagship.py:
 flagship_cfg(model, fused_attn)`` at batch 128 and 105 tokens
@@ -17,6 +17,27 @@ step runs before the trace; then ``--steps`` steps run under
 ``torch.profiler`` (with ``record_shapes``), whose Chrome trace is saved as
 ``OUT/trace.json`` beside ``OUT/step.json`` (the step's shapes and the
 card's name).  ``--summarize-only`` re-reads both without running a step.
+
+The step's spans (``utils/profiling.py:span``: ``train.step`` and its
+phases) are in the trace on a track of their own; the summary splits the
+card's time by phase: a kernel, copy or memset belongs to the innermost
+span whose host interval holds its launch (the backward's launches come
+from autograd's thread while the main thread waits in ``train.backward``),
+and each idle gap of the card to the span the host was in when it began.
+``--spans`` runs the steps with the profiler off instead, in turns without
+spans and with them (``utils/profiling.py:recording``), ``SPAN_ROUNDS``
+turns of ``--steps`` steps each way: ms a step each way, the cost of the
+spans when on, and each span's host and device ms a step.
+
+``--eval`` profiles a whole evaluation in place of the train step, as
+``test_net`` runs it and the benchmark's eval cell times it
+(``build_eval``): ``engine/inference.py:compute_embeddings`` over a
+synthetic split of CUHK-PEDES's test sizes (6,156 captions of 3,074
+images, batches of 128 in host memory), then ``evaluation/metrics.py:
+evaluation`` with re-ranking; "a step" is then one evaluation, and the
+phases are the evaluation's spans (``eval.stage``, ``eval.forward``,
+``eval.fetch``; ``eval.similarity``, ``eval.rerank``, ``eval.cmc_map``,
+``eval.fetch``), the work of the port's own kernels is not counted.
 
 Families are ``utils/profiling.py:STEP_FAMILIES`` by kernel name, but for
 "convolutions" and "matrix products", which take the kernels launched
@@ -45,9 +66,13 @@ where the work is not counted or the card is not in
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import contextlib
 import json
 import os
+import statistics
+import time
 from typing import Optional
 
 import numpy as np
@@ -55,6 +80,8 @@ import numpy as np
 BATCH, TOKENS = 128, 105
 LR = 1e-4
 TOP_KERNELS = 15
+SPAN_ROUNDS = 4
+OUTSIDE = "(outside spans)"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 CONV_OPS = ("aten::convolution", "aten::convolution_backward")
@@ -101,6 +128,80 @@ def build_step(variant: str = "", fused: bool = False, device="cuda",
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu")}
     return make_train_step(cfg), state, batch, meta
+
+
+# the CUHK-PEDES test split's sizes
+EVAL_CAPTIONS, EVAL_IMAGES, EVAL_IDENTITIES = 6156, 3074, 1000
+
+
+def test_batches(captions: int, images: int, identities: int,
+                 batch_size: int, height: int, width: int, tokens: int,
+                 vocab: int = 512, seed: int = 0) -> list:
+    """The test loader's batches of a synthetic split, in dataset order:
+    ``captions`` captions of ``images`` images (consecutive captions share
+    an image), the images' identities in turn; numpy rows of
+    ``batch_size``, the last batch padded with its last row and marked in
+    ``valid``; uint8 NHWC pixels, captions of lognormal length around 23.5
+    tokens (CUHK-PEDES's), clipped to 5-100 and to ``tokens``."""
+    rng = np.random.RandomState(seed)
+    image_of = np.arange(captions) * images // captions
+    pixels = rng.randint(0, 255, (images, height, width, 3), dtype=np.uint8)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(23.5), 0.35, captions)),
+                      min(5, tokens), min(100, tokens)).astype(np.int32)
+    ids = rng.randint(1, vocab, (captions, tokens)).astype(np.int32)
+    batches = []
+    for start in range(0, captions, batch_size):
+        rows = np.arange(start, min(start + batch_size, captions))
+        valid = np.arange(batch_size) < len(rows)
+        rows = np.concatenate([rows, np.full(batch_size - len(rows),
+                                             rows[-1])])
+        batches.append({"pixels": pixels[image_of[rows]],
+                        "token_ids": ids[rows], "lengths": lengths[rows],
+                        "pids": image_of[rows] % identities,
+                        "image_ids": image_of[rows], "index": rows,
+                        "valid": valid})
+    return batches
+
+
+def eval_call(model, batches: list, device):
+    """One evaluation as ``test_net`` runs it: ``compute_embeddings`` over
+    ``batches``, then ``evaluation`` with re-ranking on ``device``."""
+    from ..engine import compute_embeddings
+    from ..evaluation.metrics import evaluation
+
+    def evaluate() -> dict:
+        embeds = compute_embeddings(model, batches)
+        return evaluation(embeds["v_embed"], embeds["t_embed"],
+                          embeds["pids"], embeds["pids"],
+                          embeds["image_ids"], rerank=True, device=device)
+
+    return evaluate
+
+
+def build_eval(variant: str = "", fused: bool = False, device="cuda",
+               batch_size: int = BATCH, tokens: int = TOKENS,
+               captions: int = EVAL_CAPTIONS, images: int = EVAL_IMAGES):
+    """(evaluate, meta): one evaluation of the flagship ``variant`` on
+    ``device`` (``test_net``'s model: the parameters in the compute dtype,
+    eval mode) over ``test_batches`` at the flagship's input size."""
+    import torch
+
+    from ..config import flagship_cfg
+    from ..models import build_model
+    from ..utils.platform import compute_dtype, require_cuda
+
+    device = require_cuda(device)
+    cfg = flagship_cfg(variant, fused_attention=fused, tokens=tokens)
+    model = build_model(cfg, device, compute_dtype(cfg, device))
+    batches = test_batches(captions, images, EVAL_IDENTITIES, batch_size,
+                           cfg.INPUT.HEIGHT, cfg.INPUT.WIDTH, tokens)
+    meta = {"variant": variant, "fused_attn": fused, "evaluation": True,
+            "batch": batch_size, "tokens": tokens, "captions": captions,
+            "images": images, "height": cfg.INPUT.HEIGHT,
+            "width": cfg.INPUT.WIDTH,
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")}
+    return eval_call(model, batches, device), meta
 
 
 def capture(fn, steps: int, out: str, meta: dict) -> str:
@@ -204,7 +305,7 @@ def analytic_work(meta: dict, launches: dict) -> dict:
     the key tower's pooled-only one; the backward kernel over the batch's
     valid (row, step) pairs, without dW's product) for a bi-GRU text tower, K5 and K6 at the ViT
     tower's shape (12 layers: 24 forwards and 12 backwards a step) for
-    the ViT-B/16 variant."""
+    the ViT-B/16 variant; none for an evaluation."""
     from ..utils.profiling import (
         attention_work,
         k1_backward_work,
@@ -212,6 +313,8 @@ def analytic_work(meta: dict, launches: dict) -> dict:
     )
 
     out = {}
+    if meta.get("evaluation"):
+        return out
     if meta.get("text_tower") == "bigru":
         b, t, h = meta["batch"], meta["tokens"], meta["hidden"]
         train_b, train_o = k1_forward_work(b, t, h, train=True)
@@ -228,6 +331,44 @@ def analytic_work(meta: dict, launches: dict) -> dict:
         out["K5"] = (24 * fwd_b, {"bfloat16": 24 * fwd_o})
         out["K6"] = (12 * bwd_b, {"bfloat16": 12 * bwd_o})
     return out
+
+
+def _innermost(spans: list):
+    """``at(t)``: the name of the innermost span of ``spans`` (the trace's
+    host-side ``program_span`` events, properly nested) whose interval
+    holds ``t``, else ``OUTSIDE``."""
+    spans = sorted(spans, key=lambda e: (e["ts"], -e["dur"]))
+    starts = [e["ts"] for e in spans]
+    by_id = {e["args"]["id"]: e for e in spans}
+
+    def at(t: float) -> str:
+        i = bisect.bisect_right(starts, t) - 1
+        e = spans[i] if i >= 0 else None
+        while e is not None and not e["ts"] <= t <= e["ts"] + e["dur"]:
+            e = by_id.get(e["args"]["parent"])
+        return e["name"] if e is not None else OUTSIDE
+
+    return at
+
+
+def phase_table(spans: list, device: list, launched: dict,
+                steps: int) -> dict:
+    """{phase: {"device_ms", "launches", "idle_ms"}} a step: each device
+    event ``(start, end, category, correlation id)`` to the span holding
+    its launch (``launched``: correlation id -> (thread, time)), each gap
+    of the card's busy intervals to the span holding its start."""
+    at = _innermost(spans)
+    out = collections.defaultdict(
+        lambda: {"device_ms": 0.0, "launches": 0.0, "idle_ms": 0.0})
+    end = None
+    for start, stop, cat, corr in sorted(device):
+        phase = out[at(launched[corr][1]) if corr in launched else OUTSIDE]
+        phase["device_ms"] += (stop - start) / 1e3 / steps
+        phase["launches"] += (cat == "kernel") / steps
+        if end is not None and start > end:
+            out[at(end)]["idle_ms"] += (start - end) / 1e3 / steps
+        end = stop if end is None else max(end, stop)
+    return dict(out)
 
 
 def summarize(trace_dir: str, json_out: str = "", families=None) -> dict:
@@ -260,13 +401,20 @@ def summarize(trace_dir: str, json_out: str = "", families=None) -> dict:
     peaks = device_peaks(meta.get("device", ""))
 
     device = []  # (name, category, us, correlation id) of each device event
+    timeline = []  # (start, end, category, correlation id), the same
     launched = {}  # correlation id -> (tid, ts) of the host-side launch
     spans = collections.defaultdict(list)  # tid -> [(start, end, name, args)]
+    program = []  # the program's spans, their host intervals
     for e in events:
         name, args, cat = e.get("name", ""), e.get("args", {}), e.get("cat")
         if cat in DEVICE_CATEGORIES:
             device.append((name, cat, e.get("dur", 0.0),
                            args.get("correlation")))
+            ts = e.get("ts", 0.0)
+            timeline.append((ts, ts + e.get("dur", 0.0), cat,
+                             args.get("correlation")))
+        elif cat == "program_span" and e.get("tid") == "host":
+            program.append(e)
         elif cat in LAUNCH_CATEGORIES and "correlation" in args:
             launched[args["correlation"]] = (e.get("tid"), e.get("ts", 0.0))
         elif name in CALL_FAMILIES:
@@ -332,9 +480,12 @@ def summarize(trace_dir: str, json_out: str = "", families=None) -> dict:
         roofline[what] = {"bound_ms": ms, "measured_ms": ms_on_card,
                           "share": ms / ms_on_card}
     out["roofline"] = roofline
+    out["phases"] = phase_table(program, timeline, launched, steps)
 
-    print(f"device time {out['ms_per_step']:.2f} ms a step over {steps} "
-          f"steps, {out['launches_per_step']:.0f} kernels a step "
+    call, a_call = (("evaluation", "an evaluation") if meta.get("evaluation")
+                    else ("step", "a step"))
+    print(f"device time {out['ms_per_step']:.2f} ms {a_call} over {steps} "
+          f"{call}s, {out['launches_per_step']:.0f} kernels {a_call} "
           f"({out['device']})")
     for family, ms in sorted(out["by_family_ms"].items(),
                              key=lambda kv: -kv[1]):
@@ -348,6 +499,75 @@ def summarize(trace_dir: str, json_out: str = "", families=None) -> dict:
     print(f"the {TOP_KERNELS} longest kernels (ms a step, calls a step):")
     for k in out["top_kernels"]:
         print(f"  {k['ms']:8.3f} ms  {k['calls']:6.1f}  {k['name'][:110]}")
+    print("by phase (the span holding the launch; idle: the span the host "
+          f"was in when the card's gap began), {a_call}:")
+    print(f"  {'device ms':>10} {'launches':>9} {'idle ms':>9}  phase")
+    for name, p in sorted(out["phases"].items(),
+                          key=lambda kv: -kv[1]["device_ms"]):
+        print(f"  {p['device_ms']:10.3f} {p['launches']:9.1f} "
+              f"{p['idle_ms']:9.3f}  {name}")
+    if json_out:
+        with open(json_out, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {json_out}")
+    return out
+
+
+def time_spans(fn, steps: int, json_out: str = "",
+               call: str = "step") -> dict:
+    """``fn`` with the profiler off, ``SPAN_ROUNDS`` turns of ``steps``
+    calls without spans and as many with them, in turns (off first, then
+    on first): ``{"off_ms", "on_ms"}`` (each turn's ms a call, from a
+    synchronised start to a synchronised end), ``cost_ms`` (the medians'
+    difference) and ``spans`` ({name: {"host_ms", "device_ms"}} a call
+    over the turns with spans; ``device_ms`` ``None`` without a card).
+    ``call``: what one call is, for the printout."""
+    a_call = ("an " if call[0] in "aeiou" else "a ") + call
+    import torch
+
+    from ..utils import profiling
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    times = {"off": [], "on": []}
+    profiling.clear_spans()
+    for turn in range(SPAN_ROUNDS):
+        for mode in ("off", "on") if turn % 2 == 0 else ("on", "off"):
+            with (profiling.recording() if mode == "on"
+                  else contextlib.nullcontext()):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    fn()
+                sync()
+                times[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+    calls = SPAN_ROUNDS * steps
+    by_name = {}
+    for rec in profiling.recordings():
+        for s in rec["spans"]:
+            row = by_name.setdefault(s["name"], {"host_ms": 0.0,
+                                                 "device_ms": 0.0})
+            row["host_ms"] += s["host_ms"] / calls
+            if s["device_ms"] is None or row["device_ms"] is None:
+                row["device_ms"] = None
+            else:
+                row["device_ms"] += s["device_ms"] / calls
+    off, on = statistics.median(times["off"]), statistics.median(times["on"])
+    out = {"off_ms": times["off"], "on_ms": times["on"],
+           "cost_ms": on - off, "steps": steps, "turns": SPAN_ROUNDS,
+           "spans": by_name}
+    print(f"profiler off, {SPAN_ROUNDS} turns of {steps} {call}s each way: "
+          f"spans off {off:.3f} ms {a_call}, on {on:.3f} (cost "
+          f"{on - off:+.3f} ms, {100 * (on - off) / off:+.2f}%)")
+    print(f"  off turns {[round(t, 3) for t in times['off']]}, on turns "
+          f"{[round(t, 3) for t in times['on']]}")
+    print(f"  {'host ms':>9} {'device ms':>10}  span ({a_call}, spans on)")
+    for name, row in by_name.items():
+        dev = ("-" if row["device_ms"] is None
+               else f"{row['device_ms']:.3f}")
+        print(f"  {row['host_ms']:9.3f} {dev:>10}  {name}")
     if json_out:
         with open(json_out, "w") as f:
             json.dump(out, f, indent=1)
@@ -368,6 +588,13 @@ def parse_args(argv=None):
     parser.add_argument("--summarize-only", action="store_true",
                         help="re-read the trace under --out without "
                         "running the step")
+    parser.add_argument("--spans", action="store_true",
+                        help="no trace: time the steps with the spans off "
+                        "and on, in turns, and print each span's host "
+                        "and device ms a step")
+    parser.add_argument("--eval", action="store_true",
+                        help="a whole evaluation (build_eval) in place of "
+                        "the train step; --steps counts evaluations")
     parser.add_argument("--model", default="", choices=["", "vit",
                                                         "fullclip"],
                         help="flagship variant (config/flagship.py)")
@@ -379,14 +606,24 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Profile (unless ``--summarize-only``) and summarize; returns the
-    breakdown."""
+    """Profile (unless ``--summarize-only``) and summarize, or with
+    ``--spans`` time the spans; returns the breakdown."""
     args = parse_args(argv)
     if not args.summarize_only:
-        step, state, batch, meta = build_step(args.model, args.fused_attn,
-                                              args.device)
-        step(state, batch)  # the warm-up step, outside the trace
-        capture(lambda: step(state, batch), args.steps, args.out, meta)
+        if args.eval:
+            fn, meta = build_eval(args.model, args.fused_attn, args.device)
+        else:
+            step, state, batch, meta = build_step(args.model,
+                                                  args.fused_attn,
+                                                  args.device)
+
+            def fn():
+                step(state, batch)
+        fn()  # the warm-up call, outside the trace
+        if args.spans:
+            return time_spans(fn, args.steps, args.json_out,
+                              "evaluation" if args.eval else "step")
+        capture(fn, args.steps, args.out, meta)
     return summarize(args.out, args.json_out)
 
 

@@ -2,10 +2,11 @@
 ``textreid_tpu/utils/profiling.py``).
 
 * :func:`profile_trace` — a context manager around ``torch.profiler``
-  writing a Chrome trace of the host and the card;
-* :func:`step_timer` — wall timing of a block that ends in
-  ``torch.cuda.synchronize`` (kernel launches return before the card is
-  done: without it the timer reads the enqueue);
+  writing a Chrome trace of the host and the card, the program's spans on
+  a track of their own;
+* :func:`span` / :func:`count` — named ranges of the program's work and
+  counts inside them, recorded while a ``torch.profiler`` records or
+  inside :func:`recording`, read by :func:`recordings` (below);
 * :func:`nan_check` — raise on a non-finite floating tensor of a module or
   a (nested) dict;
 * :func:`live_memory` — bytes the caching allocator holds live on each
@@ -25,12 +26,17 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -38,7 +44,8 @@ def profile_trace(log_dir: str):
     """Capture the host's and the card's activity into
     ``log_dir/trace.json`` (chrome://tracing, Perfetto), each call's input
     shapes recorded (``tools/profile_step.py`` counts operations from
-    them); yields the profiler."""
+    them), and the spans recorded inside the block on a track of their
+    own (:func:`_add_span_track`); yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -46,28 +53,253 @@ def profile_trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
+    first = _TRACER.begin()
     with profile(activities=activities, record_shapes=True) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_span_track(path, [r for r in recordings() if r["id"] >= first])
+
+
+# -- spans --------------------------------------------------------------------
+#
+# ``with span("train.ema"): ...`` names a range of the program's work.  While
+# nothing records, ``span`` returns one shared context that does nothing: no
+# allocation, no CUDA call, no lock (the path the benchmark times).  A span
+# opened while no span is open on its thread is a root.  A root records while
+# a ``torch.profiler`` records (``torch.autograd.profiler.
+# _is_profiler_enabled``: off in a schedule's warm-up calls, on in its active
+# ones) or inside :func:`recording`; every span opened under a recorded root
+# records.  A recording is a run of recorded roots: a root opened while
+# nothing records ends it.  Under a profiler each span also enters
+# ``record_function(name)``, so a trace with the host's activity shows it as
+# a user annotation.
+#
+# Times are ``time.time_ns()``, the clock of the profiler's Chrome trace
+# (its ``ts`` plus ``baseTimeNanoseconds``).  In a process that has
+# initialised CUDA a recorded span also records a CUDA event at each end on
+# the current stream; a recording's first root synchronises and records an
+# anchor event, which puts the events on the same clock.  Events are read
+# when :func:`recordings` is called.  Spans are opened and closed on the
+# thread that drives the work (the step, the evaluation).
+
+SPAN_CAP = 1 << 16  # spans kept; past it the oldest go, counted
+
+
+class _Off:
+    """What :func:`span` returns while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Open(threading.local):
+    span = None  # the innermost open recorded span of this thread
+
+
+class _Recording:
+    """A run of recorded roots, with the anchor of its device times."""
+
+    __slots__ = ("id", "anchor", "anchor_ns", "dropped")
+
+    def __init__(self, rid: int):
+        self.id, self.dropped = rid, 0
+        self.anchor = self.anchor_ns = None
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            self.anchor = torch.cuda.Event(enable_timing=True)
+            self.anchor.record()
+            self.anchor_ns = time.time_ns()
+
+
+class Span:
+    """One recorded span; :func:`recordings` gives it as a dict."""
+
+    __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns",
+                 "counts", "recording", "_tracer", "_up", "_events",
+                 "_device", "_annotation")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self.name, self._tracer = name, tracer
+        self.start_ns = self.end_ns = None
+        self.counts: Dict[str, int] = {}
+        self._events = self._device = self._annotation = None
+
+    def __enter__(self):
+        t = self._tracer
+        self.id, self._up = next(t.ids), t.open.span
+        if self._up is None:
+            if t.current is None:
+                t.made += 1
+                t.current = _Recording(t.made)
+            self.recording, self.parent, self.root = t.current, None, self.id
+        else:
+            self.recording = self._up.recording
+            self.parent, self.root = self._up.id, self._up.root
+        if _autograd_profiler._is_profiler_enabled:
+            self._annotation = _autograd_profiler.record_function(self.name)
+            self._annotation.__enter__()
+        t.keep(self)
+        self.start_ns = time.time_ns()
+        if self.recording.anchor is not None:
+            self._events = [torch.cuda.Event(enable_timing=True)]
+            self._events[0].record()
+        t.open.span = self
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events.append(torch.cuda.Event(enable_timing=True))
+            self._events[1].record()
+        self.end_ns = time.time_ns()
+        self._tracer.open.span = self._up
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        return False
+
+    def as_dict(self) -> dict:
+        """The span's fields; the device's times wait for the card to
+        reach the span's end."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            anchor = self.recording.anchor
+            self._device = (anchor.elapsed_time(start),
+                            start.elapsed_time(end))
+            self._events = None
+        out = {"name": self.name, "id": self.id, "parent": self.parent,
+               "root": self.root, "start_ns": self.start_ns,
+               "end_ns": self.end_ns,
+               "host_ms": (self.end_ns - self.start_ns) / 1e6,
+               "device_ms": None, "device_start_ns": None,
+               "counts": dict(self.counts)}
+        if self._device is not None:
+            after_ms, out["device_ms"] = self._device
+            out["device_start_ns"] = self.recording.anchor_ns + round(
+                after_ms * 1e6)
+        return out
+
+
+class Tracer:
+    """A process's spans: the bounded buffer, the recordings, the switch of
+    :func:`recording`.  The module's functions use one."""
+
+    def __init__(self, cap: int = SPAN_CAP):
+        self.spans: collections.deque = collections.deque(maxlen=cap)
+        self.open = _Open()
+        self.switch = 0  # open ``recording()`` blocks
+        self.current: Optional[_Recording] = None  # the one roots join
+        self.ids = itertools.count(1)
+        self.made = 0  # recordings begun
+
+    def keep(self, s: Span) -> None:
+        if len(self.spans) == self.spans.maxlen:
+            self.spans[0].recording.dropped += 1
+        self.spans.append(s)
+
+    def begin(self) -> int:
+        """End the current recording; returns the id the next takes."""
+        self.current = None
+        return self.made + 1
+
+
+_TRACER = Tracer()
+
+
+def span(name: str):
+    """A context naming a range of the program's work (see above): the
+    shared no-op context while nothing records, else a recorded
+    :class:`Span`."""
+    t = _TRACER
+    if (t.open.span is None and not t.switch
+            and not _autograd_profiler._is_profiler_enabled):
+        t.current = None
+        return _OFF
+    return Span(t, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the innermost open recorded
+    span; nothing while none is open."""
+    s = _TRACER.open.span
+    if s is not None:
+        s.counts[name] = s.counts.get(name, 0) + n
 
 
 @contextlib.contextmanager
-def step_timer(meters=None, name: str = "time"):
-    """Wall-time a block up to the completion of its work on the card.
-    Yields a dict whose ``"elapsed"`` holds the seconds afterwards;
-    ``meters`` (a ``MetricLogger``) gets them as ``name``."""
-    start = time.perf_counter()
-    holder: Dict[str, float] = {}
+def recording():
+    """Record spans inside the block without a profiler (the operator's
+    switch): the roots opened in it make a recording of their own."""
+    t = _TRACER
+    t.begin()
+    t.switch += 1
     try:
-        yield holder
+        yield
     finally:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        holder["elapsed"] = time.perf_counter() - start
-        if meters is not None:
-            meters.update(**{name: holder["elapsed"]})
+        t.switch -= 1
+        t.current = None
+
+
+def recordings() -> List[dict]:
+    """The recordings in the buffer, oldest first: ``{"id", "dropped"
+    (its spans the buffer's cap pushed out), "spans"}``, the spans in the
+    order they opened, those still open left out.  A span is ``name``,
+    ``id``, ``parent`` (``None`` for a root), ``root`` (its root's id),
+    ``start_ns`` and ``end_ns`` (``time.time_ns()``), ``host_ms``,
+    ``counts``, and ``device_ms`` and ``device_start_ns`` (the CUDA
+    events' interval, its start on the same clock; ``None`` without
+    CUDA)."""
+    out: Dict[int, dict] = {}
+    for s in list(_TRACER.spans):
+        rec = out.setdefault(s.recording.id, {
+            "id": s.recording.id, "dropped": s.recording.dropped,
+            "spans": []})
+        if s.end_ns is not None:
+            rec["spans"].append(s.as_dict())
+    return list(out.values())
+
+
+def clear_spans() -> None:
+    """Empty the buffer and end the current recording."""
+    _TRACER.spans.clear()
+    _TRACER.current = None
+
+
+SPAN_PID = "program spans"
+
+
+def _add_span_track(path: str, recs: List[dict]) -> None:
+    """Write the spans of ``recs`` into the Chrome trace at ``path`` on a
+    track of their own (process ``SPAN_PID``: thread "host" the host's
+    intervals, thread "device" the card's), on the trace's clock."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = trace.get("baseTimeNanoseconds", 0)
+    events = trace.setdefault("traceEvents", [])
+    for rec in recs:
+        for s in rec["spans"]:
+            args = {"id": s["id"], "parent": s["parent"], "root": s["root"],
+                    "recording": rec["id"], **s["counts"]}
+            for tid, start, ms in (("host", s["start_ns"], s["host_ms"]),
+                                   ("device", s["device_start_ns"],
+                                    s["device_ms"])):
+                if ms is not None:
+                    events.append({"ph": "X", "cat": "program_span",
+                                   "name": s["name"], "pid": SPAN_PID,
+                                   "tid": tid, "ts": (start - base) / 1e3,
+                                   "dur": ms * 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _tensors(tree: Any, prefix: str = ""):
