@@ -113,6 +113,30 @@ before the result line:
    alone at the same convolution), and the flagship's gallery encode
    img/s at batch 128 over 3,074 rows: float, int8 dataflow and
    interceptor in turns, two readings each.
+7c. E3 (``csrc/batch_norm.cu``: train-mode BatchNorm with its ReLU and
+   residual add, channels-last, two launches each way) against its plain
+   version at RN50's extreme shapes (``E3_CASES``; the statistics and the
+   backward's sums within f32 rounding of another order, the output and
+   the masked gradient bit for bit given the kernel's statistics, two
+   passes equal, 2 launches each way); in the RN50 tower at full width
+   two identical passes and the gradient-cache replay bit for bit, 55
+   launches of each kernel a pass; two identical flagship train steps:
+   losses and running statistics bit for bit, 110 / 110 / 55 / 55
+   launches; the f32 flagship step with E3 and with eager BatchNorm, each
+   against the f64 step (E3's gradient and loss errors within 1.5 times
+   eager's); then its times at the stem's first and layer 4's last
+   BatchNorm beside the plain version and the library
+   (``native_batch_norm`` + the add + ReLU, and autograd's backward of
+   it), and each launch alone beside its plain version and the library's
+   kernel for that pass.  The training slices (phases 8-10) count E3's
+   launches a step beside K1-K6's (``TRAIN_MODELS``); phase 10's "plain
+   versions" step runs BatchNorm on the eager path, phase 9's keeps E3 on
+   both sides (two f32 BatchNorms' rounding grows to ~2% of the random
+   RN50's stem gradients, eager's as much as E3's).
+   ``python3 chip_smoke.py --bn-kernels`` runs this phase alone,
+   adding each kernel's device time at every BatchNorm shape of RN50
+   (summed over a train step against its byte bound) and the host cost a
+   BatchNorm beside the eager path (a development aid, no result line).
 8. The training slice through ``textreid_torch.train_net.main`` at full
    width, for a few steps each, on a synthetic CUHK-PEDES train split
    (bf16 towers, seeded weights, random frozen token table, MoCo K=2048,
@@ -1386,8 +1410,8 @@ def time_int8_kernels():
 
 def wrappers():
     """Kernel entry point -> the wrapper that counts its launches."""
-    from textreid_torch.ops import (attention, gru, int8_conv, int8_mm,
-                                    ranking, requant)
+    from textreid_torch.ops import (attention, batch_norm, gru, int8_conv,
+                                    int8_mm, ranking, requant)
 
     return {"fused_requant": requant.fused_requant,
             "int8_matmul_requant": int8_mm.fused_int8_matmul_requant,
@@ -1400,7 +1424,11 @@ def wrappers():
             "fused_attention_fwd": attention.fused_attention,
             "fused_attention_bwd": attention.fused_attention_bwd,
             "int8_conv_epilogue": int8_conv.int8_conv_epilogue,
-            "int8_avg_pool": int8_conv.int8_avg_pool}
+            "int8_avg_pool": int8_conv.int8_avg_pool,
+            "bn_fw_stats": batch_norm.bn_fw_stats,
+            "bn_fw_apply": batch_norm.bn_fw_apply,
+            "bn_bw_reduce": batch_norm.bn_bw_reduce,
+            "bn_bw_elemt": batch_norm.bn_bw_elemt}
 
 
 def zero_counts():
@@ -1419,38 +1447,71 @@ INT8_SERVE_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd",
 EVAL_KERNELS = ("gru_scan_fwd", "bigru_pooled_fwd")
 TRAIN_KERNELS = ("bigru_pooled_fwd", "bigru_pooled_bwd", "gru_scan_fwd",
                  "fused_attention_fwd", "fused_attention_bwd")
+E3_KERNELS = ("bn_fw_stats", "bn_fw_apply", "bn_bw_reduce", "bn_bw_elemt")
+E3_RN50_BNS = 55  # BatchNorms of the CLIP RN50 tower: 2 launches each a way
+E3_RN50_LAYER4_BNS = 10  # of its layer 4 (3 blocks and the projection)
+E3_TV_RN50_BNS = 53  # of the torchvision ResNet-50
 
 
 def step_launches(k1=0, k1_bwd=0, k3=0, k5=0, k6=0):
     return dict(zip(TRAIN_KERNELS, (k1, k1_bwd, k3, k5, k6)))
 
 
-# Launches of one step of each shipped training yaml, from the code: K1's
+def bn_launches(forward=0, backward=0):
+    """E3's launches of a step: statistics and apply once a BatchNorm in a
+    train-mode tower forward (``forward`` of them), reduce and elemt once
+    one in a backward (``backward``)."""
+    return dict(zip(E3_KERNELS, (forward, forward, backward, backward)))
+
+
+# Launches of one step of each shipped training yaml, from the code (E3's
+# apart, read in the same runs of phases 8-10; the data-parallel and mesh
+# phases read K1-K6 alone, as a group of more than one rank keeps BatchNorm
+# off E3): K1's
 # forward once a bi-GRU tower forward (the query tower's under autograd is
 # the training forward, with one backward; the key tower's and a frozen
 # tower's, whose inputs need no gradient, the pooled-only kernel); K3 once a
 # direction of each lower GRU layer; K5 once an attention block a tower
 # forward, K6 once one a backward.
 # * ViT-B/16 + bi-GRU: K1 2 / 1, K5 24 (12 blocks, query and key), K6 12;
-# * the flagship (CLIP RN50 + bi-GRU): K1 2 / 1 (its convolutions and
-#   BatchNorms are cuDNN's and PyTorch's);
+# * the flagship (CLIP RN50 + bi-GRU): K1 2 / 1 (its convolutions are
+#   cuDNN's); E3 110 / 110 / 55 / 55, each of 55 BatchNorms in the query
+#   tower's forward and backward and the key tower's forward;
 # * the 2-layer frozen model: the text tower frozen (MODEL.FREEZE), so K1
-#   runs pooled-only in both towers, 2 / 0, and K3 2 a tower, 4;
-# * the simple heads: one tower forward, no key model: K1 1 / 1;
+#   runs pooled-only in both towers, 2 / 0, and K3 2 a tower, 4; FREEZE
+#   also stops its image tower's stem and layers 1-3 (solver/build.py:
+#   apply_freeze), so E3's forwards are the flagship's, 110, and its
+#   backward runs through layer 4's 10 BatchNorms alone;
+# * the simple heads: one tower forward, no key model: K1 1 / 1, E3 once
+#   each a BatchNorm (55 in CLIP RN50, 53 in the torchvision ResNet-50);
 # * full-CLIP (ViT-B/16 + CLIP text transformer, 12 blocks each): K5 48
 #   (24 a model), K6 24, causal in the text tower;
 # * accum8 (bs1024 in 8 microbatches of 128): the key forward, pass 1 (no
 #   gradient: pooled-only) and pass 2 (training forward and backward) of
-#   each microbatch: K1 24 / 8.
-TRAIN_MODELS = {  # name: (yaml, launches of one step)
-    "ViT-B/16 + bi-GRU": (VIT_YAML, step_launches(2, 1, k5=24, k6=12)),
-    "CLIP RN50 + bi-GRU (flagship)": (FLAGSHIP_YAML, step_launches(2, 1)),
-    "2-layer frozen": (GRU2L_YAML, step_launches(2, 0, 4)),
-    "simple head, CLIP RN50": (SIMPLE_CLIP_YAML, step_launches(1, 1)),
-    "simple head, torchvision RN50": (SIMPLE_RN_YAML, step_launches(1, 1)),
-    "full-CLIP": (FULLCLIP_YAML, step_launches(k5=48, k6=24)),
-    "accum8": (ACCUM8_YAML, step_launches(24, 8)),
+#   each microbatch: K1 24 / 8; E3 the same 24 tower forwards (pass 2's
+#   under frozen statistics) and 8 backwards of 55 BatchNorms.
+TRAIN_MODELS = {  # name: (yaml, launches of one step, E3's of one step)
+    "ViT-B/16 + bi-GRU": (VIT_YAML, step_launches(2, 1, k5=24, k6=12),
+                          bn_launches()),
+    "CLIP RN50 + bi-GRU (flagship)": (FLAGSHIP_YAML, step_launches(2, 1),
+                                      bn_launches(2 * E3_RN50_BNS,
+                                                  E3_RN50_BNS)),
+    "2-layer frozen": (GRU2L_YAML, step_launches(2, 0, 4),
+                       bn_launches(2 * E3_RN50_BNS, E3_RN50_LAYER4_BNS)),
+    "simple head, CLIP RN50": (SIMPLE_CLIP_YAML, step_launches(1, 1),
+                               bn_launches(E3_RN50_BNS, E3_RN50_BNS)),
+    "simple head, torchvision RN50": (SIMPLE_RN_YAML, step_launches(1, 1),
+                                      bn_launches(E3_TV_RN50_BNS,
+                                                  E3_TV_RN50_BNS)),
+    "full-CLIP": (FULLCLIP_YAML, step_launches(k5=48, k6=24), bn_launches()),
+    "accum8": (ACCUM8_YAML, step_launches(24, 8),
+               bn_launches(24 * E3_RN50_BNS, 8 * E3_RN50_BNS)),
 }
+
+
+def train_launches_of(model_name):
+    """K1-K6's and E3's launches of one step of one of TRAIN_MODELS."""
+    return {**TRAIN_MODELS[model_name][1], **TRAIN_MODELS[model_name][2]}
 # the f32 step against its plain versions (phase 9) and the timed bf16
 # step (phase 10)
 COMPARED_MODELS = ("ViT-B/16 + bi-GRU", "CLIP RN50 + bi-GRU (flagship)",
@@ -2202,6 +2263,551 @@ def time_int8_conv():
         f"{int_mm:.4f} ms; E2 stem pool {E2_CASES[0][1]}: {e2[0]:.4f} ms "
         f"(plain {e2[1]:.3f})")
     return {"E1": e1, "E2": e2, "int_mm": int_mm}
+
+
+# -- E3: train-mode BatchNorm + ReLU + residual add ---------------------------
+
+# RN50's extreme BatchNorms at 384 x 128, batch 128 (the stem's first, C = 32
+# over 128 x 192 x 64 rows; layer4's last with its identity, C = 2048 over
+# 128 x 24 x 8), a downsample's, the smallest bf16 C (one 16-byte access)
+# over a few rows, and f32 at layer4's width: (name, shape, dtype, relu,
+# residual)
+E3_CASES = [("stem bn1", (128, 32, 192, 64), "bfloat16", True, False),
+            ("layer4 bn3 + identity", (128, 2048, 24, 8), "bfloat16", True,
+             True),
+            ("layer2 downsample", (128, 512, 48, 16), "bfloat16", False,
+             False),
+            ("C = 8", (6, 8, 7, 5), "bfloat16", True, True),
+            ("layer4 f32", (16, 2048, 24, 8), "float32", True, False)]
+def e3_inputs(shape, dtype_name, seed):
+    """Channels-last x (per-channel scale and shift), residual and dy on
+    the card, and a train-mode BatchNorm with a random scale and bias."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, h, w = shape
+    dtype = getattr(torch, dtype_name)
+
+    def cl(t):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    x = cl(torch.randn(shape, generator=g, device="cuda")
+           * (torch.rand(1, c, 1, 1, generator=g, device="cuda") * 2 + 0.1)
+           + torch.randn(1, c, 1, 1, generator=g, device="cuda"))
+    r = cl(torch.randn(shape, generator=g, device="cuda"))
+    dy = cl(torch.randn(shape, generator=g, device="cuda"))
+    bn = torch.nn.BatchNorm2d(c).cuda().train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 0.3, generator=g)
+    return x, r, dy, bn
+
+
+def e3_pass(x, r, dy, bn, relu, with_res):
+    """E3's four launches: (stats, y, grads, dx, g)."""
+    from textreid_torch.ops import batch_norm as bn_ops
+
+    res = r if with_res else None
+    stats = bn_ops.bn_fw_stats(x, bn.weight, bn.bias, bn)
+    y = bn_ops.bn_fw_apply(x, stats, relu, res)
+    mask_y = y if relu and with_res else None
+    grads = bn_ops.bn_bw_reduce(dy, x, mask_y, stats, relu)
+    dx, g = bn_ops.bn_bw_elemt(dy, x, mask_y, stats, grads, relu, True,
+                               relu and with_res)
+    return stats, y, grads, dx, g
+
+
+def check_e3():
+    """E3 against its plain version at E3_CASES: the statistics and the
+    backward's sums within f32 rounding of another order (1e-5 of the sum
+    of the terms' magnitudes), the output and the masked gradient bit for
+    bit given the kernel's statistics, dx within a rounding of its dtype;
+    a second pass bit for bit the first; 2 launches each way.  Returns each
+    kernel's largest absolute difference from its plain version over the
+    cases: the statistics (mean, invstd, a, b) and the backward's four sums
+    in f32, the output (given the kernel's statistics) and dx in the
+    case's dtype."""
+    import torch
+    from textreid_torch.ops import batch_norm as bn_ops
+
+    t0 = time.time()
+    worst = 0.0
+    errors = dict.fromkeys(E3_KERNELS, 0.0)
+    for name, shape, dtype_name, relu, with_res in E3_CASES:
+        x, r, dy, bn = e3_inputs(shape, dtype_name, seed=len(name))
+        bn.stats_frozen = True  # both passes from the same running stats
+        zero_counts()
+        stats, y, grads, dx, g = e3_pass(x, r, dy, bn, relu, with_res)
+        again = e3_pass(x, r, dy, bn, relu, with_res)
+        torch.cuda.synchronize()
+        counts = read_counts(E3_KERNELS)
+        if counts != dict.fromkeys(E3_KERNELS, 2):
+            fail(f"E3 {name}: launches {counts}, not 1 a kernel a pass")
+        if not all(torch.equal(a, b) for a, b in zip(
+                (stats, y, grads, dx, g), again) if a is not None):
+            fail(f"E3 {name}: two passes differ")
+        want, var = bn_ops.stats_plain(x, bn.weight, bn.bias, bn.eps)
+        mask_y = y if relu and with_res else None
+        want_grads = bn_ops.reduce_plain(dy, x, mask_y, stats, relu)
+        gp = bn_ops._masked(dy, x, mask_y, stats, relu)
+        dx_plain, _ = bn_ops.elemt_plain(dy, x, mask_y, stats, grads, relu)
+        dims = (0, 2, 3)
+        xm = (x.float() - bn_ops._c(stats[0])).abs()
+        n = x.numel() // x.shape[1]
+        abs_g, abs_gx = gp.abs().sum(dims), (gp.abs() * xm).sum(dims)
+        ulp = 2.0 ** -7 if dtype_name == "bfloat16" else 1e-5
+        dx_scale = ulp * dx_plain.float().abs() + 1e-5 * (
+            bn_ops._c(stats[2]).abs() * (gp.abs() + bn_ops._c(grads[2].abs())
+                                         + xm * bn_ops._c(grads[3].abs())))
+        ratios = {
+            "mean": (stats[0] - want[0]).abs() / (
+                1e-5 * (var.sqrt() + want[0].abs())),
+            "invstd": (stats[1] - want[1]).abs() / (1e-4 * want[1]),
+            "d weight": (grads[0] - want_grads[0]).abs() / (
+                1e-5 * abs_gx * stats[1] + 1e-30),
+            "d bias": (grads[1] - want_grads[1]).abs() / (1e-5 * abs_g
+                                                          + 1e-30),
+            "dx": (dx.float() - dx_plain.float()).abs() / dx_scale.clamp_min(
+                1e-30)}
+        worst_here = {k: v.max().item() for k, v in ratios.items()}
+        worst = max(worst, *worst_here.values())
+        for kernel, err in zip(E3_KERNELS, (
+                (stats - want).abs().max(),
+                (y.float() - bn_ops.apply_plain(
+                    x, stats, relu, r if with_res else None).float()
+                 ).abs().max(),
+                (grads - want_grads).abs().max(),
+                (dx.float() - dx_plain.float()).abs().max())):
+            errors[kernel] = max(errors[kernel], err.item())
+        if max(worst_here.values()) > 1.0:
+            fail(f"E3 {name}: off its plain version, as a share of each "
+                 f"bound: {worst_here}")
+        if not torch.equal(y, bn_ops.apply_plain(x, stats, relu,
+                                                 r if with_res else None)):
+            fail(f"E3 {name}: the output differs from the plain one given "
+                 "the same statistics")
+        if g is not None and not torch.equal(g, gp.to(g.dtype)):
+            fail(f"E3 {name}: the masked gradient differs from the plain one")
+        del x, r, dy, stats, y, grads, dx, g, again, gp, dx_plain, xm
+    torch.cuda.empty_cache()
+    log(f"E3 (bn_fw_stats, bn_fw_apply, bn_bw_reduce, bn_bw_elemt) at "
+        f"{len(E3_CASES)} shapes: within the bounds of their plain versions "
+        f"(worst {worst:.3f} of a bound; largest absolute differences "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errors.items())
+        + f"), outputs and masked gradients bit for bit, two passes equal "
+        f"({time.time() - t0:.1f} s)")
+    return errors
+
+
+def check_e3_tower():
+    """The flagship's RN50 tower with E3 (384 x 128, batch 128, bf16 on f32
+    masters, channels-last, cuDNN deterministic): two identical forward +
+    backward passes bit-equal (output, gradients, running statistics); the
+    gradient-cache step's replay (a forward under no_grad, then one under
+    running_stats_frozen with autograd) equal to the first bit for bit,
+    the statistics moved once; E3's launches 55 + 55 a forward, 55 + 55 a
+    backward."""
+    import copy
+
+    import torch
+    from textreid_torch.models.common import running_stats_frozen
+    from textreid_torch.models.m_resnet import ModifiedResNet
+
+    t0 = time.time()
+    torch.manual_seed(0)
+    tower = ModifiedResNet((3, 4, 6, 3), 1024, 32, last_stride=1,
+                           input_resolution=(384, 128)).cuda().train()
+    start = copy.deepcopy(tower.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(128, 384, 128, 3, generator=g, device="cuda").to(
+        torch.bfloat16).permute(0, 3, 1, 2)  # NCHW, channels_last
+    bns = E3_RN50_BNS
+    runs = []
+    with cudnn_exact():
+        for _ in range(2):
+            tower.load_state_dict(start)
+            tower.zero_grad(set_to_none=True)
+            zero_counts()
+            out = tower(x)
+            fw = read_counts(E3_KERNELS)
+            out.float().square().mean().backward()
+            bw = read_counts(E3_KERNELS)
+            if fw != dict(zip(E3_KERNELS, (bns, bns, 0, 0))) or bw != (
+                    dict.fromkeys(E3_KERNELS, bns)):
+                fail(f"E3 in the RN50 tower: launches {fw} a forward, {bw} "
+                     f"after its backward; want {bns} of each kernel")
+            runs.append([out] + [p.grad for p in tower.parameters()]
+                        + [b.clone() for b in tower.buffers()])
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail("E3 in the RN50 tower: two identical passes differ")
+        tower.load_state_dict(start)
+        with torch.no_grad():
+            first = tower(x)
+        moved = [b.clone() for b in tower.buffers()]
+        with running_stats_frozen(tower):
+            replay = tower(x)
+        if not torch.equal(first, replay) or not all(
+                torch.equal(a, b) for a, b in zip(moved, tower.buffers())):
+            fail("E3 in the RN50 tower: the replay under frozen statistics "
+                 "is not the first forward bit for bit")
+        if all(torch.equal(a, b.cuda()) for a, b in zip(
+                moved, (v for k, v in start.items()
+                        if k.endswith("running_var")))):
+            fail("E3 in the RN50 tower: the running statistics did not move")
+    del tower, runs, first, replay, out
+    torch.cuda.empty_cache()
+    log(f"E3 in the RN50 tower (batch 128, 384 x 128, bf16): two passes bit "
+        f"for bit, the frozen replay exact, {bns} launches of each kernel "
+        f"a pass ({time.time() - t0:.1f} s)")
+
+
+def rn50_batch_norms(batch=128, height=384, width=128):
+    """(shape, relu, residual) of each BatchNorm of the flagship's CLIP RN50
+    (res5 stride 1) in a tower forward: the stem's three, then each
+    bottleneck's bn1, bn2, the projection's and bn3 with the identity."""
+    h, w = height // 2, width // 2
+    out = [((batch, c, h, w), True, False) for c in (32, 32, 64)]
+    h, w, inplanes = h // 2, w // 2, 64
+    for planes, blocks, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2),
+                                   (512, 3, 1)):
+        for block in range(blocks):
+            s = stride if block == 0 else 1
+            out += [((batch, planes, h, w), True, False)] * 2
+            h, w = h // s, w // s
+            if s > 1 or inplanes != planes * 4:
+                out.append(((batch, planes * 4, h, w), False, False))
+            out.append(((batch, planes * 4, h, w), True, True))
+            inplanes = planes * 4
+    return out
+
+
+def check_e3_steps():
+    """Two identical bf16 train steps of the flagship with E3 (cuDNN
+    deterministic, no TF32), from copies of one state on one batch: the
+    losses and the running statistics of the query and the key model bit
+    for bit, E3's launches 110 / 110 / 55 / 55 each; how many updated
+    parameters are bit-equal is logged (the step's other kernels decide
+    those too)."""
+    import copy
+
+    import torch
+
+    name = "CLIP RN50 + bi-GRU (flagship)"
+    want = TRAIN_MODELS[name][2]
+    with cudnn_exact():
+        cfg, model, state_of, step, batch = train_setup(name, "bfloat16")
+        states = [state_of(model), state_of(copy.deepcopy(model))]
+        outs = []
+        for state in states:
+            zero_counts()
+            outs.append({k: float(v) for k, v in step(state, batch).items()})
+            torch.cuda.synchronize()
+            if read_counts(E3_KERNELS) != want:
+                fail(f"E3 in the flagship's step: launches "
+                     f"{read_counts(E3_KERNELS)}, want {want}")
+
+    def stats(state):
+        return [b for m in (state.model, state.key_model)
+                for k, b in m.named_buffers() if k.endswith(("_mean", "_var"))]
+
+    if outs[0] != outs[1] or not all(
+            torch.equal(a, b) for a, b in zip(*map(stats, states))):
+        fail(f"E3 in the flagship's step: two identical steps differ "
+             f"(losses {outs})")
+    params = [dict(s.model.named_parameters()) for s in states]
+    equal = sum(torch.equal(p, params[1][k]) for k, p in params[0].items())
+    log(f"E3 in the flagship's step (bf16, batch 128): two identical steps "
+        f"give the same losses {outs[0]} and {len(stats(states[0]))} running "
+        f"statistics bit for bit, launches {want}; {equal} of "
+        f"{len(params[0])} updated parameters bit-equal ({card_line()})")
+    del states, model
+    torch.cuda.empty_cache()
+
+
+def check_e3_step_f64(ratio=1.5):
+    """The flagship's f32 step with E3 and with eager BatchNorm (K1 the
+    kernel in both), each against the step in f64 (the plain versions,
+    eager BatchNorm) from the same state and batch, cuDNN deterministic,
+    no TF32: E3's gradient errors (norm of the difference over the f64
+    gradient's norm, by parameter of the image tower above the noise
+    floor) and loss errors at most ``ratio`` times eager's, median and
+    worst.  In the random RN50 two f32 BatchNorms differ from each other
+    by as much as each differs from f64 (~1-2% at the stem), so E3 is held
+    to f64, not to eager."""
+    import copy
+
+    import torch
+    import textreid_torch.models.common as common
+
+    name = "CLIP RN50 + bi-GRU (flagship)"
+    t0 = time.time()
+    with cudnn_exact():
+        cfg, model, state_of, step, batch = train_setup(name, "float32")
+        start = copy.deepcopy(model.state_dict())
+        states = {"E3": state_of(model),
+                  "eager": state_of(copy.deepcopy(model))}
+        losses = {"E3": step(states["E3"], batch)}
+        with mock.patch.object(common, "takes", lambda x: False):
+            losses["eager"] = step(states["eager"], batch)
+        del model
+        with plain_train_kernels():
+            _, model64, state_of64, step64, _ = train_setup(name, "float32",
+                                                            f64=True)
+            model64.load_state_dict(start)
+            ref = state_of64(model64)
+            ref_losses = step64(ref, batch)
+    torch.cuda.synchronize()
+    ref_grads = {n: p.grad for n, p in ref.model.named_parameters()
+                 if n.startswith("visual_model.") and p.grad is not None}
+    top = max(g.norm().item() for g in ref_grads.values())
+    errors, loss_errors = {}, {}
+    for side, state in states.items():
+        params = dict(state.model.named_parameters())
+        errors[side] = sorted(
+            ((params[n].grad.double() - g).norm() / g.norm()).item()
+            for n, g in ref_grads.items() if g.norm().item() >= (
+                NOISE_FLOOR * top))
+        loss_errors[side] = max(
+            abs(float(losses[side][k]) - float(v)) / max(abs(float(v)),
+                                                         1e-12)
+            for k, v in ref_losses.items())
+    summary = {side: (e[len(e) // 2], e[-1], loss_errors[side])
+               for side, e in errors.items()}
+    log(f"f32 step of the flagship against f64, image tower's gradients "
+        f"(median, worst over {len(errors['E3'])} parameters) and losses: "
+        + "; ".join(f"{side} {m:.3e}, {w:.3e}, losses {lo:.3e}"
+                    for side, (m, w, lo) in summary.items())
+        + f" ({time.time() - t0:.1f} s, {card_line()})")
+    for i, what in enumerate(("median gradient", "worst gradient", "loss")):
+        if not summary["E3"][i] <= ratio * max(summary["eager"][i], 1e-7):
+            fail(f"f32 step of the flagship: E3's {what} error against f64 "
+                 f"{summary['E3'][i]:.3e}, over {ratio} times eager "
+                 f"BatchNorm's {summary['eager'][i]:.3e}")
+    del states, ref, model64
+    torch.cuda.empty_cache()
+
+
+def time_e3_rn50():
+    """E3's four launches alone at each BatchNorm shape of the flagship's
+    RN50 (bf16, batch 128), each on the device (queued behind a device
+    sleep; L2 warm), and their sums over a train step (two tower forwards,
+    one backward) beside the byte bound of each (every input read once,
+    every output written once, a launch)."""
+    import collections
+
+    import torch
+    from textreid_torch.ops import batch_norm as bn_ops
+    from textreid_torch.tools.int8_variants import queued_ms
+
+    shapes = collections.Counter(rn50_batch_norms())
+    if sum(shapes.values()) != E3_RN50_BNS:
+        fail(f"rn50_batch_norms lists {sum(shapes.values())} BatchNorms")
+    step = collections.Counter()
+    for (shape, relu, with_res), count in sorted(shapes.items()):
+        x, r, dy, bn = e3_inputs(shape, "bfloat16", seed=5)
+        bn.stats_frozen = True
+        res = r if with_res else None
+        w, b = bn.weight.detach(), bn.bias.detach()
+        stats = bn_ops.bn_fw_stats(x, w, b, bn)
+        y = bn_ops.bn_fw_apply(x, stats, relu, res)
+        mask_y = y if relu and with_res else None
+        grads = bn_ops.bn_bw_reduce(dy, x, mask_y, stats, relu)
+        g = relu and with_res
+        ms = {"stats": queued_ms(lambda: bn_ops.bn_fw_stats(x, w, b, bn),
+                                 20),
+              "apply": queued_ms(lambda: bn_ops.bn_fw_apply(x, stats, relu,
+                                                            res), 20),
+              "reduce": queued_ms(lambda: bn_ops.bn_bw_reduce(
+                  dy, x, mask_y, stats, relu), 20),
+              "elemt": queued_ms(lambda: bn_ops.bn_bw_elemt(
+                  dy, x, mask_y, stats, grads, relu, True, g), 20)}
+        one = x.numel() * x.element_size()
+        moved = {"stats": one, "apply": one * (3 if with_res else 2),
+                 "reduce": one * (3 if g else 2),
+                 "elemt": one * (5 if g else 3)}
+        calls = {"stats": 2, "apply": 2, "reduce": 1, "elemt": 1}
+        for k in ms:
+            step[k] += ms[k] * count * calls[k]
+            step[k + " bound"] += (bound(moved[k], 0, "bfloat16")[0] * count
+                                   * calls[k])
+        share = {k: 100 * bound(moved[k], 0, "bfloat16")[0] / v
+                 for k, v in ms.items()}
+        log(f"E3 at {shape} relu={relu} residual={with_res} (x{count}): "
+            + ", ".join(f"{k} {v * 1e3:.1f} us ({share[k]:.0f}%)"
+                        for k, v in ms.items()))
+        del x, r, dy, bn, stats, y, grads, res, mask_y
+    torch.cuda.empty_cache()
+    total = sum(step[k] for k in ("stats", "apply", "reduce", "elemt"))
+    log(f"E3 over a train step of the flagship (2 tower forwards, 1 "
+        f"backward): {total:.2f} ms; "
+        + ", ".join(f"{k} {step[k]:.2f} ms (bound {step[k + ' bound']:.2f})"
+                    for k in ("stats", "apply", "reduce", "elemt"))
+        + f" ({card_line()})")
+    return step
+
+
+def time_e3_host(reps=2000):
+    """Host microseconds a BatchNorm with its ReLU and the identity (a
+    bottleneck's bn3) on a tiny bf16 tensor, so the card keeps up: the
+    path common.batch_norm keeps for what E3 does not take
+    (``native_batch_norm``, flax's running update, the add, the ReLU)
+    against E3, under no_grad (the key tower) and under autograd (the
+    query tower's forward)."""
+    import torch
+    from textreid_torch.models import common
+
+    x, r, _, bn = e3_inputs((2, 64, 4, 4), "bfloat16", seed=3)
+
+    def host_us(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    def eager():
+        return torch.relu(common._batch_norm(x, bn) + r)
+
+    def fused():
+        return common.batch_norm(x, bn, relu=True, residual=r)
+
+    out = {}
+    with torch.no_grad():
+        out["eager no_grad"], out["E3 no_grad"] = host_us(eager), host_us(fused)
+    x.requires_grad_(True)
+    out["eager autograd"], out["E3 autograd"] = host_us(eager), host_us(fused)
+    log("host us a BatchNorm + add + ReLU (forward): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out.items()) + f" ({card_line()})")
+    return out
+
+
+def time_e3():
+    """E3 at the stem's first BatchNorm (ReLU) and layer4's last (ReLU and
+    the identity), bf16, batch 128: the forward's two launches and the
+    backward's two, each in turns with the plain version; beside them the
+    library: ``native_batch_norm`` + (the add) + ``relu``, and autograd's
+    backward of that (``threshold_backward``, ``native_batch_norm_backward``:
+    a call the port never makes).  Then each of the four launches alone,
+    beside its plain version alone and the library's kernel for the same
+    pass (``torch.batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``: the
+    kernels native_batch_norm and its backward launch, without the ReLU and
+    the add).  Bounds: each input read once, each output written once, for
+    the pair and for each launch."""
+    import torch
+    from textreid_torch.ops import batch_norm as bn_ops
+
+    out = {}
+    for name, shape, dtype_name, relu, with_res in E3_CASES[:2]:
+        x, r, dy, bn = e3_inputs(shape, dtype_name, seed=7)
+        bn.stats_frozen = True
+        res = r if with_res else None
+        mask_y = None
+        w, b = bn.weight.detach(), bn.bias.detach()
+
+        def fw():
+            return bn_ops.bn_fw_apply(x, bn_ops.bn_fw_stats(x, w, b, bn), relu,
+                                      res)
+
+        def fw_plain():
+            return bn_ops.apply_plain(
+                x, bn_ops.stats_plain(x, w, b, bn.eps)[0], relu, res)
+
+        def fw_library():
+            y = torch.native_batch_norm(x, w, b, None, None, True, 0.0,
+                                        bn.eps)[0]
+            return torch.relu(y + res if with_res else y)
+
+        stats = bn_ops.bn_fw_stats(x, w, b, bn)
+        y = fw()
+        if relu and with_res:
+            mask_y = y
+
+        def bw():
+            grads = bn_ops.bn_bw_reduce(dy, x, mask_y, stats, relu)
+            return bn_ops.bn_bw_elemt(dy, x, mask_y, stats, grads, relu, True,
+                                      relu and with_res)
+
+        def bw_plain():
+            grads = bn_ops.reduce_plain(dy, x, mask_y, stats, relu)
+            return bn_ops.elemt_plain(dy, x, mask_y, stats, grads, relu)
+
+        xl = x.detach().requires_grad_(True)
+        wl, bl = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        yl = torch.native_batch_norm(xl, wl, bl, None, None, True, 0.0,
+                                     bn.eps)[0]
+        yl = torch.relu(yl + res if with_res else yl)
+
+        def bw_library():
+            return torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                       retain_graph=True)
+
+        fw_ms, fw_plain_ms = interleaved_ms(fw, fw_plain, 20, 3)
+        bw_ms, bw_plain_ms = interleaved_ms(bw, bw_plain, 20, 3)
+        fw_lib, bw_lib = cuda_ms(fw_library, 20), cuda_ms(bw_library, 20)
+        grads = bn_ops.bn_bw_reduce(dy, x, mask_y, stats, relu)
+        mean, invstd = stats[0], stats[1]
+        sums = torch.batch_norm_backward_reduce(dy, x, mean, invstd, w, True,
+                                                True, True)
+        count = torch.tensor([x.numel() // x.shape[1]], dtype=torch.int32,
+                             device="cuda")
+        elems, size = x.numel(), x.element_size()
+        mask_read = 1 if mask_y is not None else 0
+        passes = {  # launch: (E3, plain, library, tensors read + written)
+            "bn_fw_stats": (
+                lambda: bn_ops.bn_fw_stats(x, w, b, bn),
+                lambda: bn_ops.stats_plain(x, w, b, bn.eps),
+                lambda: torch.batch_norm_stats(x, bn.eps), 1),
+            "bn_fw_apply": (
+                lambda: bn_ops.bn_fw_apply(x, stats, relu, res),
+                lambda: bn_ops.apply_plain(x, stats, relu, res),
+                lambda: torch.batch_norm_elemt(x, w, b, mean, invstd,
+                                               bn.eps),
+                2 + (res is not None)),
+            "bn_bw_reduce": (
+                lambda: bn_ops.bn_bw_reduce(dy, x, mask_y, stats, relu),
+                lambda: bn_ops.reduce_plain(dy, x, mask_y, stats, relu),
+                lambda: torch.batch_norm_backward_reduce(
+                    dy, x, mean, invstd, w, True, True, True),
+                2 + mask_read),
+            "bn_bw_elemt": (
+                lambda: bn_ops.bn_bw_elemt(dy, x, mask_y, stats, grads, relu,
+                                           True, relu and with_res),
+                lambda: bn_ops.elemt_plain(dy, x, mask_y, stats, grads,
+                                           relu),
+                lambda: torch.batch_norm_backward_elemt(
+                    dy, x, mean, invstd, w, sums[0], sums[1], count),
+                3 + 2 * mask_read)}
+        alone = {k: {"ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 20),
+                     "lib_ms": cuda_ms(lib, 20),
+                     "bound": bound(elems * size * n, 0, dtype_name)[0]}
+                 for k, (fn, plain, lib, n) in passes.items()}
+        fw_bytes = elems * size * (3 if with_res else 2)
+        bw_bytes = elems * size * (3 + (2 if relu and with_res else 0))
+        fw_bound = bound(fw_bytes, 0, dtype_name)[0]
+        bw_bound = bound(bw_bytes, 0, dtype_name)[0]
+        out[name] = {"fw": fw_ms, "fw_plain": fw_plain_ms, "fw_lib": fw_lib,
+                     "fw_bound": fw_bound, "bw": bw_ms, "bw_plain": bw_plain_ms,
+                     "bw_lib": bw_lib, "bw_bound": bw_bound, **alone}
+        log(f"time E3 {name} {tuple(shape)} {dtype_name}: forward "
+            f"{fw_ms:.4f} ms (bound {fw_bound:.4f}, {fw_bytes / 1e6:.1f} MB; "
+            f"plain {fw_plain_ms:.3f}; native_batch_norm + "
+            f"{'add + ' if with_res else ''}relu {fw_lib:.4f}), backward "
+            f"{bw_ms:.4f} ms (bound {bw_bound:.4f}, {bw_bytes / 1e6:.1f} MB; "
+            f"plain {bw_plain_ms:.3f}; autograd's backward of that "
+            f"{bw_lib:.4f}); alone, ms (bound; plain; the library's pass): "
+            + ", ".join(f"{k} {v['ms']:.4f} ({v['bound']:.4f}; "
+                        f"{v['plain_ms']:.3f}; {v['lib_ms']:.4f})"
+                        for k, v in alone.items())
+            + f" ({card_line()})")
+        del passes, sums, count, mean, invstd
+        del x, r, dy, bn, stats, y, res, mask_y, xl, wl, bl, yl, grads
+        torch.cuda.empty_cache()
+    return out
 
 
 def trunk_launches(visual):
@@ -3199,7 +3805,7 @@ def drive_training(model_name):
         state, meters = train_net.main(argv)
     torch.cuda.synchronize()
     run_s = time.time() - t_run
-    counts = read_counts(TRAIN_KERNELS)
+    counts = read_counts(TRAIN_KERNELS + E3_KERNELS)
     waits = list(meters.data.deque)
     log(f"training slice, {model_name}: train_net.main, {state.step} steps "
         f"in {run_s:.1f} s; launches {counts}; the step waited "
@@ -3241,7 +3847,8 @@ def check_training(model_name, counts, state, meters, ckpt,
 
     if state.step != steps:
         fail(f"training slice ran {state.step} steps, not {steps}")
-    want = {name: n * steps for name, n in TRAIN_MODELS[model_name][1].items()}
+    want = {name: n * steps
+            for name, n in train_launches_of(model_name).items()}
     for name, n in (eval_launches or {}).items():
         want[name] += n
     if counts != want:
@@ -3442,11 +4049,12 @@ def drive_flagship_protocol():
         state, meters = run("straight", "SOLVER.NUM_EPOCHS",
                             str(PROTOCOL_EPOCHS))
         torch.cuda.synchronize()
-        counts = read_counts(TRAIN_KERNELS)
+        counts = read_counts(TRAIN_KERNELS + E3_KERNELS)
         straight_s = time.time() - t0
     out = out_of("straight")
-    # a step's launches as in the other runs (K1 forward 2, backward 1),
-    # and K1's pooled-only forward once an evaluation batch: with 3 steps
+    # a step's launches as in the other runs (K1 forward 2, backward 1; E3
+    # 110 / 110 / 55 / 55), and K1's pooled-only forward once an evaluation
+    # batch (eval-mode BatchNorm launches no E3): with 3 steps
     # an epoch and 2 evaluations of 2 batches (256 pairs, TEST.IMS_PER_BATCH
     # 128), K1's forward 16 and its backward 6
     check_training(name, counts, state, meters,
@@ -3587,9 +4195,14 @@ def drive_flagship_protocol():
 
 
 @contextmanager
-def plain_train_kernels():
+def plain_train_kernels(batch_norm=True):
     """Route the ViT blocks' attention and the text tower's fused scan
-    through their plain PyTorch versions (autograd through both)."""
+    through their plain PyTorch versions (autograd through both), and,
+    with ``batch_norm``, train-mode BatchNorm through the path
+    ``models/common.py:batch_norm`` keeps for what E3 does not take
+    (``native_batch_norm``, the running update, then the add and the
+    ReLU)."""
+    import textreid_torch.models.common as common
     import textreid_torch.models.gru as gru_model
     import textreid_torch.models.vit as vit_model
     from textreid_torch.ops import attention, gru
@@ -3603,7 +4216,10 @@ def plain_train_kernels():
                                       batch_max)
 
     with mock.patch.object(vit_model, "attention", plain_attention), \
-            mock.patch.object(gru_model, "bigru_pooled_scan", plain_scan):
+            mock.patch.object(gru_model, "bigru_pooled_scan", plain_scan), \
+            mock.patch.object(common, "takes",
+                              (lambda x: False) if batch_norm
+                              else common.takes):
         yield
 
 
@@ -3651,7 +4267,8 @@ def train_setup(model_name, compute_dtype_name, f64=False):
 
 def compare_steps(model_name):
     """One f32 step with the kernels and one with their plain versions,
-    from the same state and batch.  cuDNN is held to deterministic
+    from the same state and batch (E3 in both: check_e3_step_f64 holds it
+    to the f64 step).  cuDNN is held to deterministic
     algorithms and full f32 (no TF32) for this comparison only, so that the
     two steps' convolutions compute the same sums and the steps differ by
     the kernels alone."""
@@ -3683,7 +4300,7 @@ def _compare_steps(model_name):
     import textreid_torch.models.gru as gru_model
     from textreid_torch.ops import gru
 
-    want_counts = TRAIN_MODELS[model_name][1]
+    want_counts = train_launches_of(model_name)
     cfg, model, state_of, step, batch = train_setup(model_name, "float32")
     # the third takes the plain step again: how far two identical steps
     # land apart (a diagnostic, logged)
@@ -3700,12 +4317,16 @@ def _compare_steps(model_name):
     zero_counts()
     with mock.patch.object(gru_model, "bigru_pooled_scan", keep_query_gates):
         got = step(states[0], batch)
-    counts = read_counts(TRAIN_KERNELS)
-    with plain_train_kernels():
+    counts = read_counts(TRAIN_KERNELS + E3_KERNELS)
+    # E3 on both sides: in the random RN50 two f32 BatchNorms' rounding
+    # grows to ~2% of the stem's gradients, eager's as much as E3's
+    # (check_e3_step_f64 holds E3 to the f64 step instead)
+    with plain_train_kernels(batch_norm=False):
         want = step(states[1], batch)
         step(states[2], batch)
     torch.cuda.synchronize()
-    if counts != want_counts or read_counts(TRAIN_KERNELS) != counts:
+    if counts != want_counts or read_counts(TRAIN_KERNELS) != {
+            k: counts[k] for k in TRAIN_KERNELS}:
         fail(f"f32 step, {model_name}: launches {counts}, then "
              f"{read_counts(TRAIN_KERNELS)}")
     # where the kernel's and the plain forward's f32 states cross at a
@@ -5683,6 +6304,18 @@ def main():
         # line
         drive_data_parallel()
         return
+    if sys.argv[1:] == ["--bn-kernels"]:
+        # a development aid: E3 against its plain version, in the RN50
+        # tower, and its times beside the library (about 60 s); prints no
+        # result line
+        check_e3()
+        check_e3_tower()
+        check_e3_steps()
+        check_e3_step_f64()
+        time_e3()
+        time_e3_rn50()
+        time_e3_host()
+        return
     if sys.argv[1:] == ["--attention-kernels"]:
         # a development aid: K5 and K6 against their plain versions and
         # their times alone (about 40 s); prints no result line
@@ -5742,6 +6375,11 @@ def main():
 
     trunk_err = check_int8_conv()
     trunk_kernel_times = time_int8_conv()
+    e3_err = check_e3()
+    check_e3_tower()
+    check_e3_steps()
+    check_e3_step_f64()
+    e3_times = time_e3()
     flagship8, trunk_counts, trunk_cos = drive_int8_flagship()
     intercept_cos, _ = drive_intercept()
     trunk_times, trunk_tower = time_int8_flagship(flagship8.model)
@@ -5934,6 +6572,8 @@ def main():
 
     bounds = kernel_bounds(k1_times[("steps",)])
     bounds.update(int8_conv_bounds())
+    e3_stem = e3_times[E3_CASES[0][0]]
+    bounds.update({k: (e3_stem[k]["bound"], "bytes") for k in E3_KERNELS})
     log(f"bound K1 backward B=128 T=105 H=512 bf16 "
         f"({k1_times[('steps',)]} valid (row, step) pairs): "
         f"{bounds['bigru_pooled_bwd'][0]:.4f} ms "
@@ -5979,6 +6619,14 @@ def main():
          trunk_err, trunk_kernel_times["E1"], None),
         ("int8_avg_pool", "int8_conv.cu", "models/int8_tower.py:142",
          trunk_err, trunk_kernel_times["E2"], None),
+        # E3 replaces XLA's fusion of flax's BatchNorm (no Pallas kernel):
+        # a row a launch, each timed alone at the stem's first BatchNorm;
+        # max_abs_err its largest absolute difference from its plain version
+        # (check_e3); the library the kernel of native_batch_norm or its
+        # backward for the same pass, without the ReLU and the add
+        *((name, "batch_norm.cu", "models/m_resnet.py", e3_err[name],
+           (e3_stem[name]["ms"], e3_stem[name]["plain_ms"]),
+           e3_stem[name]["lib_ms"]) for name in E3_KERNELS),
     ]
     for name, *_ in rows:
         if launches(name) < 1:

@@ -194,7 +194,7 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
         assert _build.source_hash() != before
         before = _build.source_hash()
     assert sorted(p.name for p in _build._sources()) == [
-        "bigru_pooled.cu", "bigru_pooled_bwd.cu", "bigru_resident.cu",
+        "batch_norm.cu", "bigru_pooled.cu", "bigru_pooled_bwd.cu", "bigru_resident.cu",
         "bigru_resident_bwd.cu", "fused_attention.cu", "gru_scan.cu", "gru_scan_resident.cu",
         "int8_conv.cu", "int8_mm.cu", "int8_mm_sm90.cu", "requant.cu",
         "topk_similarity.cu", "topk_tile8.cu"]

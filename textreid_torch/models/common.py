@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import batch_norm_act, takes
 from ..parallel.mesh import all_gather_stats, all_reduce_sum_, data_distributed
 
 # the smallest kh kw cout of a convolution that runs in int8 (None: none
@@ -110,8 +111,17 @@ def running_stats_frozen(module: nn.Module):
             bn.stats_frozen = value
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """``bn`` over the channels of NCHW ``x``, in ``x``'s dtype.
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, relu: bool = False,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``bn`` over the channels of NCHW ``x``, in ``x``'s dtype, then
+    ``+ residual`` and the ReLU when asked: ``relu(bn(x) + residual)``.
+
+    Train mode on a tensor the fused kernels take (``ops/batch_norm.py:
+    takes``: CUDA, f32 or bf16, channels-last contiguous), outside a
+    data-parallel group, runs E3 (``ops/batch_norm.py:batch_norm_act``): the
+    statistics, the running update, the ReLU and the add in two launches
+    each way, with the contract below.  Anything else takes the path below,
+    then the add and the ReLU as separate ops.
 
     Eval mode normalises with the running statistics, every operand cast to
     ``x``'s dtype.  Train mode normalises with the batch statistics,
@@ -130,6 +140,15 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     rows (:class:`_GlobalBatchNorm`, over the data axes), as the JAX step
     does under a data mesh, and the running statistics move towards them;
     with one shard the path above, unchanged."""
+    if bn.training and takes(x) and not data_distributed():
+        return batch_norm_act(x, bn, relu, residual)
+    out = _batch_norm(x, bn)
+    if residual is not None:
+        out = out + residual
+    return F.relu(out) if relu else out
+
+
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     if not bn.training:
         return F.batch_norm(x, bn.running_mean.to(x.dtype),
                             bn.running_var.to(x.dtype),

@@ -16,7 +16,9 @@ layer runs in the dtype of its input with its parameters cast on use
 (``models/common.py``), so f32 masters train a bf16 tower; BatchNorm
 (eps 1e-5) reads its running statistics in eval mode and, in train mode,
 normalises with f32 batch statistics and updates the running ones as
-``flax``'s ``BatchNorm(momentum=0.9)`` does (``common.batch_norm``).  The
+``flax``'s ``BatchNorm(momentum=0.9)`` does (``common.batch_norm``, which
+also takes the ReLU after a BatchNorm and a bottleneck's residual add: on
+the card in training, channels-last, E3's fused kernels).  The
 tensor layout inside is NCHW; the model's public entry takes NHWC pixels
 like the JAX package.
 """
@@ -27,7 +29,6 @@ from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .common import batch_norm, conv2d, linear
@@ -65,14 +66,14 @@ class Bottleneck(nn.Module):
             ]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
-        out = F.relu(batch_norm(conv2d(out, self.conv2), self.bn2))
-        out = batch_norm(conv2d(self.avgpool(out), self.conv3), self.bn3)
+        out = batch_norm(conv2d(x, self.conv1), self.bn1, relu=True)
+        out = batch_norm(conv2d(out, self.conv2), self.bn2, relu=True)
         identity = x
         if self.downsample is not None:
             pool, conv, bn = self.downsample
             identity = batch_norm(conv2d(pool(x), conv), bn)
-        return F.relu(out + identity)
+        return batch_norm(conv2d(self.avgpool(out), self.conv3), self.bn3,
+                          relu=True, residual=identity)
 
 
 class AttentionPool2d(nn.Module):
@@ -173,9 +174,9 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, 3, H, W]`` normalized pixels -> ``[B, output_dim]``."""
-        x = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
-        x = F.relu(batch_norm(conv2d(x, self.conv2), self.bn2))
-        x = F.relu(batch_norm(conv2d(x, self.conv3), self.bn3))
+        x = batch_norm(conv2d(x, self.conv1), self.bn1, relu=True)
+        x = batch_norm(conv2d(x, self.conv2), self.bn2, relu=True)
+        x = batch_norm(conv2d(x, self.conv3), self.bn3, relu=True)
         x = self.avgpool(x)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

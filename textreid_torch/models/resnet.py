@@ -50,12 +50,14 @@ class _Block(nn.Module):
                 _conv(inplanes, out_planes, 1, stride),
                 nn.BatchNorm2d(out_planes))
 
-    def _residual(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    def _residual(self, x: torch.Tensor, out: torch.Tensor,
+                  bn_out: nn.BatchNorm2d) -> torch.Tensor:
+        """``relu(bn_out(out) + shortcut(x))``."""
         identity = x
         if self.downsample is not None:
             conv, bn = self.downsample
             identity = batch_norm(conv2d(x, conv), bn)
-        return F.relu(out + identity)
+        return batch_norm(out, bn_out, relu=True, residual=identity)
 
 
 class BasicBlock(_Block):
@@ -71,9 +73,8 @@ class BasicBlock(_Block):
         self._shortcut(inplanes, planes, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
-        return self._residual(x, batch_norm(conv2d(out, self.conv2),
-                                            self.bn2))
+        out = batch_norm(conv2d(x, self.conv1), self.bn1, relu=True)
+        return self._residual(x, conv2d(out, self.conv2), self.bn2)
 
 
 class TorchBottleneck(_Block):
@@ -94,10 +95,9 @@ class TorchBottleneck(_Block):
         self._shortcut(inplanes, planes * self.expansion, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
-        out = F.relu(batch_norm(conv2d(out, self.conv2), self.bn2))
-        return self._residual(x, batch_norm(conv2d(out, self.conv3),
-                                            self.bn3))
+        out = batch_norm(conv2d(x, self.conv1), self.bn1, relu=True)
+        out = batch_norm(conv2d(out, self.conv2), self.bn2, relu=True)
+        return self._residual(x, conv2d(out, self.conv3), self.bn3)
 
 
 class ResNet(nn.Module):
@@ -128,7 +128,7 @@ class ResNet(nn.Module):
                                         nonlinearity="relu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(batch_norm(conv2d(x, self.conv1), self.bn1))
+        x = batch_norm(conv2d(x, self.conv1), self.bn1, relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)

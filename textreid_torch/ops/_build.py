@@ -104,6 +104,15 @@ SIGNATURES = {
                            _I, _I, _P),
     # E2: x, y, B, H, W, C, stream
     "int8_avg_pool": (_P, _P, _I, _I, _I, _I, _P),
+    # E3 (csrc/batch_norm.cu): x, is_bf16, rows, C, weight, bias,
+    # running_mean, running_var, momentum, eps, update, stats, work, stream
+    "bn_fw_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _P, _P, _P),
+    # x, residual, y, is_bf16, rows, C, stats, relu, stream
+    "bn_fw_apply": (_P, _P, _P, _I, _I, _I, _P, _I, _P),
+    # dy, x, y, is_bf16, rows, C, stats, relu, grads, work, stream
+    "bn_bw_reduce": (_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P),
+    # dy, x, y, dx, dres, is_bf16, rows, C, stats, grads, relu, stream
+    "bn_bw_elemt": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
 }
 
 
@@ -215,6 +224,9 @@ def library() -> ctypes.CDLL:
     # the current device (q_tile, splits, stages, shared bytes, rows a split)
     lib.topk_similarity_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.topk_similarity_plan.restype = ctypes.c_int
+    # words of E3's per-device workspace
+    lib.bn_workspace_words.argtypes = []
+    lib.bn_workspace_words.restype = ctypes.c_int
     lib.textreid_error_string.argtypes = [ctypes.c_int]
     lib.textreid_error_string.restype = ctypes.c_char_p
     return lib
